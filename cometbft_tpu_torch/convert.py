@@ -1,0 +1,30 @@
+"""Carry validator sets and commits across from the reference package.
+
+Accepts the reference's plain data — a ``ValidatorSet.to_proto()`` /
+``Commit.to_proto()`` dict of Python bytes and ints, or its protobuf
+wire bytes — and returns the port's objects.  Nothing of the reference
+is imported: the dict layout and the wire schema are the contract.
+"""
+from __future__ import annotations
+
+from .types.commit import Commit
+from .types.validator_set import ValidatorSet
+from .wire import decode, pb
+
+
+def _as_dict(obj, desc) -> dict:
+    if isinstance(obj, (bytes, bytearray, memoryview)):
+        return decode(desc, bytes(obj))
+    if isinstance(obj, dict):
+        return obj
+    raise TypeError(
+        f"expected a {desc.name} dict or its wire bytes, got "
+        f"{type(obj).__name__}")
+
+
+def validator_set(obj) -> ValidatorSet:
+    return ValidatorSet.from_proto(_as_dict(obj, pb.VALIDATOR_SET))
+
+
+def commit(obj) -> Commit:
+    return Commit.from_proto(_as_dict(obj, pb.COMMIT))

@@ -1,0 +1,68 @@
+"""Key and signature interfaces.
+
+Reference: crypto/crypto.go:23-55 — PubKey (Address/Bytes/VerifySignature/Type),
+PrivKey (Bytes/Sign/PubKey/Type), BatchVerifier (Add / Verify -> (bool, []bool)).
+"""
+from __future__ import annotations
+
+import abc
+from typing import Sequence
+
+from . import tmhash
+
+
+def address_hash(b: bytes) -> bytes:
+    """20-byte address: truncated SHA-256 of the raw pubkey bytes
+    (reference: crypto/crypto.go AddressHash)."""
+    return tmhash.sum_truncated(b)
+
+
+class PubKey(abc.ABC):
+    @abc.abstractmethod
+    def address(self) -> bytes: ...
+
+    @abc.abstractmethod
+    def bytes(self) -> bytes: ...
+
+    @abc.abstractmethod
+    def verify_signature(self, msg: bytes, sig: bytes) -> bool: ...
+
+    @abc.abstractmethod
+    def type(self) -> str: ...
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, PubKey) and self.type() == other.type() \
+            and self.bytes() == other.bytes()
+
+    def __hash__(self) -> int:
+        return hash((self.type(), self.bytes()))
+
+    def __repr__(self) -> str:
+        return f"PubKey{{{self.type()}:{self.bytes().hex().upper()[:16]}}}"
+
+
+class PrivKey(abc.ABC):
+    @abc.abstractmethod
+    def bytes(self) -> bytes: ...
+
+    @abc.abstractmethod
+    def sign(self, msg: bytes) -> bytes: ...
+
+    @abc.abstractmethod
+    def pub_key(self) -> PubKey: ...
+
+    @abc.abstractmethod
+    def type(self) -> str: ...
+
+
+class BatchVerifier(abc.ABC):
+    """Accumulate (pubkey, msg, sig) triples, then verify all at once.
+
+    Reference: crypto/crypto.go:47-55. Verify returns (all_valid, per_sig_valid).
+    """
+
+    @abc.abstractmethod
+    def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None: ...
+
+    @abc.abstractmethod
+    def verify(self) -> tuple[bool, Sequence[bool]]: ...

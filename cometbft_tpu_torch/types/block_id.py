@@ -1,0 +1,37 @@
+"""BlockID: a block's hash plus its part-set header.
+
+Reference: types/block.go BlockID (IsNil).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from .part_set import PartSetHeader
+
+
+@dataclass(frozen=True)
+class BlockID:
+    hash: bytes = b""
+    part_set_header: PartSetHeader = field(default_factory=PartSetHeader)
+
+    def is_nil(self) -> bool:
+        return len(self.hash) == 0 and self.part_set_header.is_zero()
+
+    def to_proto(self) -> dict:
+        d: dict = {"part_set_header": self.part_set_header.to_proto()}
+        if self.hash:
+            d["hash"] = self.hash
+        return d
+
+    @classmethod
+    def from_proto(cls, d: dict) -> "BlockID":
+        return cls(
+            hash=d.get("hash", b""),
+            part_set_header=PartSetHeader.from_proto(
+                d.get("part_set_header") or {}),
+        )
+
+    def __str__(self) -> str:
+        if self.is_nil():
+            return "nil-BlockID"
+        return f"{self.hash.hex().upper()[:12]}:{self.part_set_header}"

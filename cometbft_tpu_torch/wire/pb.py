@@ -1,0 +1,89 @@
+"""Message descriptors for canonical votes, commits and validator sets.
+
+The port's trimmed copy of cometbft_tpu/wire/pb.py (which mirrors the
+reference's proto/cometbft/**/*.proto).  Field numbers, kinds and
+gogoproto nullability are the consensus-critical contract.
+"""
+from .proto import F, Msg
+
+TIMESTAMP = Msg(
+    "google.protobuf.Timestamp",
+    F(1, "seconds", "int64"),
+    F(2, "nanos", "int32"),
+)
+
+PUBLIC_KEY = Msg(
+    "cometbft.crypto.v1.PublicKey",  # oneof sum: exactly one field set
+    F(1, "ed25519", "bytes"),
+    F(2, "secp256k1", "bytes"),
+    F(3, "bls12381", "bytes"),
+    F(4, "secp256k1eth", "bytes"),
+)
+
+PART_SET_HEADER = Msg(
+    "cometbft.types.v2.PartSetHeader",
+    F(1, "total", "uint32"),
+    F(2, "hash", "bytes"),
+)
+
+BLOCK_ID = Msg(
+    "cometbft.types.v2.BlockID",
+    F(1, "hash", "bytes"),
+    F(2, "part_set_header", "msg", msg=PART_SET_HEADER, always=True),
+)
+
+COMMIT_SIG = Msg(
+    "cometbft.types.v2.CommitSig",
+    F(1, "block_id_flag", "enum"),
+    F(2, "validator_address", "bytes"),
+    F(3, "timestamp", "msg", msg=TIMESTAMP, always=True),
+    F(4, "signature", "bytes"),
+)
+
+COMMIT = Msg(
+    "cometbft.types.v2.Commit",
+    F(1, "height", "int64"),
+    F(2, "round", "int32"),
+    F(3, "block_id", "msg", msg=BLOCK_ID, always=True),
+    F(4, "signatures", "msg", msg=COMMIT_SIG, repeated=True),
+)
+
+VALIDATOR = Msg(
+    "cometbft.types.v2.Validator",
+    F(1, "address", "bytes"),
+    F(2, "pub_key", "msg", msg=PUBLIC_KEY),  # deprecated in reference
+    F(3, "voting_power", "int64"),
+    F(4, "proposer_priority", "int64"),
+    F(5, "pub_key_bytes", "bytes"),
+    F(6, "pub_key_type", "string"),
+)
+
+VALIDATOR_SET = Msg(
+    "cometbft.types.v2.ValidatorSet",
+    F(1, "validators", "msg", msg=VALIDATOR, repeated=True),
+    F(2, "proposer", "msg", msg=VALIDATOR),
+    F(3, "total_voting_power", "int64"),
+)
+
+CANONICAL_PART_SET_HEADER = Msg(
+    "cometbft.types.v2.CanonicalPartSetHeader",
+    F(1, "total", "uint32"),
+    F(2, "hash", "bytes"),
+)
+
+CANONICAL_BLOCK_ID = Msg(
+    "cometbft.types.v2.CanonicalBlockID",
+    F(1, "hash", "bytes"),
+    F(2, "part_set_header", "msg", msg=CANONICAL_PART_SET_HEADER,
+      always=True),
+)
+
+CANONICAL_VOTE = Msg(
+    "cometbft.types.v2.CanonicalVote",
+    F(1, "type", "enum"),
+    F(2, "height", "sfixed64"),
+    F(3, "round", "sfixed64"),
+    F(4, "block_id", "msg", msg=CANONICAL_BLOCK_ID),  # nullable
+    F(5, "timestamp", "msg", msg=TIMESTAMP, always=True),
+    F(6, "chain_id", "string"),
+)

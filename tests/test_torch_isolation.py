@@ -1,0 +1,139 @@
+"""The port stands alone and runs on the card by default.
+
+  * importing every module of cometbft_tpu_torch (in a fresh
+    interpreter) loads neither jax nor anything of cometbft_tpu;
+  * the entry points resolve ``device=None`` to CUDA and raise where
+    CUDA is absent — no silent CPU fallback;
+  * the kernel wrapper rejects wrong dtypes, shapes, devices and
+    layouts before any pointer reaches native code.
+"""
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import cometbft_tpu_torch
+from cometbft_tpu_torch import device as pdevice
+from cometbft_tpu_torch.crypto import batch as pbatch
+from cometbft_tpu_torch.crypto import ed25519 as p_ed
+from cometbft_tpu_torch.ops import ed25519 as oe
+from cometbft_tpu_torch.ops import ed25519_kernel as ek
+from cometbft_tpu_torch.types import validation as pv
+from cometbft_tpu_torch.types.block_id import BlockID
+from cometbft_tpu_torch.types.commit import Commit, CommitSig
+from cometbft_tpu_torch.types.validator import Validator
+from cometbft_tpu_torch.types.validator_set import ValidatorSet
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        cometbft_tpu_torch.__path__, "cometbft_tpu_torch."))
+
+
+def test_port_imports_no_jax_and_no_reference():
+    mods = _port_modules()
+    assert "cometbft_tpu_torch.ops.ed25519_kernel" in mods
+    assert len(mods) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'cometbft_tpu' or "
+        "m.startswith('cometbft_tpu.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    src = (REPO / "chip_smoke.py").read_text()
+    assert "import jax" not in src and "from jax" not in src
+    assert "cometbft_tpu." not in src and "cometbft_tpu " not in src
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        assert pdevice.resolve(None) == torch.device("cuda")
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pdevice.resolve(None)
+    assert pdevice.resolve("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    priv = p_ed.Ed25519PrivKey(bytes(range(32)))
+    item = (priv.pub_key().bytes(), b"m", priv.sign(b"m"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        oe.verify_batch([item])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pbatch.create_batch_verifier(priv.pub_key())
+    vals = ValidatorSet([Validator.new(priv.pub_key(), 10)])
+    commit = Commit(height=1, block_id=BlockID(b"h" * 32),
+                    signatures=[CommitSig.absent()])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pv.verify_commit("c", vals, BlockID(b"h" * 32), 1, commit)
+
+
+def _cols(n=4, dtype=torch.int32):
+    return (torch.zeros(32, n, dtype=dtype), torch.zeros(32, n, dtype=dtype),
+            torch.zeros(64, n, dtype=dtype), torch.zeros(64, n, dtype=dtype))
+
+
+@pytest.mark.parametrize("fault", ["dtype", "rows", "lanes", "layout",
+                                   "not_tensor", "device"])
+def test_wrapper_rejects_bad_inputs(fault):
+    a, r, s, k = _cols()
+    if fault == "dtype":
+        a = a.long()
+        exc = TypeError
+    elif fault == "rows":
+        r = torch.zeros(31, 4, dtype=torch.int32)
+        exc = ValueError
+    elif fault == "lanes":
+        k = torch.zeros(64, 5, dtype=torch.int32)
+        exc = ValueError
+    elif fault == "layout":
+        s = torch.zeros(4, 64, dtype=torch.int32).t()
+        exc = ValueError
+    elif fault == "not_tensor":
+        a = a.numpy()
+        exc = TypeError
+    else:
+        a, r, s, k = (t.to("meta") for t in (a, r, s, k))
+        exc = ValueError
+    before = ek.launches
+    with pytest.raises(exc):
+        ek.verify_cols(a, r, s, k)
+    assert ek.launches == before
+
+
+def test_wrapper_runs_plain_version_on_cpu_tensors():
+    # all-zero columns: A = R = (sqrt(-1), 0), a point of order 4, and
+    # s = k = 0, so [8](0·B - R - 0·A) is the identity -> valid
+    before = ek.launches
+    ok = ek.verify_cols(*_cols(2))
+    assert ok.dtype == torch.bool and ok.tolist() == [True, True]
+    assert ek.launches == before
+
+
+def test_unsupported_key_type_rejected():
+    class Other(p_ed.Ed25519PubKey):
+        def type(self):
+            return "secp256k1"
+
+    with pytest.raises(ValueError, match="unsupported"):
+        pbatch.create_batch_verifier(Other(bytes(32)), device="cpu")
+    bv = pbatch.create_batch_verifier(
+        p_ed.Ed25519PubKey(bytes(32)), device="cpu")
+    with pytest.raises(ValueError, match="malformed"):
+        bv.add(p_ed.Ed25519PubKey(bytes(32)), b"m", b"short")
