@@ -1,10 +1,12 @@
-"""Build and load the CUDA kernels: nvcc by hand into a shared library
+"""Build and load the CUDA kernels: nvcc by hand into one shared library
 with a plain C interface, loaded through ctypes.
 
 The library is built at first use into ``build/`` at the repository
-root, named by a hash of its sources and flags, so an edited source
-rebuilds and an unchanged one loads what is there.  Nothing here runs
-at import; a failed build raises.
+root, named by a hash of its sources, its headers and the flags, so an
+edited source or header rebuilds and an unchanged one loads what is
+there.  Each source compiles in its own nvcc process, all started
+together, and one more nvcc links the objects into the library.
+Nothing here runs at import; a failed build raises.
 """
 from __future__ import annotations
 
@@ -15,17 +17,20 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("ed25519_verify.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("ed25519_verify.cu", "ed25519_verify8.cu", "microbench.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-# what the last build or load reported: path, seconds, ptxas output
+# what the last build or load reported: path, seconds (wall, the
+# compiles and the link), ptxas output
 build_info: dict = {}
 
 
@@ -40,11 +45,22 @@ def nvcc_path() -> str:
 
 
 def _source_key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for path in [_CSRC / s for s in SOURCES] + sorted(_CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _nvcc(args: list[str]) -> str:
+    """Run nvcc; its merged output.  A failed run raises."""
+    cmd = [nvcc_path(), *args]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}")
+    return proc.stdout
 
 
 def build() -> Path:
@@ -58,19 +74,24 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(_CSRC / s) for s in SOURCES]]
+    objs = [tmp.with_name(f"{tmp.name}.{Path(name).stem}.o")
+            for name in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
+    try:
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            reports = list(pool.map(_nvcc, [
+                [*COMPILE_FLAGS, "-c", "-o", str(obj), str(_CSRC / name)]
+                for name, obj in zip(SOURCES, objs)]))
+        _nvcc([*ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    ptxas = "".join(f"--- {name}\n{text}"
+                    for name, text in zip(SOURCES, reports))
+    log.write_text(ptxas)
     os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=seconds, cached=False,
-                      ptxas=proc.stdout + proc.stderr)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      cached=False, ptxas=ptxas)
     return out
 
 
@@ -80,9 +101,15 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.ed25519_verify_launch.argtypes = [ctypes.c_void_p] * 5 + [
+            verify_args = [ctypes.c_void_p] * 5 + [
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            lib.ed25519_verify_launch.restype = ctypes.c_int
+            for fn in (lib.ed25519_verify_launch, lib.ed25519_verify8_launch):
+                fn.argtypes = verify_args
+                fn.restype = ctypes.c_int
+            lib.microbench_launch.argtypes = [
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            lib.microbench_launch.restype = ctypes.c_int
             lib.ed25519_error_string.argtypes = [ctypes.c_int]
             lib.ed25519_error_string.restype = ctypes.c_char_p
             _lib = lib

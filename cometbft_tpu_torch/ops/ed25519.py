@@ -3,13 +3,23 @@
 Counterpart of the host half of cometbft_tpu/ops/ed25519_jax.py:
 pad buckets (:281), the host prep (prep_arrays, the numpy/hashlib
 branch at :661-715), the balanced tile plan and the pre_bad masking
-(:786-787).  Each tile is prepped, copied to the device, transposed to
-the kernel's int32 column layout and verified by
-ops/ed25519_kernel.verify_cols, one after another on the current
-stream; the verdicts are read back once, after the last launch.
+(:786-787), and the kernel choice (``_kernel_choice``/``_pallas_module``,
+:573-598).  Each tile is prepped, copied to the device, transposed to
+the kernel's int32 column layout and verified by the chosen kernel
+module's ``verify_cols``, one after another on the current stream; the
+verdicts are read back once, after the last launch.
+
+The kernel is chosen by ``COMETBFT_TPU_TORCH_KERNEL``, read on every
+call: ``cuda`` (the default) is ops/ed25519_kernel.py (B1, radix
+2^25.5), ``cuda8`` is ops/ed25519_kernel8.py (B2, radix 2^16).  Any
+other value raises: there is no "auto" and no fallback, and the JAX
+package's names (``pallas``, ``pallas8``, ``xla``) are not accepted.
+The variable is the port's own so that ``COMETBFT_TPU_KERNEL``, which
+the JAX package reads, cannot reach it.
 """
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
@@ -18,13 +28,26 @@ import torch
 from ..crypto import _ed25519_ref as ref
 from ..crypto.pipeline import DEFAULT_TILE, tile_plan
 from ..device import resolve
-from . import ed25519_kernel
+from . import ed25519_kernel, ed25519_kernel8
 
 L = ref.L
+
+KERNEL_ENV = "COMETBFT_TPU_TORCH_KERNEL"
+KERNELS = {"cuda": ed25519_kernel, "cuda8": ed25519_kernel8}
 
 _BASE_BUCKETS = (64, 1024, 4096, 10240, 16384)
 _IDENTITY_BYTES = bytes([1] + [0] * 31)     # compressed identity (y=1)
 _B_BYTES = ref.compress(ref.B)
+
+
+def _kernel_choice() -> str:
+    """``cuda`` or ``cuda8`` from COMETBFT_TPU_TORCH_KERNEL (default
+    ``cuda``); any other value raises ValueError."""
+    choice = os.environ.get(KERNEL_ENV, "cuda")
+    if choice not in KERNELS:
+        raise ValueError(
+            f"{KERNEL_ENV}={choice!r}: expected one of {sorted(KERNELS)}")
+    return choice
 
 
 def _bucket(n: int) -> int:
@@ -114,9 +137,11 @@ def verify_batch(items: Sequence[tuple[bytes, bytes, bytes]],
                  device=None) -> tuple[bool, list[bool]]:
     """Verify [(pub, msg, sig), ...]; returns (all_valid, per_sig_mask)
     — the reference BatchVerifier.Verify contract (crypto/crypto.go:47).
-    Batches above DEFAULT_TILE split into balanced tiles.  Runs on the
-    card unless ``device`` names another device."""
+    Batches above DEFAULT_TILE split into balanced tiles, all verified
+    by the kernel ``COMETBFT_TPU_TORCH_KERNEL`` names.  Runs on the card
+    unless ``device`` names another device."""
     dev = resolve(device)
+    kernel = KERNELS[_kernel_choice()]
     n = len(items)
     if n == 0:
         return True, []
@@ -124,7 +149,7 @@ def verify_batch(items: Sequence[tuple[bytes, bytes, bytes]],
     for lo, hi in tile_plan(n, _bucket(DEFAULT_TILE)):
         a_b, r_b, s_w8, k_w8, pre_bad = prep_arrays(items[lo:hi],
                                                     _bucket(hi - lo))
-        ok = ed25519_kernel.verify_cols(
+        ok = kernel.verify_cols(
             to_cols(a_b, dev), to_cols(r_b, dev), to_cols(s_w8, dev),
             to_cols(k_w8, dev))
         pending.append((lo, hi, ok, pre_bad))

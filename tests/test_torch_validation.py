@@ -4,8 +4,9 @@ Commits of 4 to 16 validators are built and signed with the JAX
 package's own types and keys, carried across by
 cometbft_tpu_torch/convert.py (as dicts and as wire bytes), and verified
 by both packages: the reference on its ``cpu`` backend, the port with
-``device="cpu"`` (the CUDA kernel's plain version).  Verdicts and error
-texts must be equal."""
+``device="cpu"`` (the CUDA kernel's plain version, of the first kernel
+and, under COMETBFT_TPU_TORCH_KERNEL=cuda8, of the second).  Verdicts
+and error texts must be equal."""
 import pytest
 
 from cometbft_tpu.crypto import ed25519 as r_ed
@@ -90,9 +91,7 @@ CALLS = ["verify_commit", "verify_commit_light",
          "verify_commit_light_trusting"]
 
 
-@pytest.mark.parametrize("call", CALLS)
-@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
-def test_verdict_and_error_text_match_reference(scenario, call):
+def _check_against_reference(scenario, call):
     opts = dict(SCENARIOS[scenario])
     vals, commit = _signed(**opts)
     # carried across once as dicts, once as wire bytes
@@ -118,6 +117,26 @@ def test_verdict_and_error_text_match_reference(scenario, call):
         assert want is None
     if scenario == "bad_signature":
         assert want[1].startswith("wrong signature (#2): ")
+
+
+@pytest.mark.parametrize("call", CALLS)
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_verdict_and_error_text_match_reference(scenario, call):
+    _check_against_reference(scenario, call)
+
+
+@pytest.mark.parametrize("call", CALLS)
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_second_kernel_verdict_and_error_text_match_reference(
+        scenario, call, monkeypatch):
+    """The same commits through COMETBFT_TPU_TORCH_KERNEL=cuda8 (the
+    second kernel's plain version); the first kernel is never reached."""
+    def first_kernel(*_):
+        raise AssertionError("cuda8 reached the first kernel")
+
+    monkeypatch.setenv("COMETBFT_TPU_TORCH_KERNEL", "cuda8")
+    monkeypatch.setattr(ek, "verify_cols", first_kernel)
+    _check_against_reference(scenario, call)
 
 
 def test_single_signature_path_matches_reference():
