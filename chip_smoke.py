@@ -5,11 +5,12 @@
 Builds the CUDA kernels from the sources in this checkout (one library:
 ed25519_verify.cu, ed25519_verify8.cu, microbench.cu), holds each
 against its plain PyTorch version and the golden model on edge-case
-lanes, then verifies a 10,000-validator commit through the port's entry
-points (types/validation -> crypto/batch -> ops/ed25519 -> the kernel),
-once with the default kernel (B1) and once with
-COMETBFT_TPU_TORCH_KERNEL=cuda8 (B2), counting each kernel's launches on
-that path.  It times both kernels, their plain versions and the
+lanes (B1, four threads a signature, also at lane counts that leave a
+partial quad, warp or block), then verifies a 10,000-validator commit
+through the port's entry points (types/validation -> crypto/batch ->
+ops/ed25519 -> the kernel), once with the default kernel (B1) and once
+with COMETBFT_TPU_TORCH_KERNEL=cuda8 (B2), counting each kernel's
+launches on that path.  It times both kernels, their plain versions and the
 end-to-end call, traces one verify_commit with torch.profiler for the
 device's busy share, and runs the microbenchmark suite (B3) at 16,384
 and 262,144 lanes, holding each of its nine kernels to its plain version
@@ -70,6 +71,9 @@ CONST_BYTES = 510 * 4
 MB_IN_BYTES_PER_LANE = 32 * 4
 MB_OUT_BYTES_PER_LANE = 10 * 4
 MB_BIG = 262_144
+# B1 runs four threads a signature: these lane counts leave a partial
+# quad, warp or block
+PARTIAL_LANES = (1, 3, 4, 5, 31, 33, 64, 1023)
 
 
 def _sign_job(job):
@@ -397,6 +401,21 @@ def main() -> int:
              f"valid {int(mask.sum())}; kernel == plain on all 1024; "
              f"golden subset {len(subset)} agrees "
              f"({sum(golden)} valid); max_abs_err {max_abs_err}")
+        # lane counts that leave a partial quad, warp or block of B1
+        for m in PARTIAL_LANES:
+            pa, pr, ps, pk, _ = oe.prep_arrays(items[:m], m)
+            pcols = [oe.to_cols(x, dev) for x in (pa, pr, ps, pk)]
+            got_m = ek.verify_cols(*pcols)
+            torch.cuda.synchronize()
+            plain_m = ek.verify_cols_plain(*pcols)
+            if not torch.equal(got_m, plain_m):
+                raise AssertionError(
+                    f"kernel != plain on {int((got_m != plain_m).sum())} "
+                    f"of {m} lanes")
+            max_abs_err = max(max_abs_err, int(
+                (got_m.int() - plain_m.int()).abs().max().item()))
+        _log(f"kernel == plain at {', '.join(map(str, PARTIAL_LANES))} "
+             f"lanes (partial quads, warps and blocks)")
 
         # -- 2b. second kernel vs its plain version and the first -----------
         _phase("2b second kernel (B2) vs plain and B1, same 1024 lanes")
@@ -713,6 +732,9 @@ def main() -> int:
         "route": "cuda",
         "source": "cometbft_tpu_torch/ops/csrc/ed25519_verify.cu",
         "replaces": "cometbft_tpu/ops/ed25519_pallas.py:379",
+        "design": "four threads a signature on the 4-way extended-"
+                  "coordinate rounds, 55-product squaring, cached lane "
+                  "table in shared memory",
         "launches": main_launches,
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,

@@ -1,8 +1,10 @@
 // Device functions of the batch ed25519 verifier (ZIP-215, cofactored)
-// for Hopper (sm_90a): the field in radix 2^25.5, the point formulas and
-// ZIP-215 decompression.  Shared by ed25519_verify.cu (the verify kernel)
-// and microbench.cu (loops over the same primitives), so both run one
-// source.  The plain PyTorch version of every function is
+// for Hopper (sm_90a): the field in radix 2^25.5, the single-thread point
+// formulas and ZIP-215 decompression.  Shared by ed25519_verify.cu (the
+// verify kernel, which runs the field and decompression, and its own
+// four-thread point rounds) and microbench.cu (loops over the field and
+// the single-thread point formulas), so both run one source.  The plain
+// PyTorch version of every function is
 // cometbft_tpu_torch/ops/field.py and ops/ed25519_kernel.py; the two agree
 // limb for limb.
 //
@@ -104,15 +106,47 @@ __device__ __forceinline__ void fe_mul(fe& out, const fe& f, const fe& g) {
   fe_carry(out, h);
 }
 
-__device__ __forceinline__ void fe_sqr(fe& out, const fe& f) { fe_mul(out, f, f); }
+// f² with 55 products where fe_mul(f, f) runs 100: 10 diagonal terms and
+// 45 cross terms taken once against the doubled operand f2 = 2f.  The
+// parity rule of fe_mul holds: an odd x odd term carries one more factor
+// of 2, so an odd diagonal is f2_i·f_i and an odd x odd cross term
+// f2_i·f2_j.  Every accumulator receives the same integer as in
+// fe_mul(f, f) (the same products, paired), so the limbs out are the
+// same and ops/field.sqr = mul(f, f) stays its plain version.  The fold
+// by 19 stays on the int64 sums: operands are up to 4 resting values
+// (|limb| < 2^27), so f2 < 2^28 fits int32 but 38·f2 would not.
+// out may alias f.
+__device__ __forceinline__ void fe_sqr(fe& out, const fe& f) {
+  int32_t f2[LIMBS];
+#pragma unroll
+  for (int i = 0; i < LIMBS; ++i) f2[i] = 2 * f.v[i];
+  int64_t lo[LIMBS], hi[LIMBS];
+#pragma unroll
+  for (int k = 0; k < LIMBS; ++k) { lo[k] = 0; hi[k] = 0; }
+#pragma unroll
+  for (int i = 0; i < LIMBS; ++i) {
+    const int64_t d = (int64_t)((i & 1) ? f2[i] : f.v[i]) * f.v[i];
+    if (2 * i < LIMBS) lo[2 * i] += d; else hi[2 * i - LIMBS] += d;
+#pragma unroll
+    for (int j = i + 1; j < LIMBS; ++j) {
+      const int64_t p =
+          (int64_t)f2[i] * (((i & 1) && (j & 1)) ? f2[j] : f.v[j]);
+      if (i + j < LIMBS) lo[i + j] += p; else hi[i + j - LIMBS] += p;
+    }
+  }
+  int64_t h[LIMBS];
+#pragma unroll
+  for (int k = 0; k < LIMBS; ++k) h[k] = lo[k] + 19 * hi[k];
+  fe_carry(out, h);
+}
 
-__device__ __noinline__ void fe_pow2k(fe& x, int k) {
+__device__ __forceinline__ void fe_pow2k(fe& x, int k) {
 #pragma unroll 1
   for (int i = 0; i < k; ++i) fe_sqr(x, x);
 }
 
 // x^((p-5)/8) = x^(2^252 - 3), same chain as ops/field.pow_p58.
-__device__ __noinline__ void fe_pow_p58(fe& out, const fe& x) {
+__device__ __forceinline__ void fe_pow_p58(fe& out, const fe& x) {
   fe x2, z9, z11, z_5_0, z_10_0, z_20_0, z_50_0, z_100_0, t;
   fe_sqr(x2, x);
   fe_sqr(t, x2);
@@ -147,7 +181,7 @@ __device__ __forceinline__ int64_t sweep(int64_t c[LIMBS]) {
 }
 
 // Canonical digits of x mod p (ops/field.canonical).
-__device__ __noinline__ void fe_canonical(fe& out, const fe& x) {
+__device__ __forceinline__ void fe_canonical(fe& out, const fe& x) {
   int64_t h[LIMBS];
 #pragma unroll
   for (int i = 0; i < LIMBS; ++i) h[i] = x.v[i];
@@ -282,8 +316,9 @@ __device__ __forceinline__ void fe_from_bytes(fe& h, const int32_t b[32]) {
 }
 
 // ZIP-215 decompression of one lane's 32-byte column; returns validity.
-__device__ __noinline__ bool ge_decompress(fe& x, fe& y, const int32_t* col,
-                                           int n, int lane, const int32_t* sc) {
+__device__ __forceinline__ bool ge_decompress(fe& x, fe& y,
+                                              const int32_t* col, int n,
+                                              int lane, const int32_t* sc) {
   int32_t b[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) b[i] = col[(size_t)i * n + lane] & 0xFF;
@@ -316,7 +351,9 @@ __device__ __noinline__ bool ge_decompress(fe& x, fe& y, const int32_t* col,
   const bool ok_direct = fe_eq(vxx, u);
   fe_neg(negu, u);
   const bool ok_flip = fe_eq(vxx, negu);
-  if (ok_flip) fe_mul(x, x, sqrt_m1);
+  fe x_flip;
+  fe_mul(x_flip, x, sqrt_m1);
+  if (ok_flip) x = x_flip;
   if (fe_parity(x) != sign) fe_neg(x, x);
   return ok_direct || ok_flip;
 }

@@ -4,34 +4,177 @@
 // (_kernel, :379; launched by _pallas_verify, :469).  Same function and
 // the same public layout: A and R as [32, n] int32 byte columns, s and k
 // as [64, n] int32 4-bit windows; one verdict byte per lane out.  The
-// plain PyTorch version of every step below is
+// plain PyTorch version of the function is
 // cometbft_tpu_torch/ops/ed25519_kernel.py (verify_cols_plain) on
-// ops/field.py; the two agree limb for limb.
+// ops/field.py; the round formulas below are its _quad_* helpers.
 //
-// Design: one thread per signature.  The TPU kernel's where-trees (the
-// vector unit cannot gather across lanes) become plain indexed loads.
-// The field, the point formulas and decompression are in
-// ed25519_field.cuh (shared with microbench.cu), with their overflow
-// bound.
-//   * The per-lane table i·(-A), 16 x 4 x 10 int32 = 2.5 KB, lives in
-//     local memory (cached in L1): too large for registers.
-//   * The constant block (D, 2D, sqrt(-1), the affine 16 x 3 B table) is
-//     copied to shared memory once per block; lanes index it by their own
-//     window, which constant memory would serialize.
+// Bound on this card: integer issue.  The function takes 3,585 field
+// multiplies a signature as verify_cols_plain counts them (1,546 of them
+// squarings) and moves 193 bytes a lane; the bound's formula is in
+// PERF.md.  One thread a signature left it latency-bound: 4,096 lanes are
+// 128 warps on 528 schedulers, and one thread's chain of 3,585 dependent
+// multiplies set the time.  So the design shortens the chain and fills
+// the schedulers:
 //
-// Bound on this card: integer issue.  3,585 field multiplies per
-// signature (64 windows x 45, two decompressions of ~277, 14 table adds
-// x 9), 1,546 of them squarings.  fe_sqr runs the 100 products of a
-// general multiply where 55 would do.  The function moves 193 bytes per
-// lane.  The launch counts, inputs and the bound's formula are in
-// PERF.md.
+//   * A quad per signature.  Lanes 4q..4q+3 of a warp own one signature
+//     and all hold the same accumulator.  Each round of the 4-way
+//     extended-coordinate formulas (Hisil, Wong, Carter, Dawson,
+//     "Twisted Edwards Curves Revisited", 2008) has each thread compute
+//     one of four independent products, then __shfl_sync (width 4)
+//     gathers the four results into every thread.  A doubling
+//     (dbl-2008-hwcd) and an addition (add-2008-hwcd-3) are 2 rounds
+//     each, so a window is 12 rounds; the chain is about 1,070 products
+//     deep instead of 3,585.  A 4,096-lane tile is 512 warps.
+//   * Every thread runs every shuffle: a thread past the last signature
+//     computes on the last lane and only the store is guarded.  The
+//     data-dependent selects of decompression hold no shuffle.
+//   * Decompression of A (threads 0, 2) and R (threads 1, 3) runs side by
+//     side, the same instructions on different data.
+//   * The table i·(-A) is kept in cached form (Y-X, Y+X, 2d·T, 2Z); thread
+//     c keeps coordinate c of each entry, 16 x 10 int32 = 640 B, in shared
+//     memory ([entry][limb][thread]: conflict-free, indexed by the lane's
+//     own window without going through the stack).  The window add then
+//     needs one product per thread: (Y1-X1)·YmX, (Y1+X1)·YpX, T1·2dT and
+//     Z1·2Z.  The mixed adds of an affine point (the B-table entry, -A
+//     while the table is built, -R) form D = 2·Z1 without a product, and
+//     thread 3 computes 2d·T1 in that slot: the last coordinate of the
+//     table entry the running point becomes.
+//   * The point steps are force-inlined and take the point by reference
+//     inside the one function, so no operand crosses a call boundary.
+//   * Every product operand stays within 4 resting values (MAX_LAZY, the
+//     bound of ed25519_field.cuh), checked round by round on the plain
+//     helpers by tests/test_torch_ed25519_quad.py.
+//
+// The constant block (D, 2D, sqrt(-1), the affine 16 x 3 B table) is
+// copied to shared memory once per block.
 
 #include "ed25519_field.cuh"
 
 namespace {
 
 constexpr int WINDOWS = 64;
-constexpr int THREADS = 32;
+constexpr int QUAD = 4;
+constexpr int THREADS = 64;               // 16 signatures a block
+constexpr unsigned FULL = 0xffffffffu;
+
+// Round result r of thread k lands in coordinate k of out, in every
+// thread of the quad.
+__device__ __forceinline__ void quad_gather(ge& out, const fe& r) {
+#pragma unroll
+  for (int i = 0; i < LIMBS; ++i) {
+    out.X.v[i] = __shfl_sync(FULL, r.v[i], 0, QUAD);
+    out.Y.v[i] = __shfl_sync(FULL, r.v[i], 1, QUAD);
+    out.Z.v[i] = __shfl_sync(FULL, r.v[i], 2, QUAD);
+    out.T.v[i] = __shfl_sync(FULL, r.v[i], 3, QUAD);
+  }
+}
+
+// out = the operand of thread c among four.
+__device__ __forceinline__ void fe_pick(fe& out, int c, const fe& f0,
+                                        const fe& f1, const fe& f2,
+                                        const fe& f3) {
+#pragma unroll
+  for (int i = 0; i < LIMBS; ++i)
+    out.v[i] = c == 0 ? f0.v[i] : c == 1 ? f1.v[i] : c == 2 ? f2.v[i]
+                                                          : f3.v[i];
+}
+
+// Round 2 of an add or a double: thread c computes X3 = E·F, Y3 = G·H,
+// Z3 = F·G or T3 = E·H (ed25519_kernel._quad_finish).
+__device__ __forceinline__ void quad_finish(ge& p, int c, const fe& e,
+                                            const fe& f, const fe& g,
+                                            const fe& h) {
+  fe lhs, rhs, r;
+  fe_pick(lhs, c, e, g, f, e);
+  fe_pick(rhs, c, f, h, g, h);
+  fe_mul(r, lhs, rhs);
+  quad_gather(p, r);
+}
+
+// p = 2p (ed25519_kernel._quad_double).  Round 1: X², Y², Z², (X+Y)².
+__device__ __forceinline__ void quad_double(ge& p, int c) {
+  fe s, r;
+  fe_add(s, p.X, p.Y);
+  fe_pick(s, c, p.X, p.Y, p.Z, s);
+  fe_sqr(r, s);
+  ge q;
+  quad_gather(q, r);
+  fe zz, e, f, g, h;
+  fe_add(zz, q.Z, q.Z);
+  fe_sub(e, q.T, q.X);
+  fe_sub(e, e, q.Y);
+  fe_sub(g, q.Y, q.X);
+  fe_sub(f, g, zz);
+  fe_add(h, q.X, q.Y);
+  fe_neg(h, h);
+  quad_finish(p, c, e, f, g, h);
+}
+
+// Round-1 operand of thread c for adding a point to p: Y1-X1, Y1+X1, T1
+// or, for thread 3, `last`.
+__device__ __forceinline__ void add_operand(fe& lhs, const ge& p, int c,
+                                            const fe& last) {
+  fe ymx, ypx;
+  fe_sub(ymx, p.Y, p.X);
+  fe_add(ypx, p.Y, p.X);
+  fe_pick(lhs, c, ymx, ypx, p.T, last);
+}
+
+// Round 2 of an add from the gathered round-1 products (A, B, C, D).
+__device__ __forceinline__ void add_finish(ge& p, int c, const ge& q) {
+  fe e, f, g, h;
+  fe_sub(e, q.Y, q.X);
+  fe_sub(f, q.T, q.Z);
+  fe_add(g, q.T, q.Z);
+  fe_add(h, q.Y, q.X);
+  quad_finish(p, c, e, f, g, h);
+}
+
+// p += Q, where mine is coordinate c of Q in cached form (Y-X, Y+X,
+// 2d·T, 2Z): round 1 is (Y1-X1)·YmX, (Y1+X1)·YpX, T1·2dT, Z1·2Z
+// (ed25519_kernel._quad_add_cached).
+__device__ __forceinline__ void quad_add_cached(ge& p, int c, const fe& mine) {
+  fe lhs, r;
+  add_operand(lhs, p, c, p.Z);
+  fe_mul(r, lhs, mine);
+  ge q;
+  quad_gather(q, r);
+  add_finish(p, c, q);
+}
+
+// p += Q for an affine Q (y-x, y+x, 2d·x·y; Z = 1), mine = coordinate c
+// of it for c < 3.  D = 2·Z1 needs no product, so thread 3's round-1 slot
+// computes 2d·T1, which comes back in t2d_p: the cached coordinate of p
+// before the add (ed25519_kernel._quad_madd).
+__device__ __forceinline__ void quad_madd(ge& p, int c, const fe& mine,
+                                          const fe& two_d, fe& t2d_p) {
+  fe lhs, rhs, r;
+  add_operand(lhs, p, c, p.T);
+  fe_pick(rhs, c, mine, mine, mine, two_d);
+  fe_mul(r, lhs, rhs);
+  ge q;
+  quad_gather(q, r);
+  t2d_p = q.T;
+  fe_add(q.T, p.Z, p.Z);
+  add_finish(p, c, q);
+}
+
+// Coordinate c of the cached form of p, given 2d·T of p: thread c
+// stores only its own coordinate.
+__device__ __forceinline__ void cached_coord(fe& out, const ge& p, int c,
+                                             const fe& t2d) {
+  fe ymx, ypx, z2;
+  fe_sub(ymx, p.Y, p.X);
+  fe_add(ypx, p.Y, p.X);
+  fe_add(z2, p.Z, p.Z);
+  fe_pick(out, c, ymx, ypx, t2d, z2);
+}
+
+__device__ __forceinline__ void tab_store(int32_t (*tab)[LIMBS][THREADS],
+                                          int e, const fe& v) {
+#pragma unroll
+  for (int i = 0; i < LIMBS; ++i) tab[e][i][threadIdx.x] = v.v[i];
+}
 
 __global__ void __launch_bounds__(THREADS)
 ed25519_verify_kernel(const int32_t* __restrict__ a_cols,
@@ -41,48 +184,92 @@ ed25519_verify_kernel(const int32_t* __restrict__ a_cols,
                       const int32_t* __restrict__ consts, int n,
                       uint8_t* __restrict__ ok) {
   __shared__ int32_t sc[C_TOTAL];
+  __shared__ int32_t tab[16][LIMBS][THREADS];
   for (int i = threadIdx.x; i < C_TOTAL; i += blockDim.x) sc[i] = consts[i];
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  const int c = threadIdx.x & (QUAD - 1);
+  const int sig = (blockIdx.x * THREADS + threadIdx.x) / QUAD;
+  const int lane = sig < n ? sig : n - 1;   // past the end: the last lane
 
-  fe ax, ay, rx, ry, two_d;
-  const bool a_ok = ge_decompress(ax, ay, a_cols, n, lane, sc);
-  const bool r_ok = ge_decompress(rx, ry, r_cols, n, lane, sc);
+  fe two_d, two, zero, one;
   fe_load(two_d, sc + C_2D);
+  fe_zero(zero);
+  fe_one(one);
+  fe_zero(two);
+  two.v[0] = 2;
 
-  // per-lane table of i·(-A), i = 0..15
-  ge tab[16];
-  fe_zero(tab[0].X); fe_one(tab[0].Y); fe_one(tab[0].Z); fe_zero(tab[0].T);
-  fe_neg(tab[1].X, ax);
-  tab[1].Y = ay;
-  fe_one(tab[1].Z);
-  fe_mul(tab[1].T, tab[1].X, tab[1].Y);
+  // A in threads 0 and 2, R in threads 1 and 3; then each thread's
+  // point -P = (-x, y, 1, T) and 2d·T, and the quad shares them
+  fe x, y, t, t2d;
+  const bool p_ok = ge_decompress(x, y, (c & 1) ? r_cols : a_cols, n, lane,
+                                  sc);
+  fe_neg(x, x);
+  fe_mul(t, x, y);
+  fe_mul(t2d, t, two_d);
+  const bool a_ok = __shfl_sync(FULL, (int)p_ok, 0, QUAD) != 0;
+  const bool r_ok = __shfl_sync(FULL, (int)p_ok, 1, QUAD) != 0;
+  ge neg_a, neg_r;
+  fe neg_a_t2d, neg_r_t2d;
+#pragma unroll
+  for (int i = 0; i < LIMBS; ++i) {
+    neg_a.X.v[i] = __shfl_sync(FULL, x.v[i], 0, QUAD);
+    neg_a.Y.v[i] = __shfl_sync(FULL, y.v[i], 0, QUAD);
+    neg_a.T.v[i] = __shfl_sync(FULL, t.v[i], 0, QUAD);
+    neg_a_t2d.v[i] = __shfl_sync(FULL, t2d.v[i], 0, QUAD);
+    neg_r.X.v[i] = __shfl_sync(FULL, x.v[i], 1, QUAD);
+    neg_r.Y.v[i] = __shfl_sync(FULL, y.v[i], 1, QUAD);
+    neg_r_t2d.v[i] = __shfl_sync(FULL, t2d.v[i], 1, QUAD);
+  }
+  neg_a.Z = one;
+  neg_r.Z = one;
+
+  // table of i·(-A), i = 0..15, cached.  Entry 0 is (1, 1, 0, 2).  Each
+  // mixed add of -A returns 2d·T of the running point i·(-A), the last
+  // coordinate of entry i.
+  fe mine, neg_a_mine;
+  fe_pick(mine, c, one, one, zero, two);
+  tab_store(tab, 0, mine);
+  cached_coord(neg_a_mine, neg_a, c, neg_a_t2d);
+  ge acc = neg_a;
 #pragma unroll 1
-  for (int i = 1; i < 15; ++i) ge_add(tab[i + 1], tab[i], tab[1], two_d, true);
+  for (int i = 1; i < 15; ++i) {
+    ge prev = acc;
+    quad_madd(acc, c, neg_a_mine, two_d, t2d);
+    cached_coord(mine, prev, c, t2d);           // entry i
+    tab_store(tab, i, mine);
+  }
+  fe_mul(t2d, acc.T, two_d);                    // entry 15
+  cached_coord(mine, acc, c, t2d);
+  tab_store(tab, 15, mine);
 
-  ge acc = tab[0];
+  // 64 windows from the top: 4 doublings, a mixed add of the B-table
+  // entry of the s window, an add of the lane-table entry of the k window
+  acc.X = zero;
+  acc.Y = one;
+  acc.Z = one;
+  acc.T = zero;
+  const int bc = c < 3 ? c : 0;                 // thread 3 reads no entry
 #pragma unroll 1
   for (int j = 0; j < WINDOWS; ++j) {
     const int w = WINDOWS - 1 - j;
 #pragma unroll 1
-    for (int i = 0; i < 4; ++i) ge_double(acc, acc, i == 3);
+    for (int i = 0; i < 4; ++i) quad_double(acc, c);
     const int sw = s_win[(size_t)w * n + lane] & 15;
     const int kw = k_win[(size_t)w * n + lane] & 15;
-    ge_madd(acc, acc, sc + C_BTAB + sw * 3 * LIMBS);
-    ge_add(acc, acc, tab[kw], two_d, true);
+    fe_load(mine, sc + C_BTAB + (sw * 3 + bc) * LIMBS);
+    quad_madd(acc, c, mine, two_d, t2d);
+#pragma unroll
+    for (int i = 0; i < LIMBS; ++i) mine.v[i] = tab[kw][i][threadIdx.x];
+    quad_add_cached(acc, c, mine);
   }
 
-  ge neg_r;
-  fe_neg(neg_r.X, rx);
-  neg_r.Y = ry;
-  fe_one(neg_r.Z);
-  fe_mul(neg_r.T, neg_r.X, neg_r.Y);
-  ge_add(acc, acc, neg_r, two_d, false);
+  // add -R (affine), double 3 times, test the identity
+  cached_coord(mine, neg_r, c, neg_r_t2d);
+  quad_madd(acc, c, mine, two_d, t2d);
 #pragma unroll 1
-  for (int i = 0; i < 3; ++i) ge_double(acc, acc, false);
+  for (int i = 0; i < 3; ++i) quad_double(acc, c);
   const bool good = fe_is_zero(acc.X) && fe_eq(acc.Y, acc.Z) && a_ok && r_ok;
-  ok[lane] = good ? 1 : 0;
+  if (c == 0 && sig < n) ok[sig] = good ? 1 : 0;
 }
 
 }  // namespace
@@ -92,7 +279,7 @@ extern "C" int ed25519_verify_launch(const void* a_cols, const void* r_cols,
                                      const void* consts, int n, void* ok,
                                      void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + THREADS - 1) / THREADS;
+  const int blocks = (int)(((int64_t)n * QUAD + THREADS - 1) / THREADS);
   ed25519_verify_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a_cols, (const int32_t*)r_cols, (const int32_t*)s_win,
       (const int32_t*)k_win, (const int32_t*)consts, n, (uint8_t*)ok);

@@ -1,7 +1,9 @@
 // Per-primitive microbenchmarks of the batch ed25519 verifier for Hopper
-// (sm_90a): loops over the device functions of ed25519_verify.cu, from
-// the same header (ed25519_field.cuh), so a time here is the cost of the
-// code the verifier runs.
+// (sm_90a): loops over the device functions of ed25519_field.cuh.  carry,
+// mul and sqr are the field code ed25519_verify.cu runs, so their times
+// are the cost of a verifier round's product; double, add, madd and
+// window run the header's single-thread point formulas, which the
+// verifier replaced by four-thread rounds.
 //
 // Replaces the Pallas TPU kernels of cometbft_tpu/ops/microbench.py
 // (_make_kernel(op, reps), :82; launched by _bench_call, :178).  One
@@ -27,7 +29,7 @@
 // PyTorch version is cometbft_tpu_torch/ops/microbench.bench_cols_plain;
 // the two agree limb for limb.
 //
-// One thread per lane, 32 threads a block, as in ed25519_verify.cu.  A
+// One thread per lane, 32 threads a block.  A
 // record at 16,384 lanes (512 warps) shows the latency of one lane's
 // chain; more lanes show the issue rate.
 

@@ -111,6 +111,68 @@ def _madd_affine(p, q3):
             field.mul(e, h))
 
 
+# --- the kernel's rounds: four threads a signature --------------------------
+#
+# The CUDA kernel runs the 4-way schedule of the extended-coordinate
+# formulas: thread c of a quad computes product c of a round, and the quad
+# gathers the four.  Each helper below is one round per tensor expression
+# (the four products as one batched multiply).  They agree with the
+# _ext_* formulas mod p, not limb for limb: the kernel multiplies by 2d
+# and 2Z in another order.  verify_cols_plain keeps the _ext_* formulas,
+# so its op count (the kernel's bound) does not move.
+
+def _products(lhs, rhs):
+    """One round: product c = lhs[c]·rhs[c] for c = 0..3, as one multiply."""
+    ops = torch.broadcast_tensors(*lhs, *rhs)
+    return field.mul(torch.stack(ops[:4]), torch.stack(ops[4:])).unbind(0)
+
+
+def _squares(xs):
+    """One round of squarings: xs[c]² for c = 0..3 (the kernel's
+    dedicated fe_sqr, limb for limb field.sqr)."""
+    return field.sqr(torch.stack(torch.broadcast_tensors(*xs))).unbind(0)
+
+
+def _quad_finish(e, f, g, h):
+    """Round 2 of an add or a double: X3 = E·F, Y3 = G·H, Z3 = F·G,
+    T3 = E·H."""
+    return _products((e, g, f, e), (f, h, g, h))
+
+
+def _quad_double(p):
+    """dbl-2008-hwcd, a = -1, in 2 rounds: X², Y², Z², (X+Y)², then the
+    four products of _quad_finish.  T comes free."""
+    X1, Y1, Z1, _ = p
+    a, b, zz, s = _squares((X1, Y1, Z1, X1 + Y1))
+    g = b - a
+    return _quad_finish(s - a - b, g - (zz + zz), g, -(a + b))
+
+
+def _cached(p, two_d):
+    """The cached form (Y-X, Y+X, 2d·T, 2Z) the kernel keeps its lane
+    table in."""
+    X, Y, Z, T = p
+    return Y - X, Y + X, field.mul(T, two_d), Z + Z
+
+
+def _quad_add_cached(p, q):
+    """p + Q for Q in cached form (add-2008-hwcd-3) in 2 rounds: round 1
+    is (Y1-X1)·YmX, (Y1+X1)·YpX, T1·2dT, Z1·2Z."""
+    X1, Y1, Z1, T1 = p
+    a, b, c, d = _products((Y1 - X1, Y1 + X1, T1, Z1), q)
+    return _quad_finish(b - a, d - c, d + c, b + a)
+
+
+def _quad_madd(p, q3, two_d):
+    """p + an affine entry (y-x, y+x, 2d·x·y), Z2 = 1, in 2 rounds.
+    D = 2·Z1 needs no product, so round 1's fourth slot computes 2d·T1,
+    the cached coordinate of p.  Returns (p + q, 2d·T1)."""
+    X1, Y1, Z1, T1 = p
+    a, b, c, t2d = _products((Y1 - X1, Y1 + X1, T1, T1), (*q3, two_d))
+    d = Z1 + Z1
+    return _quad_finish(b - a, d - c, d + c, b + a), t2d
+
+
 def _decompress(b, d_const, sqrt_m1, one):
     """[n, 32] byte values -> (x, y, valid) under ZIP-215."""
     sign = (b[:, 31] & 0xFF) >> 7

@@ -3,11 +3,12 @@ card: the floor analysis.
 
 Counterpart of cometbft_tpu/ops/microbench.py (``_make_kernel``, :82,
 launched by ``_bench_call``, :178).  Each op runs ``reps`` iterations of
-one primitive of the verify kernel (ops/csrc/ed25519_field.cuh, the
-same device functions ed25519_verify.cu runs, not copies) per lane, so a
-record gives the card's cost of a carry, a field multiply, a squaring,
-a doubling, the two addition forms, the 16-entry B-table select and one
-full ladder window.  The kernels are ops/csrc/microbench.cu.
+one primitive of ops/csrc/ed25519_field.cuh per lane, so a record gives
+the card's cost of a carry, a field multiply and a squaring (the field
+code ed25519_verify.cu runs), and of a doubling, the two addition forms,
+the 16-entry B-table select and one full ladder window in the header's
+single-thread point formulas (the verifier runs them as four-thread
+rounds instead).  The kernels are ops/csrc/microbench.cu.
 
 The seed of every lane is x = its 32 input bytes as a field element
 (all 256 bits, as the JAX kernel reads them), y = 2x and the point
