@@ -3,10 +3,11 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the CUDA kernels from the sources in this checkout (one library:
-ed25519_verify.cu, ed25519_verify8.cu, microbench.cu), holds each
-against its plain PyTorch version and the golden model on edge-case
-lanes (B1, four threads a signature, also at lane counts that leave a
-partial quad, warp or block), then verifies a 10,000-validator commit
+ed25519_verify.cu, ed25519_verify8.cu, microbench.cu) and prints what
+ptxas says of the two verifiers, holds each against its plain PyTorch
+version and the golden model on edge-case lanes (B1 and B2, both four
+threads a signature, also at lane counts that leave a partial quad, warp
+or block), then verifies a 10,000-validator commit
 through the port's entry points (types/validation -> crypto/batch ->
 ops/ed25519 -> the kernel), once with the default kernel (B1) and once
 with COMETBFT_TPU_TORCH_KERNEL=cuda8 (B2), counting each kernel's
@@ -71,8 +72,8 @@ CONST_BYTES = 510 * 4
 MB_IN_BYTES_PER_LANE = 32 * 4
 MB_OUT_BYTES_PER_LANE = 10 * 4
 MB_BIG = 262_144
-# B1 runs four threads a signature: these lane counts leave a partial
-# quad, warp or block
+# B1 and B2 run four threads a signature: these lane counts leave a
+# partial quad, warp or block
 PARTIAL_LANES = (1, 3, 4, 5, 31, 33, 64, 1023)
 
 
@@ -273,6 +274,27 @@ def _mb_bound(lanes, ops_per_lane):
     return _roofline(ops_per_lane * lanes, nbytes)
 
 
+def _ptxas_summary(report, kernel):
+    """{registers, stack, spill_stores, spill_loads, smem} of one entry
+    function in nvcc -Xptxas -v output (mangled names hold the name
+    followed by E)."""
+    import re
+    out, mine = {}, False
+    for line in report.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            mine = f"{kernel}E" in line
+        elif mine and "stack frame" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out.update(stack=nums[0], spill_stores=nums[1],
+                       spill_loads=nums[2])
+        elif mine and "Used" in line and "registers" in line:
+            out["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def _reject_corrupted(validation, vals, block_id, commit, bad_idx=7777):
     """verify_commit must reject the commit with signature #bad_idx
     flipped, naming the index; the commit is restored after."""
@@ -374,6 +396,12 @@ def main() -> int:
              f"linked into one library, "
              f"cached={_build.build_info['cached']})")
         _log(_build.build_info["ptxas"].strip())
+        for name in ("ed25519_verify_kernel", "ed25519_verify8_kernel"):
+            info = _ptxas_summary(_build.build_info["ptxas"], name)
+            _log(f"ptxas {name}: {info.get('registers')} registers, "
+                 f"{info.get('stack')} B stack, {info.get('spill_stores')} B "
+                 f"spill stores, {info.get('spill_loads')} B spill loads, "
+                 f"{info.get('smem')} B shared")
 
         # -- 2. kernel vs plain on edge-case lanes --------------------------
         _phase("2 kernel vs plain, 1024 edge-case lanes")
@@ -439,6 +467,20 @@ def main() -> int:
         _log(f"B2 kernel == B2 plain == B1 kernel on all 1024 lanes; "
              f"golden subset {len(subset)} agrees; max_abs_err "
              f"{max_abs_err8}")
+        for m in PARTIAL_LANES:
+            pa, pr, ps, pk, _ = oe.prep_arrays(items[:m], m)
+            pcols = [oe.to_cols(x, dev) for x in (pa, pr, ps, pk)]
+            got_m = ek8.verify_cols(*pcols)
+            torch.cuda.synchronize()
+            plain_m = ek8.verify_cols_plain(*pcols)
+            if not torch.equal(got_m, plain_m):
+                raise AssertionError(
+                    f"B2 kernel != B2 plain on "
+                    f"{int((got_m != plain_m).sum())} of {m} lanes")
+            max_abs_err8 = max(max_abs_err8, int(
+                (got_m.int() - plain_m.int()).abs().max().item()))
+        _log(f"B2 kernel == B2 plain at "
+             f"{', '.join(map(str, PARTIAL_LANES))} lanes")
 
         # -- 3. main path at full size --------------------------------------
         n = VALIDATORS
@@ -753,6 +795,10 @@ def main() -> int:
         "route": "cuda",
         "source": "cometbft_tpu_torch/ops/csrc/ed25519_verify8.cu",
         "replaces": "cometbft_tpu/ops/ed25519_pallas8.py:247",
+        "design": "four threads a signature on its own 16-limb field, "
+                  "thread c keeping coordinate c of the point, two-round "
+                  "doubling and unified add, lane table of (X, Y, Z, 2dT) "
+                  "entries in shared memory",
         "launches": main8_launches,
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,

@@ -2,44 +2,75 @@
 // second kernel.
 //
 // Replaces the Pallas TPU kernel cometbft_tpu/ops/ed25519_pallas8.py
-// (_kernel, :247; launched by _pallas_verify, :333), the first-generation
+// (_kernel, :247; launched by _pallas_verify, :345), the first-generation
 // kernel behind COMETBFT_TPU_KERNEL=pallas8.  Same function and the same
 // public layout as ed25519_verify.cu: A and R as [32, n] int32 byte
 // columns, s and k as [64, n] int32 4-bit windows; one verdict byte per
 // lane out.  It is selected with COMETBFT_TPU_TORCH_KERNEL=cuda8.  The
-// plain PyTorch version of every step is
+// plain PyTorch version of the function is
 // cometbft_tpu_torch/ops/ed25519_kernel8.py (verify_cols_plain) on
-// ops/field16.py; the two agree limb for limb.
+// ops/field16.py; the rounds below are its _quad_* helpers.
 //
-// It shares no code with ed25519_verify.cu, so each checks the other.
-// From the TPU kernel it takes the function and the algorithmic choices,
-// not the block structure:
+// It shares no code with ed25519_verify.cu or ed25519_field.cuh, so each
+// checks the other.  From the TPU kernel it takes the function and the
+// algorithmic choices, and it keeps them where B1 chose otherwise:
 //   * Field: 16 signed limbs of 16 bits in int32, products in int64, the
-//     carry out of limb 15 folded into limb 0 at 38 (2^256 = 2p + 38).
-//     Values reach 2^256, so canonical() sweeps to 255 bits and folds bit
-//     255 at 19 before it compares with p.
+//     carry out of limb 15 folded into limb 0 at 38 (2^256 = 2p + 38), a
+//     sequential carry.  Values reach 2^256, so canonical() sweeps to 255
+//     bits and folds bit 255 at 19 before it compares with p.
 //   * Overflow bound (pinned by tests/test_torch_field16.py): carry()
 //     leaves RESTING limbs, |limb| <= 2^15 except limb 1 (< 2^17.6).
-//     mul() takes operands that are sums of at most 4 resting values
-//     (every call site stays inside that); every int64 accumulator is
-//     then < 2^44, and carry() of anything < 2^44 is resting again.
-//   * The B table holds full extended points (X, Y, Z = 1, T = xy) and is
-//     added with the 9-multiply unified add; every double and add makes T.
-//   * One thread per signature, as in ed25519_verify.cu.  The TPU
-//     kernel's masked-sum selects (its vector unit cannot gather across
-//     lanes) become indexed loads: the windows are public data.
-//   * The per-lane table i·(-A), 16 x 4 x 16 int32 = 4 KB, lives in local
-//     memory.  The constant block (D, 2D, sqrt(-1), the 16 x 4 x 16 B
-//     table, 4,288 bytes) is copied to shared memory once per block.
-//   * f16_mul, f16_sqr and the point functions are not inlined: a
-//     point add with its operands and temporaries needs more than the
-//     255 registers a thread has, and the unrolled 256-product multiply
-//     at every call site would make the build slow.
+//     mul() takes operands that are sums of at most 4 resting values;
+//     every int64 accumulator is then < 2^44, and carry() of anything
+//     < 2^44 is resting again.  tests/test_torch_ed25519_8_quad.py checks
+//     every product operand of the schedule against that bound.
+//   * Table entries are full extended points, every add is the unified
+//     add (Z2 stays an operand, also for a B entry with Z = 1), and every
+//     double and add makes T.  B1 keeps cached entries and mixed adds.
 //
-// Bound on this card: integer issue, the same work as ed25519_verify.cu
-// (same function).  This kernel does more of it: about 3,900 field
-// multiplies per signature at 256 products (136 for a squaring).  The
-// launch counts, inputs and the bound's formula are in PERF.md.
+// Bound on this card: integer issue (the bound's formula is in PERF.md).
+// One thread a signature, as this kernel first ran, left it latency-bound:
+// a 4,096-lane tile was 128 warps on 528 schedulers, and one thread's
+// chain of ~3,900 dependent 256-product multiplies set the time.  The
+// design shortens the chain and fills the schedulers:
+//
+//   * A quad per signature.  Lanes 4q..4q+3 of a warp own signature q.
+//     Thread c keeps only coordinate c of the running point (X, Y, Z, T):
+//     16 int32 registers.  Each round of the 4-way extended-coordinate
+//     formulas (Hisil, Wong, Carter, Dawson, "Twisted Edwards Curves
+//     Revisited", 2008) is one field product a thread:
+//       doubling (dbl-2008-hwcd)   round 1: X², Y², Z², (X+Y)²
+//       unified add (add-2008-hwcd-3)  round 1: (Y1-X1)(Y2-X2),
+//                                  (Y1+X1)(Y2+X2), Z1·Z2, T1·(2d·T2)
+//       both, round 2: X3 = E·F, Y3 = G·H, Z3 = F·G, T3 = E·H.
+//     A round fetches by __shfl_sync (width 4) only what the thread needs
+//     to form its operands: X and Y for (X+Y)² (32 shuffles), the partner's
+//     coordinate for Y1±X1 (16), the other three round-1 products for E,
+//     F, G, H (48, by xor 1, 2, 3).  Fetched values are used and dropped;
+//     no thread ever holds the whole point.  Operands are small integer
+//     combinations of the fetched values, with coefficients chosen by c,
+//     so no register is indexed at run time.
+//   * Every thread runs every shuffle: a thread past the last signature
+//     computes on the last lane and only thread 0 of a real quad stores.
+//     The data-dependent steps of decompression are selects.
+//   * Decompression of A (threads 0, 2) and R (threads 1, 3) runs side by
+//     side, the same instructions on different data.
+//   * Entries carry 2d·T in place of T, so the add's C = T1·(2d·T2) is one
+//     product and the add is two rounds.  The B entries come so from the
+//     host (ed25519_kernel8.KERNEL_CONSTS); a lane entry takes one more
+//     product when the table is built.
+//   * The lane table i·(-A), i = 0..15: thread c keeps coordinate c of
+//     each entry, 16 x 16 int32 = 1 KB, in shared memory laid out
+//     [entry][limb][thread] (conflict-free: the entry index is the same
+//     within a quad, the thread index picks the bank).  A thread also
+//     reads its partner's column (c ^ 1) for Y2 ± X2.  Entry 0, the
+//     identity, is a select, and its slot holds -R's entry.  32-thread
+//     blocks keep the table (32 KB) and the constant block (4,288 B)
+//     under the 48 KB of static shared memory; shared memory holds 6
+//     blocks an SM, registers 8.
+//   * Every field and point function is force-inlined: no operand crosses
+//     a call boundary, so nothing goes through local memory.  Constants
+//     (d, 2d, sqrt(-1)) are read from shared memory where they are used.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -48,17 +79,18 @@ namespace {
 
 constexpr int L16 = 16;
 constexpr int WINDOWS = 64;
-constexpr int THREADS = 32;
+constexpr int QUAD = 4;
+constexpr int THREADS = 32;                      // 8 signatures a block
+constexpr unsigned FULL = 0xffffffffu;
 
-// constant block layout (int32), built by ed25519_kernel8.CONSTS
+// constant block layout (int32), built by ed25519_kernel8.KERNEL_CONSTS
 constexpr int K_D = 0;
 constexpr int K_2D = 16;
 constexpr int K_SQRTM1 = 32;
-constexpr int K_BTAB = 48;                       // [16][4][16]
-constexpr int K_TOTAL = 48 + 16 * 4 * 16;        // 1072
+constexpr int K_BTAB = 48;                       // [16 limb][16 entry][4]
+constexpr int K_TOTAL = 48 + 16 * 16 * 4;        // 1072
 
 struct f16 { int32_t v[L16]; };
-struct p16 { f16 X, Y, Z, T; };                  // extended coordinates
 
 __device__ __forceinline__ void f16_zero(f16& h) {
 #pragma unroll
@@ -90,6 +122,13 @@ __device__ __forceinline__ void f16_load(f16& h, const int32_t* src) {
   for (int i = 0; i < L16; ++i) h.v[i] = src[i];
 }
 
+// h = k ? f : g, limb by limb
+__device__ __forceinline__ void f16_select(f16& h, bool k, const f16& f,
+                                           const f16& g) {
+#pragma unroll
+  for (int i = 0; i < L16; ++i) h.v[i] = k ? f.v[i] : g.v[i];
+}
+
 // Balanced sequential carry (ops/field16.carry): round-to-nearest quotient
 // per limb, the carry out of limb 15 folds into limb 0 at 38, then limb 0
 // carries once more.
@@ -110,10 +149,7 @@ __device__ __forceinline__ void f16_carry(f16& out, int64_t h[L16]) {
 // Products below 2^256 go to lo[i + j], those above to hi[i + j - 16],
 // folded in at 38.  out may alias f or g: both are read before out is
 // written.
-__device__ __noinline__ void f16_mul(f16& out, const f16& f, const f16& g) {
-  int32_t a[L16], b[L16];
-#pragma unroll
-  for (int i = 0; i < L16; ++i) { a[i] = f.v[i]; b[i] = g.v[i]; }
+__device__ __forceinline__ void f16_mul(f16& out, const f16& f, const f16& g) {
   int64_t lo[L16], hi[L16 - 1];
 #pragma unroll
   for (int k = 0; k < L16; ++k) lo[k] = 0;
@@ -123,7 +159,7 @@ __device__ __noinline__ void f16_mul(f16& out, const f16& f, const f16& g) {
   for (int i = 0; i < L16; ++i) {
 #pragma unroll
     for (int j = 0; j < L16; ++j) {
-      const int64_t p = (int64_t)a[i] * b[j];
+      const int64_t p = (int64_t)f.v[i] * g.v[j];
       if (i + j < L16) lo[i + j] += p; else hi[i + j - L16] += p;
     }
   }
@@ -136,10 +172,7 @@ __device__ __noinline__ void f16_mul(f16& out, const f16& f, const f16& g) {
 
 // Squaring: each cross product once, against a doubled limb (136
 // products); the accumulators equal f16_mul(f, f)'s.
-__device__ __noinline__ void f16_sqr(f16& out, const f16& f) {
-  int32_t a[L16], a2[L16];
-#pragma unroll
-  for (int i = 0; i < L16; ++i) { a[i] = f.v[i]; a2[i] = 2 * a[i]; }
+__device__ __forceinline__ void f16_sqr(f16& out, const f16& f) {
   int64_t lo[L16], hi[L16 - 1];
 #pragma unroll
   for (int k = 0; k < L16; ++k) lo[k] = 0;
@@ -147,11 +180,12 @@ __device__ __noinline__ void f16_sqr(f16& out, const f16& f) {
   for (int k = 0; k < L16 - 1; ++k) hi[k] = 0;
 #pragma unroll
   for (int i = 0; i < L16; ++i) {
-    const int64_t d = (int64_t)a[i] * a[i];
+    const int64_t d = (int64_t)f.v[i] * f.v[i];
     if (2 * i < L16) lo[2 * i] += d; else hi[2 * i - L16] += d;
+    const int32_t a2 = 2 * f.v[i];
 #pragma unroll
     for (int j = i + 1; j < L16; ++j) {
-      const int64_t p = (int64_t)a2[i] * a[j];
+      const int64_t p = (int64_t)a2 * f.v[j];
       if (i + j < L16) lo[i + j] += p; else hi[i + j - L16] += p;
     }
   }
@@ -162,13 +196,13 @@ __device__ __noinline__ void f16_sqr(f16& out, const f16& f) {
   f16_carry(out, h);
 }
 
-__device__ __noinline__ void f16_pow2k(f16& x, int k) {
+__device__ __forceinline__ void f16_pow2k(f16& x, int k) {
 #pragma unroll 1
   for (int i = 0; i < k; ++i) f16_sqr(x, x);
 }
 
 // x^((p-5)/8) = x^(2^252 - 3), same chain as ops/field16.pow_p58.
-__device__ __noinline__ void f16_pow_p58(f16& out, const f16& x) {
+__device__ __forceinline__ void f16_pow_p58(f16& out, const f16& x) {
   f16 x2, z9, z11, z_5_0, z_10_0, z_20_0, z_50_0, z_100_0, t;
   f16_sqr(x2, x);
   f16_sqr(t, x2);
@@ -203,7 +237,9 @@ __device__ __forceinline__ int64_t sweep255(int64_t c[L16]) {
 
 // Canonical digits of x mod p (ops/field16.canonical): carry, + 2p, two
 // sweeps folding bit 255 at 19, then subtract p iff value + 19 >= 2^255.
-__device__ __noinline__ void f16_canonical(f16& out, const f16& x) {
+// The last sweep runs twice, for its carry out and then for its digits,
+// so that only one set of int64 digits is live.
+__device__ __forceinline__ void f16_canonical(f16& out, const f16& x) {
   int64_t h[L16];
 #pragma unroll
   for (int i = 0; i < L16; ++i) h[i] = x.v[i];
@@ -215,13 +251,18 @@ __device__ __noinline__ void f16_canonical(f16& out, const f16& x) {
     h[i] = (int64_t)r.v[i] + ((i == 0) ? 0x10000 - 38 : 0xFFFF);
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) h[0] += 19 * sweep255(h);
-  int64_t g[L16];
+  int64_t cy = 19;
 #pragma unroll
-  for (int i = 0; i < L16; ++i) g[i] = h[i];
-  g[0] += 19;
-  const bool ge_p = sweep255(g) != 0;
+  for (int i = 0; i < L16 - 1; ++i) cy = (h[i] + cy) >> 16;
+  const bool ge_p = (h[L16 - 1] + cy) >> 15 != 0;
+  // the digits of value + 19 - 2^255 where ge_p, else h as it is
+  cy = ge_p ? 19 : 0;
 #pragma unroll
-  for (int i = 0; i < L16; ++i) out.v[i] = (int32_t)(ge_p ? g[i] : h[i]);
+  for (int i = 0; i < L16; ++i) {
+    const int64_t d = h[i] + cy;
+    out.v[i] = (int32_t)(d & (i < L16 - 1 ? 0xFFFF : 0x7FFF));
+    cy = d >> 16;
+  }
 }
 
 __device__ __forceinline__ bool f16_is_zero(const f16& x) {
@@ -245,103 +286,185 @@ __device__ __forceinline__ int f16_parity(const f16& x) {
   return c.v[0] & 1;
 }
 
-// ---- point arithmetic (ops/ed25519_kernel8._ext_add etc.) -----------------
-
-// Unified add (add-2008-hwcd-3), complete for a = -1; always makes T.
-// out may alias p or q: both are read before out is written.
-__device__ __noinline__ void p16_add(p16& out, const p16& p, const p16& q,
-                                     const f16& two_d) {
-  f16 a, b, c, d, t1, t2;
-  f16_sub(t1, p.Y, p.X);
-  f16_sub(t2, q.Y, q.X);
-  f16_mul(a, t1, t2);
-  f16_add(t1, p.Y, p.X);
-  f16_add(t2, q.Y, q.X);
-  f16_mul(b, t1, t2);
-  f16_mul(c, p.T, q.T);
-  f16_mul(c, c, two_d);
-  f16_mul(d, p.Z, q.Z);
-  f16_add(d, d, d);
-  f16 e, f, g, h;
-  f16_sub(e, b, a);
-  f16_sub(f, d, c);
-  f16_add(g, d, c);
-  f16_add(h, b, a);
-  f16_mul(out.X, e, f);
-  f16_mul(out.Y, g, h);
-  f16_mul(out.Z, f, g);
-  f16_mul(out.T, e, h);
+__device__ __forceinline__ void f16_park(int32_t (*slot)[THREADS],
+                                         const f16& v) {
+#pragma unroll
+  for (int i = 0; i < L16; ++i) slot[i][threadIdx.x] = v.v[i];
 }
 
-// dbl-2008-hwcd, a = -1; reads X, Y, Z and always makes T.
-__device__ __noinline__ void p16_double(p16& out, const p16& p) {
-  f16 a, b, c, e, f, g, h, t;
-  f16_sqr(a, p.X);
-  f16_sqr(b, p.Y);
-  f16_sqr(c, p.Z);
-  f16_add(c, c, c);
-  f16_add(t, p.X, p.Y);
-  f16_sqr(e, t);
-  f16_sub(e, e, a);
-  f16_sub(e, e, b);
-  f16_sub(g, b, a);
-  f16_sub(f, g, c);
-  f16_add(h, a, b);
-  f16_neg(h, h);
-  f16_mul(out.X, e, f);
-  f16_mul(out.Y, g, h);
-  f16_mul(out.Z, f, g);
-  f16_mul(out.T, e, h);
+__device__ __forceinline__ void f16_unpark(f16& v,
+                                           const int32_t (*slot)[THREADS]) {
+#pragma unroll
+  for (int i = 0; i < L16; ++i) v.v[i] = slot[i][threadIdx.x];
 }
 
 // ZIP-215 decompression of one lane's 32-byte column; returns validity.
 // Bit 255 is the sign of x: it is cleared before y is read, and y >= p
-// stays as it is.
-__device__ __noinline__ bool p16_decompress(f16& x, f16& y,
-                                            const int32_t* col, int n,
-                                            int lane, const int32_t* sc) {
+// stays as it is.  The square-root fix-up and the sign flip are selects.
+//
+// Register pressure: two independent products side by side need ~190
+// registers, and ptxas interleaves them where it can.  So the values that
+// wait (y, u, v, ...) are parked in park[0..4], this thread's columns of
+// shared memory, and where two products are independent the first one's
+// result is stored before a __syncwarp() and the second one's operand is
+// loaded after it: memory order then puts one after the other.
+__device__ __forceinline__ bool p16_decompress(f16& x, f16& y,
+                                               const int32_t* col, int n,
+                                               int lane, const int32_t* sc,
+                                               int32_t (*park)[L16][THREADS]) {
   int32_t b[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) b[i] = col[(size_t)i * n + lane] & 0xFF;
   const int sign = b[31] >> 7;
   b[31] &= 0x7F;
-  f16 one, d_const, sqrt_m1, yy, u, v, v3, v7, t, vxx, negu;
-  f16_one(one);
-  f16_load(d_const, sc + K_D);
-  f16_load(sqrt_m1, sc + K_SQRTM1);
   {
     int64_t h[L16];
 #pragma unroll
     for (int i = 0; i < L16; ++i) h[i] = b[2 * i] + (b[2 * i + 1] << 8);
     f16_carry(y, h);
   }
-  f16_sqr(yy, y);
-  f16_sub(u, yy, one);
-  f16_mul(v, yy, d_const);
-  f16_add(v, v, one);
+  f16 k, u, v, t;
+  f16_sqr(t, y);                                // y²
+  f16_park(park[0], y);
+  f16_one(k);
+  f16_sub(u, t, k);                             // u = y² - 1
+  f16_park(park[1], u);
+  f16_load(k, sc + K_D);
+  f16_mul(v, t, k);
+  v.v[0] += 1;                                  // v = d·y² + 1
+  f16_park(park[2], v);
   f16_sqr(t, v);
-  f16_mul(v3, t, v);
-  f16_sqr(t, v3);
-  f16_mul(v7, t, v);
-  f16_mul(t, u, v7);
+  f16_mul(t, t, v);                             // v³
+  f16_park(park[3], t);
+  f16_mul(x, u, t);                             // u·v³
+  f16_park(park[4], x);
+  __syncwarp();
+  f16_unpark(t, park[3]);
+  f16_sqr(t, t);
+  f16_unpark(v, park[2]);
+  f16_mul(t, t, v);                             // v⁷
+  f16_unpark(u, park[1]);
+  f16_mul(t, u, t);
   f16_pow_p58(t, t);
-  f16_mul(x, u, v3);
-  f16_mul(x, x, t);
+  f16_unpark(x, park[4]);
+  f16_mul(x, x, t);                             // u·v³·(u·v⁷)^((p-5)/8)
   f16_sqr(t, x);
-  f16_mul(vxx, v, t);
-  const bool ok_direct = f16_eq(vxx, u);
-  f16_neg(negu, u);
-  const bool ok_flip = f16_eq(vxx, negu);
-  if (ok_flip) f16_mul(x, x, sqrt_m1);
-  if (f16_parity(x) != sign) f16_neg(x, x);
+  f16_unpark(v, park[2]);
+  f16_mul(t, v, t);                             // v·x²
+  f16_park(park[3], t);
+  __syncwarp();
+  f16_load(k, sc + K_SQRTM1);
+  f16_mul(v, x, k);                             // x·sqrt(-1)
+  f16_park(park[2], v);
+  __syncwarp();
+  f16_unpark(t, park[3]);
+  f16_unpark(u, park[1]);
+  const bool ok_direct = f16_eq(t, u);
+  f16_add(t, t, u);
+  const bool ok_flip = f16_is_zero(t);          // v·x² == -u
+  f16_unpark(v, park[2]);
+  f16_select(x, ok_flip, v, x);
+  f16_neg(t, x);
+  f16_select(x, f16_parity(x) != sign, t, x);
+  f16_unpark(y, park[0]);
   return ok_direct || ok_flip;
 }
 
-__device__ __forceinline__ void p16_load(p16& p, const int32_t* src) {
-  f16_load(p.X, src);
-  f16_load(p.Y, src + L16);
-  f16_load(p.Z, src + 2 * L16);
-  f16_load(p.T, src + 3 * L16);
+// ---- the quad's rounds (ops/ed25519_kernel8._quad_*) -----------------------
+
+__device__ __forceinline__ void f16_shfl(f16& out, const f16& v, int src) {
+#pragma unroll
+  for (int i = 0; i < L16; ++i)
+    out.v[i] = __shfl_sync(FULL, v.v[i], src, QUAD);
+}
+
+__device__ __forceinline__ void f16_shfl_xor(f16& out, const f16& v,
+                                             int mask) {
+#pragma unroll
+  for (int i = 0; i < L16; ++i)
+    out.v[i] = __shfl_xor_sync(FULL, v.v[i], mask, QUAD);
+}
+
+// out = k0·f0 + k1·f1 for small integer k
+__device__ __forceinline__ void f16_comb2(f16& out, int k0, const f16& f0,
+                                          int k1, const f16& f1) {
+#pragma unroll
+  for (int i = 0; i < L16; ++i) out.v[i] = k0 * f0.v[i] + k1 * f1.v[i];
+}
+
+// out = k0·f0 + k1·f1 + k2·f2 + k3·f3 for small integer k
+__device__ __forceinline__ void f16_comb(f16& out, int k0, const f16& f0,
+                                         int k1, const f16& f1, int k2,
+                                         const f16& f2, int k3,
+                                         const f16& f3) {
+#pragma unroll
+  for (int i = 0; i < L16; ++i)
+    out.v[i] = k0 * f0.v[i] + k1 * f1.v[i] + k2 * f2.v[i] + k3 * f3.v[i];
+}
+
+// Round 2 of a double or an add.  r is this thread's round-1 product; the
+// other three come by xor 1, 2, 3.  The coefficients kl (left operand)
+// and kr (right), one per value in the order own, xor 1, xor 2, xor 3,
+// form the thread's E·F, G·H, F·G or E·H: its new coordinate.
+__device__ __forceinline__ void quad_round2(f16& m, const f16& r,
+                                            const int (&kl)[4],
+                                            const int (&kr)[4]) {
+  f16 r1, r2, r3, lhs, rhs;
+  f16_shfl_xor(r1, r, 1);
+  f16_shfl_xor(r2, r, 2);
+  f16_shfl_xor(r3, r, 3);
+  f16_comb(lhs, kl[0], r, kl[1], r1, kl[2], r2, kl[3], r3);
+  f16_comb(rhs, kr[0], r, kr[1], r1, kr[2], r2, kr[3], r3);
+  f16_mul(m, lhs, rhs);
+}
+
+// m = coordinate c of 2P (ed25519_kernel8._quad_double).  Round 1:
+// thread 0 A = X², 1 B = Y², 2 ZZ = Z², 3 S = (X+Y)².  Round 2 with
+// E = S - A - B, G = B - A, F = G - 2·ZZ, H = -A - B.
+__device__ __forceinline__ void quad_double(f16& m, int c) {
+  f16 x, y, r;
+  f16_shfl(x, m, 0);
+  f16_shfl(y, m, 1);
+  f16_add(x, x, y);
+  f16_select(x, c == 3, x, m);
+  f16_sqr(r, x);
+  // the products by xor: c 0 holds (A, B, ZZ, S), 1 (B, A, S, ZZ),
+  // 2 (ZZ, S, A, B), 3 (S, ZZ, B, A)
+  const int kl[4] = {c == 0 ? -1 : c == 1 ? 1 : c == 2 ? -2 : 1,
+                     c == 0 ? -1 : c == 1 ? -1 : 0,
+                     c == 0 ? 0 : c == 1 ? 0 : -1,
+                     c == 0 ? 1 : c == 1 ? 0 : c == 2 ? 1 : -1};
+  const int kr[4] = {c == 0 ? -1 : c == 1 ? -1 : 0,
+                     c == 0 ? 1 : c == 1 ? -1 : 0,
+                     c == 0 ? -2 : c == 1 ? 0 : -1,
+                     c == 0 ? 0 : c == 1 ? 0 : c == 2 ? 1 : -1};
+  quad_round2(m, r, kl, kr);
+}
+
+// m = coordinate c of P + Q (ed25519_kernel8._quad_add), where q is
+// coordinate c of the entry Q = (X2, Y2, Z2, 2d·T2) and qp coordinate
+// c ^ 1.  Round 1: thread 0 A = (Y1-X1)(Y2-X2), 1 B = (Y1+X1)(Y2+X2),
+// 2 ZZ = Z1·Z2, 3 C = T1·2dT2.  Round 2 with D = 2·ZZ, E = B - A,
+// F = D - C, G = D + C, H = B + A.
+__device__ __forceinline__ void quad_add(f16& m, int c, const f16& q,
+                                         const f16& qp) {
+  f16 mp, lhs, rhs, r;
+  f16_shfl_xor(mp, m, 1);                       // 0 gets Y1, 1 gets X1
+  const int k0 = c == 0 ? -1 : 1, k1 = c < 2 ? 1 : 0;
+  f16_comb2(lhs, k0, m, k1, mp);
+  f16_comb2(rhs, k0, q, k1, qp);
+  f16_mul(r, lhs, rhs);
+  // the products by xor: c 0 holds (A, B, ZZ, C), 1 (B, A, C, ZZ),
+  // 2 (ZZ, C, A, B), 3 (C, ZZ, B, A)
+  const int kl[4] = {c == 0 ? -1 : c == 2 ? 2 : 0,
+                     c == 0 ? 1 : c == 2 ? -1 : 0,
+                     c == 1 ? 1 : c == 3 ? 1 : 0,
+                     c == 0 ? 0 : c == 1 ? 2 : c == 2 ? 0 : -1};
+  const int kr[4] = {c == 1 ? 1 : c == 2 ? 2 : 0,
+                     c == 1 || c == 2 ? 1 : 0,
+                     c == 0 ? 2 : c == 3 ? 1 : 0,
+                     c == 0 ? -1 : c == 3 ? 1 : 0};
+  quad_round2(m, r, kl, kr);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -352,50 +475,112 @@ ed25519_verify8_kernel(const int32_t* __restrict__ a_cols,
                        const int32_t* __restrict__ consts, int n,
                        uint8_t* __restrict__ ok) {
   __shared__ int32_t sc[K_TOTAL];
+  __shared__ int32_t tab[16][L16][THREADS];
   for (int i = threadIdx.x; i < K_TOTAL; i += blockDim.x) sc[i] = consts[i];
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  const int tid = threadIdx.x;
+  const int c = tid & (QUAD - 1);
+  const int sig = (int)(((int64_t)blockIdx.x * THREADS + tid) / QUAD);
+  const int lane = sig < n ? sig : n - 1;   // past the end: the last lane
 
-  f16 ax, ay, rx, ry, two_d;
-  const bool a_ok = p16_decompress(ax, ay, a_cols, n, lane, sc);
-  const bool r_ok = p16_decompress(rx, ry, r_cols, n, lane, sc);
-  f16_load(two_d, sc + K_2D);
+  // A in threads 0 and 2, R in threads 1 and 3; then each thread's
+  // -P = (-x, y, 1, T) with T = -x·y, and 2d·T
+  f16 x, y, t, t2d, k;
+  const bool p_ok = p16_decompress(x, y, (c & 1) ? r_cols : a_cols, n, lane,
+                                   sc, tab + 11);
+  f16_neg(x, x);
+  f16_mul(t, x, y);
+  f16_load(k, sc + K_2D);
+  f16_mul(t2d, t, k);
+  const bool a_ok = __shfl_sync(FULL, (int)p_ok, 0, QUAD) != 0;
+  const bool r_ok = __shfl_sync(FULL, (int)p_ok, 1, QUAD) != 0;
 
-  // per-lane table of i·(-A), i = 0..15
-  p16 tab[16];
-  f16_zero(tab[0].X); f16_one(tab[0].Y); f16_one(tab[0].Z); f16_zero(tab[0].T);
-  f16_neg(tab[1].X, ax);
-  tab[1].Y = ay;
-  f16_one(tab[1].Z);
-  f16_mul(tab[1].T, tab[1].X, tab[1].Y);
+  // coordinate c of -A (running point and entry) and of -R's entry.
+  // Thread 1 takes y of A from thread 0, thread 3 T and 2d·T of A from
+  // thread 2, thread 0 -x of R from thread 1.
+  f16 s1, s2, s3;
+  f16_select(s1, c == 0, y, t);
+  f16_shfl(s1, s1, c == 1 ? 0 : 2);
+  f16_shfl(s2, t2d, 2);
+  f16_shfl(s3, x, 1);
+  f16 m, e, one;
+  f16_one(one);
+  f16_select(m, c == 2, one, s1);
+  f16_select(m, c == 0, x, m);                  // -A, running
+  f16_select(e, c == 3, s2, m);                 // -A, entry 1
+  f16_select(t2d, c == 2, one, t2d);
+  f16_select(t2d, c == 1, y, t2d);
+  f16_select(t2d, c == 0, s3, t2d);             // -R, entry
+
+  // table of i·(-A), i = 1..15, entries (X, Y, Z, 2d·T).  Entry 0, the
+  // identity (0, 1, 1, 0), is selected where the k window is 0, so its
+  // slot holds the entry of -R for the tail.
+#pragma unroll
+  for (int i = 0; i < L16; ++i) {
+    tab[0][i][tid] = t2d.v[i];
+    tab[1][i][tid] = e.v[i];
+  }
+  __syncwarp();
 #pragma unroll 1
-  for (int i = 1; i < 15; ++i) p16_add(tab[i + 1], tab[i], tab[1], two_d);
+  for (int j = 2; j < 16; ++j) {
+    f16 q, qp;
+#pragma unroll
+    for (int i = 0; i < L16; ++i) {
+      q.v[i] = tab[1][i][tid];
+      qp.v[i] = tab[1][i][tid ^ 1];
+    }
+    quad_add(m, c, q, qp);
+    f16_load(k, sc + K_2D);
+    f16_mul(t, m, k);
+    f16_select(t, c == 3, t, m);
+#pragma unroll
+    for (int i = 0; i < L16; ++i) tab[j][i][tid] = t.v[i];
+  }
+  __syncwarp();
 
-  p16 acc = tab[0];
-  p16 bq;
+  // 64 windows from the top: 4 doublings, an add of the B entry of the s
+  // window, an add of the lane entry of the k window
+  f16_zero(m);
+  m.v[0] = c == 1 || c == 2;                   // the identity (0, 1, 1, 0)
 #pragma unroll 1
   for (int j = 0; j < WINDOWS; ++j) {
     const int w = WINDOWS - 1 - j;
 #pragma unroll 1
-    for (int i = 0; i < 4; ++i) p16_double(acc, acc);
+    for (int i = 0; i < 4; ++i) quad_double(m, c);
     const int sw = s_win[(size_t)w * n + lane] & 15;
     const int kw = k_win[(size_t)w * n + lane] & 15;
-    p16_load(bq, sc + K_BTAB + sw * 4 * L16);
-    p16_add(acc, acc, bq, two_d);
-    p16_add(acc, acc, tab[kw], two_d);
+    f16 q, qp;
+#pragma unroll
+    for (int i = 0; i < L16; ++i) {
+      q.v[i] = sc[K_BTAB + (i * 16 + sw) * 4 + c];
+      qp.v[i] = sc[K_BTAB + (i * 16 + sw) * 4 + (c ^ 1)];
+    }
+    quad_add(m, c, q, qp);
+#pragma unroll
+    for (int i = 0; i < L16; ++i) {
+      q.v[i] = kw ? tab[kw][i][tid] : i == 0 && (c == 1 || c == 2);
+      qp.v[i] = kw ? tab[kw][i][tid ^ 1] : i == 0 && (c == 0 || c == 3);
+    }
+    quad_add(m, c, q, qp);
   }
 
-  p16 neg_r;
-  f16_neg(neg_r.X, rx);
-  neg_r.Y = ry;
-  f16_one(neg_r.Z);
-  f16_mul(neg_r.T, neg_r.X, neg_r.Y);
-  p16_add(acc, acc, neg_r, two_d);
+  // add -R, double 3 times, test the identity: X == 0 and Y == Z in
+  // thread 0
+  {
+    f16 q, qp;
+#pragma unroll
+    for (int i = 0; i < L16; ++i) {
+      q.v[i] = tab[0][i][tid];
+      qp.v[i] = tab[0][i][tid ^ 1];
+    }
+    quad_add(m, c, q, qp);
+  }
 #pragma unroll 1
-  for (int i = 0; i < 3; ++i) p16_double(acc, acc);
-  const bool good = f16_is_zero(acc.X) && f16_eq(acc.Y, acc.Z) && a_ok && r_ok;
-  ok[lane] = good ? 1 : 0;
+  for (int i = 0; i < 3; ++i) quad_double(m, c);
+  f16_shfl(y, m, 1);
+  f16_shfl(t, m, 2);
+  const bool good = f16_is_zero(m) && f16_eq(y, t) && a_ok && r_ok;
+  if (c == 0 && sig < n) ok[sig] = good ? 1 : 0;
 }
 
 }  // namespace
@@ -405,7 +590,7 @@ extern "C" int ed25519_verify8_launch(const void* a_cols, const void* r_cols,
                                       const void* consts, int n, void* ok,
                                       void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + THREADS - 1) / THREADS;
+  const int blocks = (int)(((int64_t)n * QUAD + THREADS - 1) / THREADS);
   ed25519_verify8_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a_cols, (const int32_t*)r_cols, (const int32_t*)s_win,
       (const int32_t*)k_win, (const int32_t*)consts, n, (uint8_t*)ok);

@@ -22,8 +22,11 @@ decompression flags.
 
 ``verify_cols`` launches ops/csrc/ed25519_verify8.cu for CUDA tensors
 and runs ``verify_cols_plain`` for CPU tensors; nothing else picks
-between them.  ``verify_cols_plain`` repeats the kernel step by step on
-``[n, 16]`` int64 limbs.
+between them.  ``verify_cols_plain`` computes the function on
+``[n, 16]`` int64 limbs with the one-signature formulas (_ext_add,
+_ext_double).  The kernel runs four threads a signature; its rounds are
+the _quad_* helpers below, and its entries carry 2d·T in place of T
+(``KERNEL_CONSTS``).
 """
 from __future__ import annotations
 
@@ -53,16 +56,28 @@ def _build_b_table() -> list[list[list[int]]]:
 
 B_TABLE = _build_b_table()
 
-# The kernel's constant block: D, 2D, sqrt(-1), then the [16][4][16] B
-# table — 1,072 int32 values, copied to shared memory by every block.
+# D, 2D, sqrt(-1), then the [16][4][16] B table: the constants of
+# verify_cols_plain, 1,072 int32 values.
 CONSTS = (field16.balanced(ref.D) + field16.balanced(2 * ref.D % ref.P) +
           field16.balanced(ref.SQRT_M1) +
           [v for entry in B_TABLE for coord in entry for v in coord])
 
+# The B entries as the kernel adds them: (X, Y, Z = 1, 2d·T).
+B_TABLE_2DT = [entry[:3] + [field16.balanced(
+    2 * ref.D * field16.from_limbs(entry[3]) % ref.P)] for entry in B_TABLE]
+
+# The CUDA kernel's constant block, copied to shared memory by every
+# block: D, 2D, sqrt(-1), then B_TABLE_2DT laid out [limb][entry][coord]
+# (a quad reads coordinates c and c ^ 1 of its entry; the entry varies
+# between quads) — 1,072 int32 values.
+KERNEL_CONSTS = CONSTS[:3 * field16.LIMBS] + [
+    B_TABLE_2DT[e][c][i] for i in range(field16.LIMBS) for e in range(16)
+    for c in range(4)]
+
 
 @functools.lru_cache(maxsize=8)
 def _device_consts(device: torch.device) -> torch.Tensor:
-    return torch.tensor(CONSTS, dtype=torch.int32, device=device)
+    return torch.tensor(KERNEL_CONSTS, dtype=torch.int32, device=device)
 
 
 # --- plain version: point arithmetic on (X, Y, Z, T) tuples -----------------
@@ -94,6 +109,58 @@ def _ext_double(p):
     h = -(a + b)
     return (field16.mul(e, f), field16.mul(g, h), field16.mul(f, g),
             field16.mul(e, h))
+
+
+# --- the kernel's rounds: four threads a signature --------------------------
+#
+# The CUDA kernel runs the 4-way schedule of the extended-coordinate
+# formulas: thread c of a quad keeps coordinate c of the running point and
+# computes product c of a round.  Each helper below is one round per tensor
+# expression (the four products as one batched multiply), with the
+# kernel's operands: its limbs equal the kernel's.  They agree with the
+# _ext_* formulas mod p, not limb for limb (the kernel's entries carry
+# 2d·T, so C = T1·(2d·T2) is one product).  verify_cols_plain keeps the
+# _ext_* formulas.
+
+def _products(lhs, rhs):
+    """One round: product c = lhs[c]·rhs[c] for c = 0..3, as one multiply."""
+    ops = torch.broadcast_tensors(*lhs, *rhs)
+    return field16.mul(torch.stack(ops[:4]), torch.stack(ops[4:])).unbind(0)
+
+
+def _squares(xs):
+    """One round of squarings: xs[c]² for c = 0..3."""
+    return field16.sqr(torch.stack(torch.broadcast_tensors(*xs))).unbind(0)
+
+
+def _quad_double(p):
+    """dbl-2008-hwcd, a = -1, in 2 rounds: X², Y², Z², (X+Y)², then
+    X3 = E·F, Y3 = G·H, Z3 = F·G, T3 = E·H."""
+    X1, Y1, Z1, _ = p
+    a, b, zz, s = _squares((X1, Y1, Z1, X1 + Y1))
+    e, g, h = s - a - b, b - a, -a - b
+    f = g - (zz + zz)
+    return _products((e, g, f, e), (f, h, g, h))
+
+
+def _quad_add(p, q):
+    """Unified add (add-2008-hwcd-3) of an entry q = (X2, Y2, Z2, 2d·T2),
+    in 2 rounds: (Y1-X1)(Y2-X2), (Y1+X1)(Y2+X2), Z1·Z2, T1·2dT2, then the
+    products of _quad_double's round 2 with D = 2·Z1Z2."""
+    X1, Y1, Z1, T1 = p
+    X2, Y2, Z2, T2d = q
+    a, b, zz, c = _products((Y1 - X1, Y1 + X1, Z1, T1),
+                            (Y2 - X2, Y2 + X2, Z2, T2d))
+    d = zz + zz
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return _products((e, g, f, e), (f, h, g, h))
+
+
+def _quad_entry(p, two_d):
+    """A table entry as the kernel keeps it: (X, Y, Z, 2d·T), one more
+    product."""
+    X, Y, Z, T = p
+    return X, Y, Z, field16.mul(T, two_d)
 
 
 def _decompress(b, d_const, sqrt_m1, one):
