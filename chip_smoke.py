@@ -4,21 +4,25 @@
 
 Builds the CUDA kernels from the sources in this checkout (one library:
 ed25519_verify.cu, ed25519_verify8.cu, microbench.cu) and prints what
-ptxas says of the two verifiers, holds each against its plain PyTorch
-version and the golden model on edge-case lanes (B1 and B2, both four
-threads a signature, also at lane counts that leave a partial quad, warp
-or block), then verifies a 10,000-validator commit
-through the port's entry points (types/validation -> crypto/batch ->
-ops/ed25519 -> the kernel), once with the default kernel (B1) and once
-with COMETBFT_TPU_TORCH_KERNEL=cuda8 (B2), counting each kernel's
-launches on that path.  It times both kernels, their plain versions and the
+ptxas says of the two verifiers and of B3's four point-op kernels, holds
+each verifier against its plain PyTorch version and the golden model on
+edge-case lanes (B1 and B2, both four threads a signature, also at lane
+counts that leave a partial quad, warp or block), then verifies a
+10,000-validator commit through the port's entry points
+(types/validation -> crypto/batch -> ops/ed25519 -> the kernel), once
+with the default kernel (B1) and once with
+COMETBFT_TPU_TORCH_KERNEL=cuda8 (B2), counting each kernel's launches on
+that path.  It times both kernels, their plain versions and the
 end-to-end call, traces one verify_commit with torch.profiler for the
 device's busy share, and runs the microbenchmark suite (B3) at 16,384
 and 262,144 lanes, holding each of its nine kernels to its plain version
-on the suite's own inputs.  Any failure exits non-zero.  The last three
-lines are the kernels JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}.  Signatures are made from --seed with the
-golden model in a pool of worker processes.
+on the suite's own inputs, and its four point ops (four threads a lane
+on B1's own rounds) also at lane counts that leave a partial quad, warp
+or block; it times the suite again at B1's tile (4,096 lanes) for the
+cost of one of B1's rounds.  Any failure exits non-zero.  The last
+three lines are the kernels JSON, the card's name and power limit, and
+{"ok": true, "device": {...}}.  Signatures are made from --seed with
+the golden model in a pool of worker processes.
 """
 from __future__ import annotations
 
@@ -72,9 +76,18 @@ CONST_BYTES = 510 * 4
 MB_IN_BYTES_PER_LANE = 32 * 4
 MB_OUT_BYTES_PER_LANE = 10 * 4
 MB_BIG = 262_144
+# B1's main-path tile: 4,096 signatures, 512 warps, about one a scheduler
+MB_TILE = 4096
 # B1 and B2 run four threads a signature: these lane counts leave a
 # partial quad, warp or block
 PARTIAL_LANES = (1, 3, 4, 5, 31, 33, 64, 1023)
+# B3's point ops run a quad a lane, 16 lanes a block: these lane counts
+# leave a partial quad, warp or block; MB_PARTIAL_REPS steps each
+MB_PARTIAL_LANES = (1, 3, 5, 17, 33, 1023)
+MB_PARTIAL_REPS = 3
+# rounds of B1's four-thread schedule in one step of each point op: a
+# doubling or an add is 2, a window 4 doublings and 2 adds
+MB_ROUNDS = {"double": 2, "add": 2, "madd": 2, "window": 12}
 
 
 def _sign_job(job):
@@ -229,8 +242,10 @@ def _field16_ops_per_lane():
 
 def _mb_ops_per_lane():
     """{op: (int32 ops, multiplies, squarings, carries)} one lane of each
-    microbench op does at its REPS, seed included, counted on the plain
-    version (one lane; the control flow does not depend on the data).
+    microbench op does at its REPS, seed included, counted on the
+    yardstick chain ``bench_cols_ext`` (the JAX kernel's single-point
+    formulas, so the bound does not move with the kernel's schedule; one
+    lane, the control flow does not depend on the data).
     field.mul carries once and field.sqr goes through field.mul, so
     carries outside a multiply are carry calls less mul calls."""
     import torch
@@ -240,7 +255,7 @@ def _mb_ops_per_lane():
     out = {}
     for op, reps in mb.REPS.items():
         with _counting(field, ("mul", "sqr", "carry")) as c:
-            mb.bench_cols_plain(x, op, reps)
+            mb.bench_cols_ext(x, op, reps)
         muls, sqrs = c["mul"] - c["sqr"], c["sqr"]
         carries = c["carry"] - c["mul"]
         ops = (muls * OPS_PER_FIELD_MUL + sqrs * OPS_PER_FIELD_SQR +
@@ -396,8 +411,15 @@ def main() -> int:
              f"linked into one library, "
              f"cached={_build.build_info['cached']})")
         _log(_build.build_info["ptxas"].strip())
-        for name in ("ed25519_verify_kernel", "ed25519_verify8_kernel"):
-            info = _ptxas_summary(_build.build_info["ptxas"], name)
+        report = _build.build_info["ptxas"]
+        mb_ptxas = {op: _ptxas_summary(report, "mb_kernelILi%d"
+                                       % list(mb.REPS).index(op))
+                    for op in mb.POINT_OPS}
+        infos = {name: _ptxas_summary(report, name) for name in
+                 ("ed25519_verify_kernel", "ed25519_verify8_kernel")}
+        infos.update((f"mb_kernel<{op}>", info)
+                     for op, info in mb_ptxas.items())
+        for name, info in infos.items():
             _log(f"ptxas {name}: {info.get('registers')} registers, "
                  f"{info.get('stack')} B stack, {info.get('spill_stores')} B "
                  f"spill stores, {info.get('spill_loads')} B spill loads, "
@@ -742,7 +764,24 @@ def main() -> int:
             del got, plain
     _log(f"all {len(mb.REPS)} microbench kernels == plain limb for limb "
          f"([10, m] int32 each, m = {mb.M_DEFAULT} and {MB_BIG})")
-    _log(f"mb bound per op = max(int32 ops per lane x lanes / "
+    # the point ops at lane counts that leave a partial quad, warp or block
+    for m in MB_PARTIAL_LANES:
+        x_part = mb.suite_input(m, dev)
+        for op in mb.POINT_OPS:
+            got = mb.bench_cols(x_part, op, MB_PARTIAL_REPS)
+            torch.cuda.synchronize()
+            plain = mb.bench_cols_plain(x_part, op, MB_PARTIAL_REPS)
+            if not torch.equal(got, plain):
+                raise AssertionError(
+                    f"microbench {op} kernel != plain on "
+                    f"{int((got != plain).any(0).sum())} of {m} lanes")
+            mb_err[op] = max(mb_err[op], int(
+                (got.long() - plain.long()).abs().max().item()))
+    _log(f"microbench {', '.join(mb.POINT_OPS)} == plain limb for limb at "
+         f"{', '.join(map(str, MB_PARTIAL_LANES))} lanes, "
+         f"{MB_PARTIAL_REPS} reps (partial quads, warps and blocks)")
+    _log(f"mb bound per op (counted on the yardstick chain bench_cols_ext) "
+         f"= max(int32 ops per lane x lanes / "
          f"{INT32_OPS_PER_S:.4g}, lanes x "
          f"{MB_IN_BYTES_PER_LANE + MB_OUT_BYTES_PER_LANE} B / "
          f"{HBM_BYTES_PER_S:.3g} B/s); ops per lane = multiplies x "
@@ -764,6 +803,16 @@ def main() -> int:
                  f"bound_ms {b_ms:.4f} ({b_by}; {ops} ops/lane: {n_mul} mul, "
                  f"{n_sqr} sqr, {n_carry} carry) bound_share "
                  f"{b_ms / rec['value_ms']:.4f}")
+
+    # -- 6c. B1's round cost: the suite at B1's tile, 512 warps ----------
+    _phase(f"6c microbench suite at B1's tile ({MB_TILE} lanes)")
+    tile_recs = {r["metric"][3:]: r for r in mb.run_suite(m=MB_TILE)}
+    for op, rec in tile_recs.items():
+        _log(f"{rec['metric']} lanes {MB_TILE} reps {rec['reps']}: ms "
+             f"{rec['value_ms']:.4f} per_op_us {rec['per_op_us']:.4f}" +
+             (f" rounds {MB_ROUNDS[op]} round_us "
+              f"{rec['per_op_us'] / MB_ROUNDS[op]:.4f}"
+              if op in MB_ROUNDS else ""))
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -838,6 +887,16 @@ def main() -> int:
                 "bound_ms": mb_bounds[(op, MB_BIG)][0],
                 "bound_by": mb_bounds[(op, MB_BIG)][1]},
         })
+        if op in mb.POINT_OPS:
+            kernels["kernels"][-1].update(
+                design="four threads a lane on B1's own rounds "
+                       "(ed25519_quad.cuh), point in registers, "
+                       "64-thread blocks" +
+                       (", cached lane table in shared memory"
+                        if op == "window" else ""),
+                ptxas=mb_ptxas[op],
+                round_us_at_b1_tile=(tile_recs[op]["per_op_us"] /
+                                     MB_ROUNDS[op]))
     _log(f"chip_smoke_seconds {time.perf_counter() - t_start:.1f}")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -1,10 +1,11 @@
 // Device functions of the batch ed25519 verifier (ZIP-215, cofactored)
-// for Hopper (sm_90a): the field in radix 2^25.5, the single-thread point
-// formulas and ZIP-215 decompression.  Shared by ed25519_verify.cu (the
-// verify kernel, which runs the field and decompression, and its own
-// four-thread point rounds) and microbench.cu (loops over the field and
-// the single-thread point formulas), so both run one source.  The plain
-// PyTorch version of every function is
+// for Hopper (sm_90a): the field in radix 2^25.5, the extended point type
+// and ZIP-215 decompression.  ed25519_quad.cuh builds the four-thread
+// point rounds on it; ed25519_verify.cu (the verify kernel, B1) includes
+// both, and microbench.cu (B3) includes both for its loops over the field
+// (carry, mul, sqr, select16) and over the rounds (double, add, madd,
+// window), so the verifier and its microbenchmarks run one source.  The
+// plain PyTorch version of every function is
 // cometbft_tpu_torch/ops/field.py and ops/ed25519_kernel.py; the two agree
 // limb for limb.
 //
@@ -230,75 +231,6 @@ __device__ __forceinline__ int fe_parity(const fe& x) {
 __device__ __forceinline__ void fe_load(fe& h, const int32_t* src) {
 #pragma unroll
   for (int i = 0; i < LIMBS; ++i) h.v[i] = src[i];
-}
-
-// ---- point arithmetic (ops/ed25519_kernel._ext_add etc.) ------------------
-
-// Unified add (add-2008-hwcd-3), complete for a = -1.  out may alias p or q.
-__device__ __noinline__ void ge_add(ge& out, const ge& p, const ge& q,
-                                    const fe& two_d, bool need_t) {
-  fe a, b, c, d, e, f, g, h, t1, t2;
-  fe_sub(t1, p.Y, p.X);
-  fe_sub(t2, q.Y, q.X);
-  fe_mul(a, t1, t2);
-  fe_add(t1, p.Y, p.X);
-  fe_add(t2, q.Y, q.X);
-  fe_mul(b, t1, t2);
-  fe_mul(c, p.T, q.T);
-  fe_mul(c, c, two_d);
-  fe_mul(d, p.Z, q.Z);
-  fe_add(d, d, d);
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_mul(out.X, e, f);
-  fe_mul(out.Y, g, h);
-  fe_mul(out.Z, f, g);
-  if (need_t) fe_mul(out.T, e, h);
-}
-
-// dbl-2008-hwcd, a = -1; never reads T.
-__device__ __noinline__ void ge_double(ge& out, const ge& p, bool need_t) {
-  fe a, b, c, e, f, g, h, t;
-  fe_sqr(a, p.X);
-  fe_sqr(b, p.Y);
-  fe_sqr(c, p.Z);
-  fe_add(c, c, c);
-  fe_add(t, p.X, p.Y);
-  fe_sqr(e, t);
-  fe_sub(e, e, a);
-  fe_sub(e, e, b);
-  fe_sub(g, b, a);
-  fe_sub(f, g, c);
-  fe_add(h, a, b);
-  fe_neg(h, h);
-  fe_mul(out.X, e, f);
-  fe_mul(out.Y, g, h);
-  fe_mul(out.Z, f, g);
-  if (need_t) fe_mul(out.T, e, h);
-}
-
-// Mixed add of an extended point and an affine entry (y-x, y+x, 2d·x·y).
-__device__ __noinline__ void ge_madd(ge& out, const ge& p, const int32_t* q3) {
-  fe ymx, ypx, t2d, a, b, c, d, e, f, g, h, t;
-  fe_load(ymx, q3);
-  fe_load(ypx, q3 + LIMBS);
-  fe_load(t2d, q3 + 2 * LIMBS);
-  fe_sub(t, p.Y, p.X);
-  fe_mul(a, t, ymx);
-  fe_add(t, p.Y, p.X);
-  fe_mul(b, t, ypx);
-  fe_mul(c, p.T, t2d);
-  fe_add(d, p.Z, p.Z);
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_mul(out.X, e, f);
-  fe_mul(out.Y, g, h);
-  fe_mul(out.Z, f, g);
-  fe_mul(out.T, e, h);
 }
 
 // Bits 0..254 of a 32-byte little-endian column as 10 digits.

@@ -1,9 +1,9 @@
 // Per-primitive microbenchmarks of the batch ed25519 verifier for Hopper
-// (sm_90a): loops over the device functions of ed25519_field.cuh.  carry,
-// mul and sqr are the field code ed25519_verify.cu runs, so their times
+// (sm_90a): loops over the device code ed25519_verify.cu runs.  carry,
+// mul and sqr loop over the field of ed25519_field.cuh, so their times
 // are the cost of a verifier round's product; double, add, madd and
-// window run the header's single-thread point formulas, which the
-// verifier replaced by four-thread rounds.
+// window loop over the verifier's own four-thread rounds of
+// ed25519_quad.cuh, so their times are the cost of its rounds.
 //
 // Replaces the Pallas TPU kernels of cometbft_tpu/ops/microbench.py
 // (_make_kernel(op, reps), :82; launched by _bench_call, :178).  One
@@ -14,46 +14,76 @@
 //   carry     fe_carry of the value
 //   mul       (u, w) -> (u·w, u)
 //   sqr       u -> u²
-//   double    ge_double (with T)
-//   add       ge_add of the seed point p
-//   madd      ge_madd of the affine B-table entry 3
+//   double    quad_double
+//   add       quad_add_cached of the seed point p in cached form
+//   madd      quad_madd of the affine B-table entry 3
 //   select16  sum of the y-x coordinate of B-table entry (x0 + j) & 15,
 //             in int64 limbs (512 entries of up to 2^25 overflow int32),
 //             carried once at the end
-//   window    4 doublings (T on the last), ge_madd of B-table entry
-//             w = (x0 + j) & 15, ge_add of entry w of a 16-entry lane
-//             table made of 16 copies of p
+//   window    4 quad_doubles, quad_madd of B-table entry
+//             w = (x0 + j) & 15, quad_add_cached of entry w of a
+//             16-entry lane table made of 16 copies of p in cached form
 // The seed is x = the 32 input bytes as a field element (bit 255 added
 // at 19, since fe_from_bytes drops it), y = 2x, p = (x, y, 1, xy).  The
 // output is [10, n] int32: the limbs of the value, or of X.  The plain
 // PyTorch version is cometbft_tpu_torch/ops/microbench.bench_cols_plain;
 // the two agree limb for limb.
 //
-// One thread per lane, 32 threads a block.  A
-// record at 16,384 lanes (512 warps) shows the latency of one lane's
-// chain; more lanes show the issue rate.
+// Bound on this card: integer issue, counted on the JAX kernel's
+// single-point formulas (microbench.bench_cols_ext, the yardstick; see
+// PERF.md).  A chain is one lane's dependent products, so at 16,384
+// lanes the card runs short of warps to hide their latency:
+//
+//   * carry, mul, sqr, select16 and noop run one thread a lane, 32
+//     threads a block: 512 warps at 16,384 lanes, about one a scheduler.
+//   * The point ops run a quad a lane, 64 threads a block (16 lanes), as
+//     the verifier runs a signature: lanes 4q..4q+3 of a warp own one
+//     chain and each holds the whole point in registers; in each round
+//     thread c computes product c and __shfl_sync (width 4) gathers the
+//     four.  The chain is a quarter as deep, and 16,384 lanes are 2,048
+//     warps, about four a scheduler.  Every thread reaches every shuffle:
+//     a thread past the last lane runs on the last real lane, and only
+//     thread 0 of a real quad stores.
+//   * window keeps its 16-entry lane table in shared memory as the
+//     verifier does, [entry][limb][thread] with thread c holding
+//     coordinate c (640 B a thread, 40,960 B a block), and selects entry
+//     w by the lane's own window.
 
-#include "ed25519_field.cuh"
+#include "ed25519_quad.cuh"
 
 namespace {
 
 constexpr int MB_THREADS = 32;
+constexpr int QUAD_THREADS = 64;
 
 enum : int {
   OP_NOOP, OP_CARRY, OP_MUL, OP_SQR, OP_DOUBLE, OP_ADD, OP_MADD,
   OP_SELECT16, OP_WINDOW
 };
 
+// the point ops run four threads a lane
 template <int OP>
-__global__ void __launch_bounds__(MB_THREADS)
+constexpr bool QUAD_OP =
+    OP == OP_DOUBLE || OP == OP_ADD || OP == OP_MADD || OP == OP_WINDOW;
+template <int OP>
+constexpr int OP_THREADS = QUAD_OP<OP> ? QUAD_THREADS : MB_THREADS;
+template <int OP>
+constexpr int THREADS_A_LANE = QUAD_OP<OP> ? QUAD : 1;
+
+template <int OP>
+__global__ void __launch_bounds__(OP_THREADS<OP>)
 mb_kernel(const int32_t* __restrict__ x_cols,
           const int32_t* __restrict__ consts, int n, int reps,
           int32_t* __restrict__ out) {
   __shared__ int32_t sc[C_TOTAL];
   for (int i = threadIdx.x; i < C_TOTAL; i += blockDim.x) sc[i] = consts[i];
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  const int id = (blockIdx.x * blockDim.x + threadIdx.x) / THREADS_A_LANE<OP>;
+  if constexpr (!QUAD_OP<OP>) {
+    if (id >= n) return;
+  }
+  const int lane = id < n ? id : n - 1;     // past the end: the last lane
+  const int c = threadIdx.x & (QUAD - 1);
 
   int32_t b[32];
 #pragma unroll
@@ -79,6 +109,7 @@ mb_kernel(const int32_t* __restrict__ x_cols,
   p.Z = one;
   fe_mul(p.T, x, y);
   const int w0 = b[0] & 15;
+  const int bc = c < 3 ? c : 0;             // thread 3 reads no B entry
 
   fe res;
   if constexpr (OP == OP_NOOP) {
@@ -106,20 +137,30 @@ mb_kernel(const int32_t* __restrict__ x_cols,
 #pragma unroll 1
     for (int r = 0; r < reps; ++r) fe_sqr(res, res);
   } else if constexpr (OP == OP_DOUBLE) {
-    ge q = p;
 #pragma unroll 1
-    for (int r = 0; r < reps; ++r) ge_double(q, q, true);
-    res = q.X;
+    for (int r = 0; r < reps; ++r) quad_double(p, c);
+    res = p.X;
   } else if constexpr (OP == OP_ADD) {
-    ge q = p;
+    fe t2d, mine;
+    fe_mul(t2d, p.T, two_d);
+    cached_coord(mine, p, c, t2d);
 #pragma unroll 1
-    for (int r = 0; r < reps; ++r) ge_add(q, q, p, two_d, true);
-    res = q.X;
+    for (int r = 0; r < reps; ++r) {
+      // The verifier reads its entry from shared memory each window; a
+      // loop-invariant one let nvcc split each limb product of round 1
+      // into IMAD.WIDE.U32 and two IMADs (917 instructions a step, not
+      // 601).  The empty asm makes the entry opaque again, at no cost.
+#pragma unroll
+      for (int i = 0; i < LIMBS; ++i) asm volatile("" : "+r"(mine.v[i]));
+      quad_add_cached(p, c, mine);
+    }
+    res = p.X;
   } else if constexpr (OP == OP_MADD) {
-    ge q = p;
+    fe mine, t2d;
+    fe_load(mine, sc + C_BTAB + (3 * 3 + bc) * LIMBS);
 #pragma unroll 1
-    for (int r = 0; r < reps; ++r) ge_madd(q, q, sc + C_BTAB + 3 * 3 * LIMBS);
-    res = q.X;
+    for (int r = 0; r < reps; ++r) quad_madd(p, c, mine, two_d, t2d);
+    res = p.X;
   } else if constexpr (OP == OP_SELECT16) {
     int64_t acc[LIMBS];
 #pragma unroll
@@ -132,29 +173,37 @@ mb_kernel(const int32_t* __restrict__ x_cols,
     }
     fe_carry(res, acc);
   } else if constexpr (OP == OP_WINDOW) {
-    ge lane_tab[16];
+    __shared__ int32_t tab[16][LIMBS][QUAD_THREADS];
+    fe t2d, mine;
+    fe_mul(t2d, p.T, two_d);
+    cached_coord(mine, p, c, t2d);
 #pragma unroll 1
-    for (int i = 0; i < 16; ++i) lane_tab[i] = p;
-    ge q = p;
+    for (int e = 0; e < 16; ++e) tab_store(tab, e, mine);
 #pragma unroll 1
     for (int j = 0; j < reps; ++j) {
 #pragma unroll 1
-      for (int i = 0; i < 4; ++i) ge_double(q, q, i == 3);
+      for (int i = 0; i < 4; ++i) quad_double(p, c);
       const int w = (w0 + j) & 15;
-      ge_madd(q, q, sc + C_BTAB + w * 3 * LIMBS);
-      ge_add(q, q, lane_tab[w], two_d, true);
-    }
-    res = q.X;
-  }
+      fe_load(mine, sc + C_BTAB + (w * 3 + bc) * LIMBS);
+      quad_madd(p, c, mine, two_d, t2d);
 #pragma unroll
-  for (int i = 0; i < LIMBS; ++i) out[(size_t)i * n + lane] = res.v[i];
+      for (int i = 0; i < LIMBS; ++i) mine.v[i] = tab[w][i][threadIdx.x];
+      quad_add_cached(p, c, mine);
+    }
+    res = p.X;
+  }
+  if (!QUAD_OP<OP> || (c == 0 && id < n)) {
+#pragma unroll
+    for (int i = 0; i < LIMBS; ++i) out[(size_t)i * n + lane] = res.v[i];
+  }
 }
 
 template <int OP>
 int mb_launch(const void* x_cols, const void* consts, int n, int reps,
               void* out, void* stream) {
-  const int blocks = (n + MB_THREADS - 1) / MB_THREADS;
-  mb_kernel<OP><<<blocks, MB_THREADS, 0, (cudaStream_t)stream>>>(
+  const int blocks = (int)(((int64_t)n * THREADS_A_LANE<OP> + OP_THREADS<OP> -
+                            1) / OP_THREADS<OP>);
+  mb_kernel<OP><<<blocks, OP_THREADS<OP>, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x_cols, (const int32_t*)consts, n, reps,
       (int32_t*)out);
   return (int)cudaGetLastError();

@@ -3,12 +3,12 @@ card: the floor analysis.
 
 Counterpart of cometbft_tpu/ops/microbench.py (``_make_kernel``, :82,
 launched by ``_bench_call``, :178).  Each op runs ``reps`` iterations of
-one primitive of ops/csrc/ed25519_field.cuh per lane, so a record gives
-the card's cost of a carry, a field multiply and a squaring (the field
-code ed25519_verify.cu runs), and of a doubling, the two addition forms,
-the 16-entry B-table select and one full ladder window in the header's
-single-thread point formulas (the verifier runs them as four-thread
-rounds instead).  The kernels are ops/csrc/microbench.cu.
+one primitive of the verifier's device code per lane, so a record gives
+the card's cost of a carry, a field multiply and a squaring
+(ops/csrc/ed25519_field.cuh, one thread a lane), of a doubling, the two
+addition forms and one full ladder window in the verifier's own
+four-thread rounds (ops/csrc/ed25519_quad.cuh, four threads a lane), and
+of the 16-entry B-table select.  The kernels are ops/csrc/microbench.cu.
 
 The seed of every lane is x = its 32 input bytes as a field element
 (all 256 bits, as the JAX kernel reads them), y = 2x and the point
@@ -20,7 +20,10 @@ kernel here writes the whole result, ``[10, n]`` int32 (the limbs of the
 value, or of X): ten limbs hold the whole value, so the tests can check
 it mod p.  ``bench_cols`` launches the kernel for CUDA tensors and runs
 ``bench_cols_plain`` (the same chain on ops/field.py and
-ops/ed25519_kernel's point functions, limb for limb) for CPU tensors.
+ops/ed25519_kernel's round helpers, limb for limb) for CPU tensors.
+``bench_cols_ext`` runs the point ops on the JAX kernel's single-point
+formulas instead: equal mod p, it is the yardstick chip_smoke.py counts
+the bound on.
 
 The JAX module's ``generate()`` exports its kernels ahead of time for
 the TPU; here the nvcc build of ops/_build.py takes its place, so there
@@ -30,9 +33,10 @@ is no counterpart.
                                                 [--sass]
 
 runs the suite on the card and prints one JSON record per line; with
-``--sass`` it also prints, for ``carry``, ``mul`` and ``sqr``, the
-instructions of the kernel's loop body (cuobjdump's SASS of the built
-library) and the rate at which the card issued them in the timed run.
+``--sass`` it also prints, for ``carry``, ``mul``, ``sqr``, ``double``,
+``add`` and ``madd``, the instructions of the kernel's loop body
+(cuobjdump's SASS of the built library), its shuffles, and the rate at
+which the card issued them in the timed run.
 """
 from __future__ import annotations
 
@@ -72,6 +76,10 @@ REPS = {
 launches = dict.fromkeys(REPS, 0)
 
 _OP_INDEX = {op: i for i, op in enumerate(REPS)}    # microbench.cu's enum
+# the point ops run a quad of threads a lane on the verifier's rounds
+# (microbench.cu's QUAD_OP); the others one thread a lane
+POINT_OPS = ("double", "add", "madd", "window")
+THREADS_A_LANE = {op: 4 if op in POINT_OPS else 1 for op in REPS}
 _OUT_ROWS = field.LIMBS
 
 
@@ -91,12 +99,52 @@ def _check(x_cols, op, reps) -> None:
         raise ValueError(f"reps must be an int in [0, 2^31), got {reps!r}")
 
 
-# --- plain version ----------------------------------------------------------
+# --- plain versions ---------------------------------------------------------
 
-def bench_cols_plain(x_cols: torch.Tensor, op: str, reps: int
-                     ) -> torch.Tensor:
-    """The plain PyTorch version of the kernel, on any device.  Same
-    arguments and result as ``bench_cols``."""
+def _quad_chain(op, p, reps, two_d, b_entry):
+    """The kernel's point chain on the four-thread round helpers of
+    ops/ed25519_kernel.py, limb for limb: ``reps`` steps of ``op``
+    (double, add, madd or window) from the seed point ``p``.  The add
+    and the window's lane table take ``p`` in cached form, made once;
+    ``b_entry(j)`` is the affine B-table entry of step j."""
+    q = p
+    entry = ek._cached(p, two_d) if op in ("add", "window") else None
+    for j in range(reps):
+        if op == "double":
+            q = ek._quad_double(q)
+        elif op == "add":
+            q = ek._quad_add_cached(q, entry)
+        elif op == "madd":
+            q, _ = ek._quad_madd(q, b_entry(j), two_d)
+        else:                                           # window
+            for _ in range(4):
+                q = ek._quad_double(q)
+            q, _ = ek._quad_madd(q, b_entry(j), two_d)
+            q = ek._quad_add_cached(q, entry)           # lane entry w = p
+    return q
+
+
+def _ext_chain(op, p, reps, two_d, b_entry):
+    """The same chain on the single-point formulas (_ext_double, _ext_add,
+    _madd_affine), as the JAX kernel runs it: equal to ``_quad_chain``
+    mod p, and the yardstick the bound is counted on."""
+    q = p
+    for j in range(reps):
+        if op == "double":
+            q = ek._ext_double(q)
+        elif op == "add":
+            q = ek._ext_add(q, p, two_d)
+        elif op == "madd":
+            q = ek._madd_affine(q, b_entry(j))
+        else:                                           # window
+            for i in range(4):
+                q = ek._ext_double(q, need_t=(i == 3))
+            q = ek._madd_affine(q, b_entry(j))
+            q = ek._ext_add(q, p, two_d)                # lane entry w = p
+    return q
+
+
+def _bench(x_cols, op, reps, point_chain):
     _check(x_cols, op, reps)
     dev = x_cols.device
     consts = torch.tensor(ek.CONSTS, dtype=torch.int64, device=dev)
@@ -131,23 +179,29 @@ def bench_cols_plain(x_cols: torch.Tensor, op: str, reps: int
         for j in range(reps):
             acc = acc + b_tab[(w0 + j) & 15, 0]
         res = field.carry(acc)
-    else:
-        q = p
-        for j in range(reps):
-            if op == "double":
-                q = ek._ext_double(q)
-            elif op == "add":
-                q = ek._ext_add(q, p, two_d)
-            elif op == "madd":
-                q = ek._madd_affine(q, b_tab[3].unbind(0))
-            else:                                       # window
-                for i in range(4):
-                    q = ek._ext_double(q, need_t=(i == 3))
-                w = (w0 + j) & 15
-                q = ek._madd_affine(q, b_tab[w].unbind(1))
-                q = ek._ext_add(q, p, two_d)            # lane entry w = p
-        res = q[0]
+    else:                                 # madd: entry 3; window: entry w
+        entry3 = b_tab[3].unbind(0)
+        b_entry = ((lambda j: entry3) if op == "madd" else
+                   (lambda j: b_tab[(w0 + j) & 15].unbind(1)))
+        res = point_chain(op, p, reps, two_d, b_entry)[0]
     return res.t().to(torch.int32).contiguous()
+
+
+def bench_cols_plain(x_cols: torch.Tensor, op: str, reps: int
+                     ) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, on any device, limb for
+    limb: the point ops on the kernel's four-thread rounds.  Same
+    arguments and result as ``bench_cols``."""
+    return _bench(x_cols, op, reps, _quad_chain)
+
+
+def bench_cols_ext(x_cols: torch.Tensor, op: str, reps: int
+                   ) -> torch.Tensor:
+    """The yardstick: ``bench_cols_plain`` with the point ops on the JAX
+    kernel's single-point formulas.  Equal to it mod p (the field ops
+    limb for limb); chip_smoke.py counts the bound's work on it, so the
+    bound does not move with the kernel's schedule."""
+    return _bench(x_cols, op, reps, _ext_chain)
 
 
 # --- the CUDA kernel's wrapper ----------------------------------------------
@@ -230,7 +284,8 @@ _SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
 SM_CLOCKS_PER_S = 132 * 1.98e9
 
 
-def sass_loop_bodies(sass: str, ops=("carry", "mul", "sqr")) -> dict:
+def sass_loop_bodies(sass: str, ops=("carry", "mul", "sqr", "double", "add",
+                                     "madd")) -> dict:
     """{op: (instructions, [(opcode, count), ...])} of the largest loop
     body (the span of a backward branch) in ``mb_kernel<op>``, from
     ``cuobjdump -sass`` text: what the card issues per iteration."""
@@ -268,7 +323,8 @@ def main() -> int:
     ap.add_argument("--m", type=int, default=M_DEFAULT, help="lanes")
     ap.add_argument("--reps-timing", type=int, default=5)
     ap.add_argument("--sass", action="store_true",
-                    help="also print the carry/mul/sqr loop bodies")
+                    help="also print the loop bodies of carry, mul, sqr, "
+                    "double, add and madd")
     args = ap.parse_args()
     records = run_suite(m=args.m, reps_timing=args.reps_timing)
     for rec in records:
@@ -277,12 +333,15 @@ def main() -> int:
         by_op = {r["metric"][3:]: r for r in records}
         for op, (n, mix) in sass_loop_bodies(_library_sass()).items():
             rec = by_op[op]
-            rate = (n * rec["reps"] * args.m / (rec["value_ms"] * 1e-3) /
+            threads = args.m * THREADS_A_LANE[op]
+            rate = (n * rec["reps"] * threads / (rec["value_ms"] * 1e-3) /
                     SM_CLOCKS_PER_S)
             print(json.dumps(dict(
                 metric=f"sass_mb_{op}", bucket=args.m, loop_instructions=n,
-                opcodes=dict(mix), lane_instructions_per_sm_clock=rate,
-                issue_limit=128, device=rec["device"])), flush=True)
+                shuffles=sum(k for opc, k in mix if opc.startswith("SHFL")),
+                threads_a_lane=THREADS_A_LANE[op], opcodes=dict(mix),
+                lane_instructions_per_sm_clock=rate, issue_limit=128,
+                device=rec["device"])), flush=True)
     return 0
 
 

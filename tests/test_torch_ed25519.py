@@ -23,6 +23,15 @@ from cometbft_tpu_torch.ops import field as F
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the test workers share the CPUs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class _Gen:
     """Seeded signatures and edge-case encodings."""
 

@@ -29,6 +29,15 @@ CPU = torch.device("cpu")
 ENV = "COMETBFT_TPU_TORCH_KERNEL"
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the test workers share the CPUs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def cuda8(monkeypatch):
     monkeypatch.setenv(ENV, "cuda8")

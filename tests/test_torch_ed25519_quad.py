@@ -34,6 +34,15 @@ TWO_D = torch.tensor(F.balanced(2 * ref.D % P), dtype=torch.int64)
 
 # --- points ------------------------------------------------------------------
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the test workers share the CPUs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _torsion():
     """The 8 points of order dividing 8, from L·(a decodable point)."""
     rng = np.random.default_rng(40)

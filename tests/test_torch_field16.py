@@ -16,6 +16,15 @@ from cometbft_tpu_torch.ops import field16 as F
 P = F.P
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the test workers share the CPUs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rand_ints(seed, n):
     rng = np.random.default_rng(seed)
     return [int.from_bytes(rng.bytes(32), "little") % P for _ in range(n)]

@@ -30,6 +30,15 @@ from cometbft_tpu_torch.types.validator_set import ValidatorSet
 REPO = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the test workers share the CPUs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         cometbft_tpu_torch.__path__, "cometbft_tpu_torch."))

@@ -5,9 +5,14 @@ package's own primitives (ed25519_pallas: _from_bytes, _norm, _mul_nn,
 _make_sqr, _ext_double, _ext_add, _madd_affine; microbench._where_tree)
 with its packed constants sliced as _unpack_consts slices them.  The
 formulas are the same on both sides (dbl-2008-hwcd, add-2008-hwcd-3,
-madd-2008-hwcd), so every coordinate agrees as an integer mod p.  Long
-chains at the full REPS are held to Python ints.  All results are
-integers: tolerance is exact equality."""
+madd-2008-hwcd), so every coordinate agrees as an integer mod p.  The
+plain version runs the point ops on the kernel's four-thread rounds,
+the yardstick chain (bench_cols_ext, which the bound is counted on) on
+the single-point formulas; both equal the JAX chain, and each other at
+the full REPS, where the rounds' operands are also checked against the
+overflow rule.  Long chains at the full REPS are held to Python ints.
+All results are integers: tolerance is exact equality."""
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -24,9 +29,19 @@ from cometbft_tpu.ops import microbench as jmb
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import field
 from cometbft_tpu_torch.ops import microbench as mb
+from test_torch_ed25519_quad import _Lazy
 
 P = field.P
 REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the test workers share the CPUs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _x(seed=7, lanes=8):
@@ -37,10 +52,19 @@ def _x(seed=7, lanes=8):
     return x
 
 
+def _vals(out, lanes):
+    assert out.dtype == torch.int32 and out.shape == (10, lanes)
+    return [field.from_limbs(out[:, lane]) for lane in range(lanes)]
+
+
 def _port_vals(x, op, reps):
-    out = mb.bench_cols_plain(torch.from_numpy(x), op, reps)
-    assert out.dtype == torch.int32 and out.shape == (10, x.shape[1])
-    return [field.from_limbs(out[:, lane]) for lane in range(x.shape[1])]
+    return _vals(mb.bench_cols_plain(torch.from_numpy(x), op, reps),
+                 x.shape[1])
+
+
+def _ext_vals(x, op, reps):
+    return _vals(mb.bench_cols_ext(torch.from_numpy(x), op, reps),
+                 x.shape[1])
 
 
 def _jax_vals(x, op, reps):
@@ -111,6 +135,85 @@ def _jax_vals(x, op, reps):
 def test_plain_matches_jax_primitives(op):
     x = _x()
     assert _port_vals(x, op, 2) == _jax_vals(x, op, 2)
+
+
+@pytest.mark.parametrize("op", list(mb.REPS))
+def test_yardstick_matches_jax_primitives(op):
+    """The chain the bound is counted on is the JAX kernel's."""
+    x = _x()
+    assert _ext_vals(x, op, 2) == _jax_vals(x, op, 2)
+
+
+@pytest.mark.parametrize("reps", ["2", "full"])
+@pytest.mark.parametrize("op", mb.POINT_OPS)
+def test_quad_chain_equals_yardstick_mod_p(op, reps):
+    """The kernel's four-thread rounds and the single-point formulas give
+    the same X mod p, short and at the full REPS."""
+    x = _x(seed=13, lanes=4)
+    k = 2 if reps == "2" else mb.REPS[op]
+    assert _port_vals(x, op, k) == _ext_vals(x, op, k)
+
+
+@pytest.mark.parametrize("op", ["noop", "carry", "mul", "sqr", "select16"])
+def test_field_ops_share_one_chain(op):
+    x = torch.from_numpy(_x(lanes=3))
+    assert torch.equal(mb.bench_cols_plain(x, op, 5),
+                       mb.bench_cols_ext(x, op, 5))
+
+
+@pytest.mark.parametrize("op", mb.POINT_OPS)
+def test_quad_chain_operands_within_max_lazy(op, monkeypatch):
+    """The kernel's point chain at the full REPS on abstract values (the
+    tracker of test_torch_ed25519_quad): the seed's coordinates, products
+    and constants are 1 resting value, sums add up, and every operand of
+    every product stays within MAX_LAZY."""
+    seen = []
+
+    def mul(f, g):
+        seen.append(max(f.k, g.k))
+        return _Lazy(1)
+
+    monkeypatch.setattr(ek, "_products",
+                        lambda lhs, rhs: tuple(map(mul, lhs, rhs)))
+    monkeypatch.setattr(ek, "_squares",
+                        lambda xs: tuple(mul(x, x) for x in xs))
+    monkeypatch.setattr(field, "mul", mul)
+    R = _Lazy(1)
+    reps = mb.REPS[op]
+    mb._quad_chain(op, (R, R, R, R), reps, R, lambda j: (R, R, R))
+    rounds = {"double": 2, "add": 2, "madd": 2, "window": 12}[op]
+    cached = op in ("add", "window")          # p's cached form, once
+    assert len(seen) == cached + 4 * rounds * reps
+    assert max(seen) <= field.MAX_LAZY
+    # F = G - 2·ZZ of a doubling; F, G = 2·Z1 ± C of a mixed add
+    assert max(seen) == {"double": 4, "add": 2, "madd": 3, "window": 4}[op]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bound_counts_stay_on_the_yardstick():
+    """chip_smoke.py counts each op's bound on bench_cols_ext: the counts
+    and the 16,384-lane bounds of the point ops are the ones the kernels
+    were measured against before the point ops moved to the quad rounds,
+    so old and new times stand against one bound."""
+    cs = _chip_smoke()
+    assert cs._mb_ops_per_lane() == {
+        "noop": (504, 1, 0, 2), "carry": (360952, 1, 0, 4098),
+        "mul": (336376, 1025, 0, 2), "sqr": (244216, 1, 1024, 2),
+        "double": (290296, 513, 512, 2), "add": (378360, 1153, 0, 2),
+        "madd": (294392, 897, 0, 2), "select16": (10832, 1, 0, 3),
+        "window": (213624, 465, 256, 2)}
+    bounds = {op: f"{cs._mb_bound(16384, ops)[0]:.4f}"
+              for op, ops in (("add", 378360), ("madd", 294392),
+                              ("double", 290296), ("window", 213624))}
+    assert bounds == {"add": "0.1853", "madd": "0.1442", "double": "0.1422",
+                      "window": "0.1046"}
 
 
 def test_reps_and_m_default_match_jax():
@@ -254,21 +357,31 @@ def test_sass_loop_bodies_counts_the_backward_branch_span():
         _sass_function(ops.index("sqr"), ["IMAD"] * 3),
         _sass_function(ops.index("noop"), ["MOV"]),
         _sass_function(ops.index("carry"), ["SHF.R.S64"], name="other"),
+        _sass_function(ops.index("double"),
+                       ["SHFL.IDX"] * 4 + ["IMAD.WIDE.U32"] * 2),
+        _sass_function(ops.index("window"), ["SHFL.IDX"]),
     ])
     got = mb.sass_loop_bodies(sass)
     # the loop is the body plus its branch; setup and EXIT are outside it
     assert got == {"mul": (8, [("IMAD.WIDE", 5), ("IADD3", 2), ("BRA", 1)]),
-                   "sqr": (4, [("IMAD", 3), ("BRA", 1)])}
+                   "sqr": (4, [("IMAD", 3), ("BRA", 1)]),
+                   "double": (7, [("SHFL.IDX", 4), ("IMAD.WIDE.U32", 2),
+                                  ("BRA", 1)])}
 
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
-    x = torch.from_numpy(_x(lanes=96)).cuda()
-    for op in mb.REPS:
-        before = mb.launches[op]
-        got = mb.bench_cols(x, op, 3)
-        torch.cuda.synchronize()
-        assert mb.launches[op] == before + 1
-        assert torch.equal(got, mb.bench_cols_plain(x, op, 3)), op
+    # 96 lanes, and lane counts that leave the point ops (a quad a lane,
+    # 16 lanes a block) a partial quad, warp or block
+    for lanes in (96, 1, 3, 5, 33):
+        x = torch.from_numpy(_x(seed=lanes, lanes=max(lanes, 2))[:, :lanes]
+                             .copy()).cuda()
+        for op in mb.REPS:
+            before = mb.launches[op]
+            got = mb.bench_cols(x, op, 3)
+            torch.cuda.synchronize()
+            assert mb.launches[op] == before + 1
+            assert torch.equal(got, mb.bench_cols_plain(x, op, 3)), (op,
+                                                                     lanes)

@@ -8,6 +8,7 @@ by both packages: the reference on its ``cpu`` backend, the port with
 and, under COMETBFT_TPU_TORCH_KERNEL=cuda8, of the second).  Verdicts
 and error texts must be equal."""
 import pytest
+import torch
 
 from cometbft_tpu.crypto import ed25519 as r_ed
 from cometbft_tpu.types import validation as rv
@@ -33,6 +34,15 @@ from cometbft_tpu_torch.types.validator_set import ValidatorSet
 
 CHAIN_ID = "test-chain"
 HEIGHT = 7
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread: the test workers share the CPUs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _block_id(tag=b"b"):
