@@ -27,6 +27,7 @@ the golden model in a pool of worker processes.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import hashlib
 import json
@@ -88,6 +89,18 @@ MB_PARTIAL_REPS = 3
 # rounds of B1's four-thread schedule in one step of each point op: a
 # doubling or an add is 2, a window 4 doublings and 2 adds
 MB_ROUNDS = {"double": 2, "add": 2, "madd": 2, "window": 12}
+# The bound PR 3 held the microbench kernels to, printed beside the
+# bound for continuity: (multiplies, squarings, carries) a lane of every
+# product and carry the JAX kernel's single-point chain computes, the seed
+# (x, y = 2x, x·y) included.  A doubling is 4 squarings and 4 multiplies
+# (_ext_double, T on every step), an add 9 multiplies (_ext_add, T1·T2
+# then ·2d), a mixed add 7 (_madd_affine), a window 4 doublings (T on the
+# last only), a mixed add and an add; the field ops are their REPS.
+MB_YARDSTICK_WORK = {
+    "noop": (1, 0, 2), "carry": (1, 0, 2 + 4096), "mul": (1 + 1024, 0, 2),
+    "sqr": (1, 1024, 2), "double": (1 + 128 * 4, 128 * 4, 2),
+    "add": (1 + 128 * 9, 0, 2), "madd": (1 + 128 * 7, 0, 2),
+    "select16": (1, 0, 3), "window": (1 + 16 * 29, 16 * 16, 2)}
 
 
 def _sign_job(job):
@@ -240,30 +253,71 @@ def _field16_ops_per_lane():
     return counts["mul"], counts["sqr"]
 
 
-def _mb_ops_per_lane():
+class _Sym:
+    """A value of a symbolic run of the microbench chain: the operation
+    that made it ("mul", "sqr", "carry"; None for a sum or an input) and
+    its operands."""
+
+    def __init__(self, kind=None, *args):
+        self.kind, self.args = kind, args
+
+    def __add__(self, other):
+        return _Sym(None, self, other)
+
+    __sub__ = __add__
+
+    def __neg__(self):
+        return _Sym(None, self)
+
+
+def _mb_work_per_lane():
     """{op: (int32 ops, multiplies, squarings, carries)} one lane of each
-    microbench op does at its REPS, seed included, counted on the
-    yardstick chain ``bench_cols_ext`` (the JAX kernel's single-point
-    formulas, so the bound does not move with the kernel's schedule; one
-    lane, the control flow does not depend on the data).
-    field.mul carries once and field.sqr goes through field.mul, so
-    carries outside a multiply are carry calls less mul calls."""
-    import torch
+    microbench op needs at its REPS: the plain chain (microbench._chain,
+    seed included) run once on symbolic values, counting only the
+    products and carries its output reads.  So a doubling's T3, the seed's
+    x·y in a doubling chain, madd's 2d·T1 and the last step's Y, Z and T
+    are computed by the kernel but are not work the function needs.
+    field.mul carries inside its count; a select16 step adds one 10-limb
+    entry into int64 sums."""
+    from unittest import mock
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
     from cometbft_tpu_torch.ops import field
     from cometbft_tpu_torch.ops import microbench as mb
-    x = torch.zeros(32, 1, dtype=torch.int32)
+
+    def made_by(kind):
+        return lambda *args: _Sym(kind, *args)
+
+    mul, sqr = made_by("mul"), made_by("sqr")
+    leaf = _Sym()
     out = {}
-    for op, reps in mb.REPS.items():
-        with _counting(field, ("mul", "sqr", "carry")) as c:
-            mb.bench_cols_ext(x, op, reps)
-        muls, sqrs = c["mul"] - c["sqr"], c["sqr"]
-        carries = c["carry"] - c["mul"]
-        ops = (muls * OPS_PER_FIELD_MUL + sqrs * OPS_PER_FIELD_SQR +
-               carries * OPS_PER_CARRY)
-        if op == "select16":
-            ops += reps * OPS_PER_SELECT_STEP
-        out[op] = (ops, muls, sqrs, carries)
+    with mock.patch.object(field, "mul", mul), \
+            mock.patch.object(field, "sqr", sqr), \
+            mock.patch.object(field, "carry", made_by("carry")), \
+            mock.patch.object(ek, "_products",
+                              lambda lhs, rhs: tuple(map(mul, lhs, rhs))), \
+            mock.patch.object(ek, "_squares",
+                              lambda xs: tuple(map(sqr, xs))):
+        for op, reps in mb.REPS.items():
+            res = mb._chain(op, leaf, reps, leaf, leaf,
+                            lambda j: (leaf, leaf, leaf), lambda j: leaf)
+            seen, todo, kinds = set(), [res], collections.Counter()
+            while todo:
+                v = todo.pop()
+                if id(v) not in seen:
+                    seen.add(id(v))
+                    kinds[v.kind] += 1
+                    todo.extend(v.args)
+            muls, sqrs, carries = kinds["mul"], kinds["sqr"], kinds["carry"]
+            out[op] = (_mb_ops(muls, sqrs, carries, op, reps),
+                       muls, sqrs, carries)
     return out
+
+
+def _mb_ops(muls, sqrs, carries, op, reps):
+    """int32 operations of a microbench lane's field work."""
+    return (muls * OPS_PER_FIELD_MUL + sqrs * OPS_PER_FIELD_SQR +
+            carries * OPS_PER_CARRY +
+            (reps * OPS_PER_SELECT_STEP if op == "select16" else 0))
 
 
 def _roofline(ops, nbytes):
@@ -728,7 +782,9 @@ def main() -> int:
          f"{muls * OPS_PER_FIELD_MUL + sqrs * OPS_PER_FIELD_SQR}")
 
     # -- 6. microbench: the suite, then each kernel vs plain on its input
-    mb_ops = _mb_ops_per_lane()
+    mb_ops = _mb_work_per_lane()
+    mb_yard_ops = {op: _mb_ops(*work, op, mb.REPS[op])
+                   for op, work in MB_YARDSTICK_WORK.items()}
     mb_runs = {}
     for m in (mb.M_DEFAULT, MB_BIG):
         _phase(f"6 microbench suite at {m} lanes")
@@ -780,21 +836,22 @@ def main() -> int:
     _log(f"microbench {', '.join(mb.POINT_OPS)} == plain limb for limb at "
          f"{', '.join(map(str, MB_PARTIAL_LANES))} lanes, "
          f"{MB_PARTIAL_REPS} reps (partial quads, warps and blocks)")
-    _log(f"mb bound per op (counted on the yardstick chain bench_cols_ext) "
-         f"= max(int32 ops per lane x lanes / "
+    _log(f"mb bound per op = max(int32 ops per lane x lanes / "
          f"{INT32_OPS_PER_S:.4g}, lanes x "
          f"{MB_IN_BYTES_PER_LANE + MB_OUT_BYTES_PER_LANE} B / "
          f"{HBM_BYTES_PER_S:.3g} B/s); ops per lane = multiplies x "
          f"{OPS_PER_FIELD_MUL} + squarings x {OPS_PER_FIELD_SQR} + "
          f"carries x {OPS_PER_CARRY} (+ {OPS_PER_SELECT_STEP} per select16 "
-         f"step), seed included")
+         f"step), counting only what the output reads; yardstick_bound_ms "
+         f"is PR 3's, on every product of the single-point chain")
     mb_bounds = {}
     for recs, _ in mb_runs.values():
         for op, rec in recs.items():
             lanes, reps = rec["bucket"], rec["reps"]
             ops, n_mul, n_sqr, n_carry = mb_ops[op]
             b_ms, b_by = _mb_bound(lanes, ops)
-            mb_bounds[(op, lanes)] = (b_ms, b_by)
+            yard_ms = _mb_bound(lanes, mb_yard_ops[op])[0]
+            mb_bounds[(op, lanes)] = (b_ms, b_by, yard_ms)
             _log(json.dumps(rec))
             _log(f"{rec['metric']} lanes {lanes} reps {reps}: ms "
                  f"{rec['value_ms']:.4f} per_op_us {rec['per_op_us']:.4f} "
@@ -802,7 +859,8 @@ def main() -> int:
                  f"plain_ms {mb_plain_ms[(op, lanes)]:.1f} "
                  f"bound_ms {b_ms:.4f} ({b_by}; {ops} ops/lane: {n_mul} mul, "
                  f"{n_sqr} sqr, {n_carry} carry) bound_share "
-                 f"{b_ms / rec['value_ms']:.4f}")
+                 f"{b_ms / rec['value_ms']:.4f} yardstick_bound_ms "
+                 f"{yard_ms:.4f} ({mb_yard_ops[op]} ops/lane)")
 
     # -- 6c. B1's round cost: the suite at B1's tile, 512 warps ----------
     _phase(f"6c microbench suite at B1's tile ({MB_TILE} lanes)")
@@ -865,7 +923,7 @@ def main() -> int:
     (by_op, mb_launches), big = mb_runs[mb.M_DEFAULT], mb_runs[MB_BIG][0]
     for op, reps in mb.REPS.items():
         rec = by_op[op]
-        b_ms, b_by = mb_bounds[(op, mb.M_DEFAULT)]
+        b_ms, b_by, yard_ms = mb_bounds[(op, mb.M_DEFAULT)]
         kernels["kernels"].append({
             "name": f"mb_{op}",
             "route": "cuda",
@@ -880,12 +938,14 @@ def main() -> int:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
+            "yardstick_bound_ms": yard_ms,
             "per_op_us": rec["per_op_us"],
             f"lanes_{MB_BIG}": {
                 "ms": big[op]["value_ms"],
                 "plain_ms": mb_plain_ms[(op, MB_BIG)],
                 "bound_ms": mb_bounds[(op, MB_BIG)][0],
-                "bound_by": mb_bounds[(op, MB_BIG)][1]},
+                "bound_by": mb_bounds[(op, MB_BIG)][1],
+                "yardstick_bound_ms": mb_bounds[(op, MB_BIG)][2]},
         })
         if op in mb.POINT_OPS:
             kernels["kernels"][-1].update(

@@ -29,10 +29,10 @@
 // PyTorch version is cometbft_tpu_torch/ops/microbench.bench_cols_plain;
 // the two agree limb for limb.
 //
-// Bound on this card: integer issue, counted on the JAX kernel's
-// single-point formulas (microbench.bench_cols_ext, the yardstick; see
-// PERF.md).  A chain is one lane's dependent products, so at 16,384
-// lanes the card runs short of warps to hide their latency:
+// Bound on this card: integer issue, counted on the products and carries
+// the output reads (chip_smoke.py; see PERF.md).  A chain is one lane's
+// dependent products, so at 16,384 lanes the card runs short of warps to
+// hide their latency:
 //
 //   * carry, mul, sqr, select16 and noop run one thread a lane, 32
 //     threads a block: 512 warps at 16,384 lanes, about one a scheduler.
@@ -47,7 +47,8 @@
 //   * window keeps its 16-entry lane table in shared memory as the
 //     verifier does, [entry][limb][thread] with thread c holding
 //     coordinate c (640 B a thread, 40,960 B a block), and selects entry
-//     w by the lane's own window.
+//     w by the lane's own window; add reads its one entry from a shared
+//     slot each step, as the verifier reads its table.
 
 #include "ed25519_quad.cuh"
 
@@ -141,17 +142,22 @@ mb_kernel(const int32_t* __restrict__ x_cols,
     for (int r = 0; r < reps; ++r) quad_double(p, c);
     res = p.X;
   } else if constexpr (OP == OP_ADD) {
+    // p's cached form sits in a shared slot, read each step as the
+    // verifier reads its table entry.  volatile keeps the read in the
+    // loop: with the entry in registers across it, nvcc split each limb
+    // product of round 1 into IMAD.WIDE.U32 and two IMADs (917
+    // instructions a step, not 601), which the verifier never does.
+    __shared__ int32_t slot[LIMBS][QUAD_THREADS];
+    volatile int32_t(*entry)[QUAD_THREADS] = slot;
     fe t2d, mine;
     fe_mul(t2d, p.T, two_d);
     cached_coord(mine, p, c, t2d);
+#pragma unroll
+    for (int i = 0; i < LIMBS; ++i) entry[i][threadIdx.x] = mine.v[i];
 #pragma unroll 1
     for (int r = 0; r < reps; ++r) {
-      // The verifier reads its entry from shared memory each window; a
-      // loop-invariant one let nvcc split each limb product of round 1
-      // into IMAD.WIDE.U32 and two IMADs (917 instructions a step, not
-      // 601).  The empty asm makes the entry opaque again, at no cost.
 #pragma unroll
-      for (int i = 0; i < LIMBS; ++i) asm volatile("" : "+r"(mine.v[i]));
+      for (int i = 0; i < LIMBS; ++i) mine.v[i] = entry[i][threadIdx.x];
       quad_add_cached(p, c, mine);
     }
     res = p.X;

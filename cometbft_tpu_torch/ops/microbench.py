@@ -21,9 +21,8 @@ value, or of X): ten limbs hold the whole value, so the tests can check
 it mod p.  ``bench_cols`` launches the kernel for CUDA tensors and runs
 ``bench_cols_plain`` (the same chain on ops/field.py and
 ops/ed25519_kernel's round helpers, limb for limb) for CPU tensors.
-``bench_cols_ext`` runs the point ops on the JAX kernel's single-point
-formulas instead: equal mod p, it is the yardstick chip_smoke.py counts
-the bound on.
+The chain itself, ``_chain``, takes any values with + and -, so
+chip_smoke.py runs it on symbolic values to count the work a bound needs.
 
 The JAX module's ``generate()`` exports its kernels ahead of time for
 the TPU; here the nvcc build of ops/_build.py takes its place, so there
@@ -124,67 +123,39 @@ def _quad_chain(op, p, reps, two_d, b_entry):
     return q
 
 
-def _ext_chain(op, p, reps, two_d, b_entry):
-    """The same chain on the single-point formulas (_ext_double, _ext_add,
-    _madd_affine), as the JAX kernel runs it: equal to ``_quad_chain``
-    mod p, and the yardstick the bound is counted on."""
-    q = p
-    for j in range(reps):
-        if op == "double":
-            q = ek._ext_double(q)
-        elif op == "add":
-            q = ek._ext_add(q, p, two_d)
-        elif op == "madd":
-            q = ek._madd_affine(q, b_entry(j))
-        else:                                           # window
-            for i in range(4):
-                q = ek._ext_double(q, need_t=(i == 3))
-            q = ek._madd_affine(q, b_entry(j))
-            q = ek._ext_add(q, p, two_d)                # lane entry w = p
-    return q
-
-
-def _bench(x_cols, op, reps, point_chain):
-    _check(x_cols, op, reps)
-    dev = x_cols.device
-    consts = torch.tensor(ek.CONSTS, dtype=torch.int64, device=dev)
-    two_d = consts[10:20]
-    b_tab = consts[30:].reshape(16, 3, field.LIMBS)
-    b = x_cols.t().long() & 0xFF                        # [n, 32]
-    raw = field.from_bytes(b)
-    raw[:, 0] += 19 * (b[:, 31] >> 7)                   # bit 255 at 19
+def _chain(op, raw, reps, one, two_d, b_entry, b_select):
+    """One lane's chain of ``op`` (``reps`` steps) from the raw seed
+    value ``raw``: the seed x = carry(raw), y = 2x, p = (x, y, 1, xy),
+    then the op's loop; returns the value, or X.  ``b_entry(j)`` is the
+    affine B-table entry of step j, ``b_select(j)`` its y-x coordinate
+    for select16.  Written on field.mul, field.sqr, field.carry and the
+    round helpers, so it runs on tensors or on symbolic values."""
     x = field.carry(raw)
     y = field.carry(x + x)
-    one = torch.zeros_like(x)
-    one[:, 0] = 1
     p = (x, y, one, field.mul(x, y))
-    w0 = b[:, 0] & 15
-
     if op == "noop":
-        res = x
-    elif op == "carry":
+        return x
+    if op == "carry":
         res = x
         for _ in range(reps):
             res = field.carry(res)
-    elif op == "mul":
+        return res
+    if op == "mul":
         res, w = x, y
         for _ in range(reps):
             res, w = field.mul(res, w), res
-    elif op == "sqr":
+        return res
+    if op == "sqr":
         res = x
         for _ in range(reps):
             res = field.sqr(res)
-    elif op == "select16":
-        acc = torch.zeros_like(x)
+        return res
+    if op == "select16":
+        acc = one - one                                 # zero
         for j in range(reps):
-            acc = acc + b_tab[(w0 + j) & 15, 0]
-        res = field.carry(acc)
-    else:                                 # madd: entry 3; window: entry w
-        entry3 = b_tab[3].unbind(0)
-        b_entry = ((lambda j: entry3) if op == "madd" else
-                   (lambda j: b_tab[(w0 + j) & 15].unbind(1)))
-        res = point_chain(op, p, reps, two_d, b_entry)[0]
-    return res.t().to(torch.int32).contiguous()
+            acc = acc + b_select(j)
+        return field.carry(acc)
+    return _quad_chain(op, p, reps, two_d, b_entry)[0]
 
 
 def bench_cols_plain(x_cols: torch.Tensor, op: str, reps: int
@@ -192,16 +163,22 @@ def bench_cols_plain(x_cols: torch.Tensor, op: str, reps: int
     """The plain PyTorch version of the kernel, on any device, limb for
     limb: the point ops on the kernel's four-thread rounds.  Same
     arguments and result as ``bench_cols``."""
-    return _bench(x_cols, op, reps, _quad_chain)
-
-
-def bench_cols_ext(x_cols: torch.Tensor, op: str, reps: int
-                   ) -> torch.Tensor:
-    """The yardstick: ``bench_cols_plain`` with the point ops on the JAX
-    kernel's single-point formulas.  Equal to it mod p (the field ops
-    limb for limb); chip_smoke.py counts the bound's work on it, so the
-    bound does not move with the kernel's schedule."""
-    return _bench(x_cols, op, reps, _ext_chain)
+    _check(x_cols, op, reps)
+    dev = x_cols.device
+    consts = torch.tensor(ek.CONSTS, dtype=torch.int64, device=dev)
+    b_tab = consts[30:].reshape(16, 3, field.LIMBS)
+    b = x_cols.t().long() & 0xFF                        # [n, 32]
+    raw = field.from_bytes(b)
+    raw[:, 0] += 19 * (b[:, 31] >> 7)                   # bit 255 at 19
+    one = torch.zeros_like(raw)
+    one[:, 0] = 1
+    w0 = b[:, 0] & 15
+    entry3 = b_tab[3].unbind(0)            # madd: entry 3; window: entry w
+    b_entry = ((lambda j: entry3) if op == "madd" else
+               (lambda j: b_tab[(w0 + j) & 15].unbind(1)))
+    res = _chain(op, raw, reps, one, consts[10:20], b_entry,
+                 lambda j: b_tab[(w0 + j) & 15, 0])
+    return res.t().to(torch.int32).contiguous()
 
 
 # --- the CUDA kernel's wrapper ----------------------------------------------

@@ -19,17 +19,9 @@ from cometbft_tpu.ops import field24 as f24
 from cometbft_tpu_torch.ops import ed25519 as oe
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import field as F
+from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Torch on one intra-op thread: the test workers share the CPUs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _Gen:

@@ -24,18 +24,10 @@ from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
 from cometbft_tpu_torch.ops import field16 as F16
 from tests.test_torch_ed25519 import CASES, _Gen, _cases, _golden
+from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 ENV = "COMETBFT_TPU_TORCH_KERNEL"
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Torch on one intra-op thread: the test workers share the CPUs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture

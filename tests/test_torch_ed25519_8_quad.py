@@ -27,6 +27,8 @@ from cometbft_tpu_torch.crypto import _ed25519_ref as ref
 from cometbft_tpu_torch.ops import ed25519 as oe
 from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
 from cometbft_tpu_torch.ops import field16 as F
+from tests.torch_helpers import Lazy
+from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 P = F.P
 L = F.LIMBS
@@ -34,15 +36,6 @@ TWO_D = torch.tensor(F.balanced(2 * ref.D % P), dtype=torch.int64)
 
 
 # --- points ------------------------------------------------------------------
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Torch on one intra-op thread: the test workers share the CPUs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 def _torsion():
     """The 8 points of order dividing 8, from L·(a decodable point)."""
@@ -253,22 +246,6 @@ def test_quad_schedule_matches_plain_and_golden():
 
 # --- the overflow rule, round by round ---------------------------------------
 
-class _Lazy:
-    """A value known only as a sum of ``k`` resting values: what the
-    bound of ops/field16.py needs of each product operand."""
-
-    def __init__(self, k):
-        self.k = k
-
-    def __add__(self, other):
-        return _Lazy(self.k + other.k)
-
-    __sub__ = __add__
-
-    def __neg__(self):
-        return self
-
-
 def test_every_product_operand_is_within_max_lazy(monkeypatch):
     """The schedule of _quad_verify on abstract values: decompressed
     coordinates, products and constants are 1 resting value; sums add
@@ -278,14 +255,14 @@ def test_every_product_operand_is_within_max_lazy(monkeypatch):
 
     def mul(f, g):
         seen.append(max(f.k, g.k))
-        return _Lazy(1)
+        return Lazy(1)
 
     monkeypatch.setattr(ek8, "_products",
                         lambda lhs, rhs: tuple(map(mul, lhs, rhs)))
     monkeypatch.setattr(ek8, "_squares",
                         lambda xs: tuple(mul(x, x) for x in xs))
     monkeypatch.setattr(F, "mul", mul)
-    R = _Lazy(1)
+    R = Lazy(1)
 
     def neg_point():
         x, y = -R, R
@@ -297,7 +274,7 @@ def test_every_product_operand_is_within_max_lazy(monkeypatch):
     for _ in range(14):
         acc = ek8._quad_add(acc, entry1)
         entries.append(ek8._quad_entry(acc, R))
-    worst = tuple(_Lazy(max(e[c].k for e in entries)) for c in range(4))
+    worst = tuple(Lazy(max(e[c].k for e in entries)) for c in range(4))
     assert [w.k for w in worst] == [1, 1, 1, 1]
     acc = (R, R, R, R)
     for _ in range(ek8.WINDOWS):

@@ -12,17 +12,9 @@ import torch
 
 from cometbft_tpu.ops import field as jfield
 from cometbft_tpu_torch.ops import field16 as F
+from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 P = F.P
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Torch on one intra-op thread: the test workers share the CPUs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand_ints(seed, n):

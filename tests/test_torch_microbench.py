@@ -6,12 +6,13 @@ _make_sqr, _ext_double, _ext_add, _madd_affine; microbench._where_tree)
 with its packed constants sliced as _unpack_consts slices them.  The
 formulas are the same on both sides (dbl-2008-hwcd, add-2008-hwcd-3,
 madd-2008-hwcd), so every coordinate agrees as an integer mod p.  The
-plain version runs the point ops on the kernel's four-thread rounds,
-the yardstick chain (bench_cols_ext, which the bound is counted on) on
-the single-point formulas; both equal the JAX chain, and each other at
-the full REPS, where the rounds' operands are also checked against the
-overflow rule.  Long chains at the full REPS are held to Python ints.
-All results are integers: tolerance is exact equality."""
+plain version runs the point ops on the kernel's four-thread rounds;
+the yardstick, the JAX kernel's single-point formulas on Python ints,
+equals the JAX chain, and the plain version equals it at the full REPS,
+where the rounds' operands are also checked against the overflow rule.
+The work chip_smoke.py counts each bound on is pinned op by op.  All
+results are integers: tolerance is exact equality."""
+import functools
 import importlib.util
 import subprocess
 import sys
@@ -29,19 +30,12 @@ from cometbft_tpu.ops import microbench as jmb
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import field
 from cometbft_tpu_torch.ops import microbench as mb
-from test_torch_ed25519_quad import _Lazy
+from tests.torch_helpers import Lazy
+from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 P = field.P
+TWO_D = 2 * ref.D % P
 REPO = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Torch on one intra-op thread: the test workers share the CPUs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _x(seed=7, lanes=8):
@@ -59,11 +53,6 @@ def _vals(out, lanes):
 
 def _port_vals(x, op, reps):
     return _vals(mb.bench_cols_plain(torch.from_numpy(x), op, reps),
-                 x.shape[1])
-
-
-def _ext_vals(x, op, reps):
-    return _vals(mb.bench_cols_ext(torch.from_numpy(x), op, reps),
                  x.shape[1])
 
 
@@ -139,9 +128,9 @@ def test_plain_matches_jax_primitives(op):
 
 @pytest.mark.parametrize("op", list(mb.REPS))
 def test_yardstick_matches_jax_primitives(op):
-    """The chain the bound is counted on is the JAX kernel's."""
+    """The yardstick on Python ints is the JAX kernel's chain."""
     x = _x()
-    assert _ext_vals(x, op, 2) == _jax_vals(x, op, 2)
+    assert _python_chain(x, op, 2) == _jax_vals(x, op, 2)
 
 
 @pytest.mark.parametrize("reps", ["2", "full"])
@@ -151,14 +140,7 @@ def test_quad_chain_equals_yardstick_mod_p(op, reps):
     the same X mod p, short and at the full REPS."""
     x = _x(seed=13, lanes=4)
     k = 2 if reps == "2" else mb.REPS[op]
-    assert _port_vals(x, op, k) == _ext_vals(x, op, k)
-
-
-@pytest.mark.parametrize("op", ["noop", "carry", "mul", "sqr", "select16"])
-def test_field_ops_share_one_chain(op):
-    x = torch.from_numpy(_x(lanes=3))
-    assert torch.equal(mb.bench_cols_plain(x, op, 5),
-                       mb.bench_cols_ext(x, op, 5))
+    assert _port_vals(x, op, k) == _python_chain(x, op, k)
 
 
 @pytest.mark.parametrize("op", mb.POINT_OPS)
@@ -171,14 +153,14 @@ def test_quad_chain_operands_within_max_lazy(op, monkeypatch):
 
     def mul(f, g):
         seen.append(max(f.k, g.k))
-        return _Lazy(1)
+        return Lazy(1)
 
     monkeypatch.setattr(ek, "_products",
                         lambda lhs, rhs: tuple(map(mul, lhs, rhs)))
     monkeypatch.setattr(ek, "_squares",
                         lambda xs: tuple(mul(x, x) for x in xs))
     monkeypatch.setattr(field, "mul", mul)
-    R = _Lazy(1)
+    R = Lazy(1)
     reps = mb.REPS[op]
     mb._quad_chain(op, (R, R, R, R), reps, R, lambda j: (R, R, R))
     rounds = {"double": 2, "add": 2, "madd": 2, "window": 12}[op]
@@ -189,6 +171,7 @@ def test_quad_chain_operands_within_max_lazy(op, monkeypatch):
     assert max(seen) == {"double": 4, "add": 2, "madd": 3, "window": 4}[op]
 
 
+@functools.cache
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
@@ -197,21 +180,52 @@ def _chip_smoke():
     return mod
 
 
-def test_bound_counts_stay_on_the_yardstick():
-    """chip_smoke.py counts each op's bound on bench_cols_ext: the counts
-    and the 16,384-lane bounds of the point ops are the ones the kernels
-    were measured against before the point ops moved to the quad rounds,
-    so old and new times stand against one bound."""
+@functools.cache
+def _work():
+    return _chip_smoke()._mb_work_per_lane()
+
+
+# (multiplies, squarings, carries) a lane that each op's output reads
+@pytest.mark.parametrize("op, work", [
+    ("noop", (0, 0, 1)),                     # x = carry(raw)
+    ("carry", (0, 0, 1 + 4096)),
+    ("mul", (1024, 0, 2)),                   # x and y; x·y is not read
+    ("sqr", (0, 1024, 1)),
+    ("select16", (0, 0, 1)),                 # the sum's carry, no seed
+    # no doubling reads T: 3 products a step, the last step X alone
+    ("double", (3 * 127 + 1, 4 * 128, 2)),
+    # x·y and 2d·T once, 8 a step, the last step 4 + X
+    ("add", (2 + 8 * 127 + 5, 0, 2)),
+    # round 1's 2d·T1 is not read: 7 a step, the last step 3 + X
+    ("madd", (1 + 7 * 127 + 4, 0, 2)),
+    # a step: doublings 3 + 3 + 3 + 4 (the madd reads the last T), madd
+    # 3 + 4, add 4 + 3 (the next doublings read no T); the last add 4 + X
+    ("window", (2 + 27 * 15 + 25, 16 * 16, 2)),
+])
+def test_bound_counts_the_work_the_output_reads(op, work):
+    """chip_smoke.py counts each op's bound on the products and carries
+    its output reads, from a symbolic run of the plain chain."""
     cs = _chip_smoke()
-    assert cs._mb_ops_per_lane() == {
-        "noop": (504, 1, 0, 2), "carry": (360952, 1, 0, 4098),
-        "mul": (336376, 1025, 0, 2), "sqr": (244216, 1, 1024, 2),
-        "double": (290296, 513, 512, 2), "add": (378360, 1153, 0, 2),
-        "madd": (294392, 897, 0, 2), "select16": (10832, 1, 0, 3),
-        "window": (213624, 465, 256, 2)}
-    bounds = {op: f"{cs._mb_bound(16384, ops)[0]:.4f}"
-              for op, ops in (("add", 378360), ("madd", 294392),
-                              ("double", 290296), ("window", 213624))}
+    ops, *counted = _work()[op]
+    assert tuple(counted) == work
+    assert ops == cs._mb_ops(*work, op, mb.REPS[op])
+
+
+def test_bound_counts_stay_on_the_yardstick():
+    """chip_smoke.py prints PR 3's bound beside the bound: every product
+    of the JAX kernel's single-point chain, seed included.  Its counts
+    and 16,384-lane bounds of the point ops are the ones the kernels
+    were measured against before the point ops moved to the quad rounds,
+    so old and new times stand against one yardstick."""
+    cs = _chip_smoke()
+    ops = {op: cs._mb_ops(*work, op, mb.REPS[op])
+           for op, work in cs.MB_YARDSTICK_WORK.items()}
+    assert ops == {
+        "noop": 504, "carry": 360952, "mul": 336376, "sqr": 244216,
+        "double": 290296, "add": 378360, "madd": 294392, "select16": 10832,
+        "window": 213624}
+    bounds = {op: f"{cs._mb_bound(16384, ops[op])[0]:.4f}"
+              for op in mb.POINT_OPS}
     assert bounds == {"add": "0.1853", "madd": "0.1442", "double": "0.1422",
                       "window": "0.1046"}
 
@@ -222,12 +236,44 @@ def test_reps_and_m_default_match_jax():
     assert mb.M_DEFAULT == jmb.M_DEFAULT
 
 
+def _finish(e, f, g, h):
+    return e * f % P, g * h % P, f * g % P, e * h % P
+
+
+def _dbl(p):
+    """dbl-2008-hwcd, a = -1."""
+    X, Y, Z, _ = p
+    a, b, zz = X * X, Y * Y, Z * Z
+    g = b - a
+    return _finish((X + Y) ** 2 - a - b, g - 2 * zz, g, -(a + b))
+
+
+def _add(p, q):
+    """add-2008-hwcd-3: T1·T2, then ·2d."""
+    X1, Y1, Z1, T1 = p
+    X2, Y2, Z2, T2 = q
+    a, b = (Y1 - X1) * (Y2 - X2), (Y1 + X1) * (Y2 + X2)
+    c, d = T1 * T2 % P * TWO_D, 2 * Z1 * Z2
+    return _finish(b - a, d - c, d + c, b + a)
+
+
+def _madd(p, entry):
+    """madd-2008-hwcd of an affine entry (y-x, y+x, 2d·x·y)."""
+    X1, Y1, Z1, T1 = p
+    ymx, ypx, t2d = entry
+    a, b, c, d = (Y1 - X1) * ymx, (Y1 + X1) * ypx, T1 * t2d, 2 * Z1
+    return _finish(b - a, d - c, d + c, b + a)
+
+
 def _python_chain(x, op, reps):
-    """The value chain of carry, mul, sqr and select16 on Python ints."""
+    """The yardstick: each op's chain on Python ints, the point ops on
+    the JAX kernel's single-point formulas; the value, or X, mod p."""
     out = []
-    b_tab = [field.from_limbs(e[0]) for e in ek.B_TABLE]     # y - x
+    b_tab = [tuple(field.from_limbs(c) % P for c in e) for e in ek.B_TABLE]
     for lane in range(x.shape[1]):
         v = int.from_bytes(bytes(int(b) for b in x[:, lane]), "little") % P
+        w0 = int(x[0, lane]) & 15
+        p = q = (v, 2 * v % P, 1, 2 * v * v % P)
         if op == "mul":
             u, w = v, 2 * v % P
             for _ in range(reps):
@@ -236,8 +282,20 @@ def _python_chain(x, op, reps):
         elif op == "sqr":
             v = pow(v, 2 ** reps, P)
         elif op == "select16":
-            w0 = int(x[0, lane]) & 15
-            v = sum(b_tab[(w0 + j) & 15] for j in range(reps)) % P
+            v = sum(b_tab[(w0 + j) & 15][0] for j in range(reps)) % P
+        elif op in mb.POINT_OPS:
+            for j in range(reps):
+                if op == "double":
+                    q = _dbl(q)
+                elif op == "add":
+                    q = _add(q, p)
+                elif op == "madd":
+                    q = _madd(q, b_tab[3])
+                else:
+                    for _ in range(4):
+                        q = _dbl(q)
+                    q = _add(_madd(q, b_tab[(w0 + j) & 15]), p)
+            v = q[0]
         out.append(v)
     return out
 

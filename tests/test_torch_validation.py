@@ -31,18 +31,10 @@ from cometbft_tpu_torch.types.block_id import BlockID
 from cometbft_tpu_torch.types.part_set import PartSetHeader
 from cometbft_tpu_torch.types.validator import Validator
 from cometbft_tpu_torch.types.validator_set import ValidatorSet
+from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 CHAIN_ID = "test-chain"
 HEIGHT = 7
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Torch on one intra-op thread: the test workers share the CPUs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _block_id(tag=b"b"):
