@@ -3,30 +3,38 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the CUDA kernels from the sources in this checkout (one library:
-ed25519_verify.cu, ed25519_verify8.cu, microbench.cu) and prints what
-ptxas says of the two verifiers and of B3's four point-op kernels, holds
+ed25519_verify.cu, ed25519_verify8.cu, microbench.cu) and the host prep
+(ed25519_prep.cpp, g++, a library of its own), prints what ptxas says of
+the two verifiers and of B3's four point-op kernels, holds the C prep
+byte for byte to its plain version (numpy and hashlib) on edge-case
+items, block-crossing message lengths and the commit's own entries, and
 each verifier against its plain PyTorch version and the golden model on
 edge-case lanes (B1 and B2, both four threads a signature, also at lane
 counts that leave a partial quad, warp or block), then verifies a
 10,000-validator commit through the port's entry points
-(types/validation -> crypto/batch -> ops/ed25519 -> the kernel), once
-with the default kernel (B1) and once with
+(types/validation -> crypto/batch -> ops/ed25519's tile pipeline -> the
+kernel), once with the default kernel (B1) and once with
 COMETBFT_TPU_TORCH_KERNEL=cuda8 (B2), counting each kernel's launches on
-that path.  It times both kernels, their plain versions and the
-end-to-end call, traces one verify_commit with torch.profiler for the
-device's busy share, and runs the microbenchmark suite (B3) at 16,384
-and 262,144 lanes, holding each of its nine kernels to its plain version
-on the suite's own inputs, and its four point ops (four threads a lane
-on B1's own rounds) also at lane counts that leave a partial quad, warp
-or block; it times the suite again at B1's tile (4,096 lanes) for the
-cost of one of B1's rounds.  Any failure exits non-zero.  The last
-three lines are the kernels JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}.  Signatures are made from --seed with
-the golden model in a pool of worker processes.
+that path.  It times verify_commit, verify_batch, the C prep and the
+plain prep over 20 warm runs each (p50 and p90), splits the commit's
+time into walk, packing, C prep and kernel wait from the port's own
+spans, reads the pipeline's overlap ratio, times both kernels and their
+plain versions, drives verify_async of the 10k batch under an asyncio
+ticker for the longest event-loop stall, traces one verify_commit with
+torch.profiler for the device's busy share, and runs the microbenchmark
+suite (B3) at 16,384 and 262,144 lanes, holding each of its nine kernels
+to its plain version on the suite's own inputs, and its four point ops
+(four threads a lane on B1's own rounds) also at lane counts that leave
+a partial quad, warp or block; it times the suite again at B1's tile
+(4,096 lanes) for the cost of one of B1's rounds.  Any failure exits
+non-zero.  The last three lines are the kernels JSON, the card's name
+and power limit, and {"ok": true, "device": {...}}.  Signatures are made
+from --seed with the golden model in a pool of worker processes.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import collections
 import contextlib
 import hashlib
@@ -82,6 +90,11 @@ MB_TILE = 4096
 # B1 and B2 run four threads a signature: these lane counts leave a
 # partial quad, warp or block
 PARTIAL_LANES = (1, 3, 4, 5, 31, 33, 64, 1023)
+# warm runs of each timed call in phase 4
+WARM_RUNS = 20
+# message lengths around SHA-512 block edges of R || A || msg (64 + len
+# bytes), and one over 128 blocks (the C prep's scalar path)
+EDGE_MSG_LENS = (0, 47, 48, 111, 112, 175, 176, 17 * 1024)
 # B3's point ops run a quad a lane, 16 lanes a block: these lane counts
 # leave a partial quad, warp or block; MB_PARTIAL_REPS steps each
 MB_PARTIAL_LANES = (1, 3, 5, 17, 33, 1023)
@@ -116,6 +129,27 @@ def _seed(base: int, i: int) -> bytes:
 
 def _log(*a):
     print(*a, flush=True)
+
+
+def _pct(xs, q):
+    """The q-quantile of xs by the nearest rank."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, round(q * len(xs)) - 1))]
+
+
+def _p50_p90(xs):
+    return f"p50 {_pct(xs, 0.5):.3f} p90 {_pct(xs, 0.9):.3f}"
+
+
+def _same_prep(oe, items, m, what):
+    """The C prep must equal the plain prep byte for byte."""
+    import numpy as np
+    got, want = oe.prep_arrays(items, m), oe.prep_arrays_plain(items, m)
+    for name, x, y in zip(("a_b", "r_b", "s_w8", "k_w8", "pre_bad"), got,
+                          want):
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                not np.array_equal(x, y):
+            raise AssertionError(f"C prep != plain prep ({name}) on {what}")
 
 
 def _phase(name):
@@ -413,20 +447,62 @@ def _device_busy(fn):
     return window_ms, busy_us / 1e3, kernel_us / 1e3, len(dev)
 
 
+async def _loop_stalls(bv):
+    """(ok, longest tick gap with verify() run on the loop, with
+    verify_async() awaited, the awaited call's ms) under a 1 ms ticker;
+    the verdicts of both calls must agree."""
+    stop = asyncio.Event()
+    gap = [0.0]
+
+    async def ticker():
+        last = time.perf_counter()
+        while not stop.is_set():
+            await asyncio.sleep(0.001)
+            now = time.perf_counter()
+            gap[0] = max(gap[0], now - last)
+            last = now
+
+    task = asyncio.ensure_future(ticker())
+    await asyncio.sleep(0.05)
+    gap[0] = 0.0
+    await asyncio.sleep(0.002)
+    sync = bv.verify()
+    await asyncio.sleep(0.005)
+    sync_gap = gap[0]
+    await bv.verify_async()                   # warm the worker
+    await asyncio.sleep(0.02)
+    gap[0] = 0.0
+    t0 = time.perf_counter()
+    out = await asyncio.wait_for(bv.verify_async(), timeout=60)
+    async_ms = (time.perf_counter() - t0) * 1e3
+    await asyncio.sleep(0.005)
+    async_gap = gap[0]
+    stop.set()
+    await task
+    if tuple(out) != tuple(sync) and (out[0], list(out[1])) != \
+            (sync[0], list(sync[1])):
+        raise AssertionError("verify_async != verify")
+    return out[0], sync_gap * 1e3, async_gap * 1e3, async_ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     t_start = time.perf_counter()
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
 
     from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.crypto import pipeline
     from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
     from cometbft_tpu_torch.crypto.pipeline import DEFAULT_TILE, tile_plan
+    from cometbft_tpu_torch.libs import tracing
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import ed25519 as oe
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -466,6 +542,16 @@ def main() -> int:
              f"cached={_build.build_info['cached']})")
         _log(_build.build_info["ptxas"].strip())
         report = _build.build_info["ptxas"]
+        t0 = time.perf_counter()
+        host = _build.load_host()
+        _log(f"host_build_seconds {time.perf_counter() - t0:.3f} (g++ "
+             f"{_build.host_build_info['seconds']:.3f} s for "
+             f"{_build.HOST_SOURCE}, {' '.join(_build.HOST_FLAGS)}, "
+             f"cached={_build.host_build_info['cached']}); os.cpu_count "
+             f"{os.cpu_count()}; multi-buffer SHA-512 "
+             f"{bool(host.ed25519_prep_multibuffer())}; prep threads at "
+             f"3,334 / 10,000 items: {host.ed25519_prep_threads(3334)} / "
+             f"{host.ed25519_prep_threads(10000)}")
         mb_ptxas = {op: _ptxas_summary(report, "mb_kernelILi%d"
                                        % list(mb.REPS).index(op))
                     for op in mb.POINT_OPS}
@@ -482,6 +568,21 @@ def main() -> int:
         # -- 2. kernel vs plain on edge-case lanes --------------------------
         _phase("2 kernel vs plain, 1024 edge-case lanes")
         items = _edge_items(args.seed, pool)
+        _same_prep(oe, items, 1024, "1024 edge-case lanes")
+        rng_msgs = [hashlib.sha512(b"%d" % n).digest() * (n // 64 + 1)
+                    for n in EDGE_MSG_LENS]
+        lens_items = [(pub, msg[:n], sig) for (pub, sig), msg, n in zip(
+            pool.map(_sign_job, [(_seed(args.seed + 11, i), msg[:n])
+                                 for i, (msg, n) in enumerate(
+                                     zip(rng_msgs, EDGE_MSG_LENS))]),
+            rng_msgs, EDGE_MSG_LENS)]
+        _same_prep(oe, lens_items, 64, "message lengths "
+                   f"{', '.join(map(str, EDGE_MSG_LENS))}")
+        if not all(ref.verify(*it) for it in lens_items):
+            raise AssertionError("an edge-length signature does not verify")
+        _log(f"C prep == plain prep byte for byte on the 1024 edge-case "
+             f"lanes and on messages of {', '.join(map(str, EDGE_MSG_LENS))}"
+             f" bytes")
         a, r, s, k, pre_bad = oe.prep_arrays(items, 1024)
         cols = [oe.to_cols(x, dev) for x in (a, r, s, k)]
         got = ek.verify_cols(*cols)
@@ -585,6 +686,17 @@ def main() -> int:
                     signatures=sigs)
     tiles_all = len(tile_plan(n, DEFAULT_TILE))
     tiles_light = len(tile_plan(n * 2 // 3 + 1, DEFAULT_TILE))
+    if pipeline.tile_size() != DEFAULT_TILE:
+        raise AssertionError(f"{pipeline.TILE_ENV} is set: the main path "
+                             f"must run at the default tile")
+    entries = [(vals.validators[i].pub_key.bytes(),
+                commit.vote_sign_bytes(CHAIN_ID, i), cs.signature)
+               for i, cs in enumerate(commit.signatures)]
+    for t_lo, t_hi in tile_plan(n, DEFAULT_TILE):
+        _same_prep(oe, entries[t_lo:t_hi], oe._bucket(t_hi - t_lo),
+                   f"the commit's entries {t_lo}..{t_hi}")
+    _log(f"C prep == plain prep byte for byte on the commit's {n} entries, "
+         f"tile by tile")
 
     ek.launches = 0
     t0 = time.perf_counter()
@@ -632,32 +744,64 @@ def main() -> int:
         os.environ.pop(oe.KERNEL_ENV, None)
 
     # -- 4. times ---------------------------------------------------------
-    _phase("4 times")
-    entries = [(vals.validators[i].pub_key.bytes(),
-                commit.vote_sign_bytes(CHAIN_ID, i), cs.signature)
-               for i, cs in enumerate(commit.signatures)]
-    e2e = []
-    for _ in range(3):
+    _phase(f"4 times, {WARM_RUNS} warm runs each")
+
+    def walk_split():
+        """verify_commit's parts from the port's spans (ms): the batch,
+        host prep, packing, the C pass, the kernel wait; and the overlap
+        ratio the run observed."""
+        ov = pipeline.overlap_histogram()
+        n_ov, s_ov = ov.count, ov.sum
+        tracing.clear()
         t0 = time.perf_counter()
         validation.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, commit)
-        e2e.append((time.perf_counter() - t0) * 1e3)
-    prep = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for lo, hi in tile_plan(n, DEFAULT_TILE):
-            oe.prep_arrays(entries[lo:hi], oe._bucket(hi - lo))
-        prep.append((time.perf_counter() - t0) * 1e3)
+        e2e_ms = (time.perf_counter() - t0) * 1e3
+        ms = collections.Counter()
+        for ev in tracing.snapshot(category=tracing.CRYPTO):
+            ms[ev["name"]] += ev["dur_ns"] / 1e6
+        if ov.count != n_ov + 1:
+            raise AssertionError("verify_commit observed no overlap ratio")
+        return e2e_ms, ms, ov.sum - s_ov
 
-    vb = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        oe.verify_batch(entries)
-        vb.append((time.perf_counter() - t0) * 1e3)
+    validation.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, commit)
+    runs = [walk_split() for _ in range(WARM_RUNS)]
+    e2e = [r[0] for r in runs]
+    split = {name: [r[1][name] for r in runs] for name in
+             ("batch_verify", "host_prep", "prep_pack", "prep_c",
+              "kernel_execute")}
+    split["walk"] = [r[0] - r[1]["batch_verify"] for r in runs]
+    overlap = [r[2] for r in runs]
+
+    def timed(fn):
+        fn()
+        out = []
+        for _ in range(WARM_RUNS):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    plan = tile_plan(n, DEFAULT_TILE)
+    vb = timed(lambda: oe.verify_batch(entries))
+    prep = timed(lambda: [oe.prep_arrays(entries[lo:hi], oe._bucket(hi - lo))
+                          for lo, hi in plan])
+    plain_prep = timed(lambda: [
+        oe.prep_arrays_plain(entries[lo:hi], oe._bucket(hi - lo))
+        for lo, hi in plan])
+    # the C pass alone on either side of its threading threshold
+    threads_ms = {}
+    for count in (2047, 2048):
+        packed = oe.pack(entries[:count])
+        block = np.empty(oe._LANE_BYTES * 4096, np.uint8)
+        base = block.ctypes.data
+        threads_ms[count] = timed(lambda: host.ed25519_prep(
+            *packed[:3], packed[3].ctypes.data, packed[4].ctypes.data, count,
+            4096, oe._B_BYTES, oe._IDENTITY_BYTES, base, base + 32 * 4096,
+            base + 64 * 4096, base + 128 * 4096, base + 192 * 4096))
 
     # kernel times per bucket; at the main path's tile (its first tile of
     # real signatures, padded to 4096) and at 10240 lanes the kernel is
     # also held to the plain version — exact equality, verdicts are bools
-    plan = tile_plan(n, DEFAULT_TILE)
     lo, hi = plan[0]
     tile_lanes = oe._bucket(hi - lo)
     timings, plain_times = {}, {}
@@ -720,6 +864,21 @@ def main() -> int:
     muls8, sqrs8 = _field16_ops_per_lane()
     own8_ops = muls8 * OPS_PER_FIELD16_MUL + sqrs8 * OPS_PER_FIELD16_SQR
 
+    # -- 4c. verify_async of the 10k batch under a 1 ms asyncio ticker ----
+    _phase(f"4c verify_async of the {n}-signature batch under a 1 ms ticker")
+    bv = crypto_batch.create_batch_verifier(keys[0])
+    for pub, msg, sig in entries:
+        bv.add(Ed25519PubKey(pub), msg, sig)
+    async_ok, sync_gap_ms, async_gap_ms, async_ms = asyncio.run(
+        _loop_stalls(bv))
+    pipeline.reset_workers()
+    if not async_ok:
+        raise AssertionError("verify_async rejected the commit's batch")
+    _log(f"loop_stall_ms verify_async {async_gap_ms:.3f} against "
+         f"{sync_gap_ms:.3f} for the synchronous verify() on the loop "
+         f"(longest gap between 1 ms ticks; the async call took "
+         f"{async_ms:.3f} ms)")
+
     # -- 5. device busy share of one verify_commit, traced ----------------
     _phase("5 profile one verify_commit")
     window_ms, busy_ms, traced_kernel_ms, n_dev = _device_busy(
@@ -743,14 +902,29 @@ def main() -> int:
     _log(f"kernel_ms_per_commit {commit_kernel_ms:.4f} ({len(plan)} "
          f"launches of {tile_lanes} lanes, back to back, median of 5); "
          f"bound {commit_bound_ms:.4f} ms")
-    _log(f"verify_commit_e2e_ms {statistics.median(e2e):.2f} "
-         f"(median of 3: {', '.join(f'{x:.2f}' for x in e2e)}; "
-         f"{n} signatures, {tiles_all} tiles)")
-    _log(f"verify_batch_ms {statistics.median(vb):.2f} (median of 3: "
-         f"prep, copies and kernels of the {n} signatures, no commit "
-         f"walk)")
-    _log(f"host_prep_ms {statistics.median(prep):.2f} (median of 3, "
-         f"{tiles_all} tiles)")
+    _log(f"verify_commit_e2e_ms {_p50_p90(e2e)} ({WARM_RUNS} warm runs, "
+         f"host clock; {n} signatures, {tiles_all} tiles; runs: "
+         f"{', '.join(f'{x:.2f}' for x in e2e)})")
+    _log(f"signatures_per_s {n / _pct(e2e, 0.5) * 1e3:.0f} (at the "
+         f"verify_commit p50)")
+    _log(f"verify_batch_ms {_p50_p90(vb)} (prep, copies and kernels of the "
+         f"{n} signatures through the tile pipeline, no commit walk)")
+    _log(f"c_prep_ms {_p50_p90(prep)} (prep_arrays on the {tiles_all} "
+         f"tiles, packing included); plain_prep_ms {_p50_p90(plain_prep)} "
+         f"(prep_arrays_plain, numpy and hashlib)")
+    _log("verify_commit split from the port's spans (ms, "
+         f"{WARM_RUNS} runs): " + "; ".join(
+             f"{name} {_p50_p90(split[name])}" for name in
+             ("walk", "batch_verify", "host_prep", "prep_pack", "prep_c",
+              "kernel_execute")) +
+         " (walk = e2e - batch_verify; kernel_execute = the host's wait "
+         "at each tile's event)")
+    _log(f"overlap_ratio {_p50_p90(overlap)} (summed phase time over "
+         f"pipeline wall, one observation a verify_commit)")
+    _log(f"c_pass_ms at 2,047 items ({host.ed25519_prep_threads(2047)} "
+         f"thread) {_p50_p90(threads_ms[2047])}; at 2,048 items "
+         f"({host.ed25519_prep_threads(2048)} threads) "
+         f"{_p50_p90(threads_ms[2048])} (the C call alone, no packing)")
     _log(f"plain_ms_per_10240_bucket {plain_times[10240]:.1f} (one run); "
          f"plain_ms_per_{tile_lanes}_bucket {plain_times[tile_lanes]:.1f}; "
          f"kernel == plain (exact) at {tile_lanes} (main-path tile, "

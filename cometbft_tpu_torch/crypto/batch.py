@@ -1,7 +1,11 @@
 """Batch-verifier dispatch: key type -> BatchVerifier.
 
 Reference: crypto/batch/batch.go — CreateBatchVerifier (:10),
-SupportsBatchVerifier (:21); only ed25519 supports batching.
+SupportsBatchVerifier (:21); only ed25519 supports batching.  Through
+cometbft_tpu/crypto/batch.py: the batch-verify latency histogram
+(``verify_seconds_histogram`` / ``_observe_verify``, :68-93) and
+``TracedBatchVerifier`` (:303-328), which ``create_batch_verifier``
+wraps around every verifier it hands out.
 
 Every ed25519 batch goes to the CUDA kernel through
 ops/ed25519.verify_batch.  There is no circuit breaker and no CPU
@@ -10,11 +14,33 @@ fallback: a kernel that fails to build or launch raises to the caller.
 """
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 from . import ed25519
 from .keys import BatchVerifier, PubKey
 from ..device import resolve
+from ..libs import metrics as libmetrics
+from ..libs import tracing
+from ..ops import ed25519 as ops_ed25519
+
+_VERIFY_HIST = libmetrics.DEFAULT.histogram(
+    "crypto", "batch_verify_seconds",
+    "Batch signature verification latency in seconds, by "
+    "dispatch backend and kernel pad bucket.",
+    labels=("backend", "pad_bucket"),
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+             0.1, 0.25, 0.5, 1.0, 2.5))
+
+
+def verify_seconds_histogram() -> libmetrics.Histogram:
+    """The process-global batch-verify latency histogram."""
+    return _VERIFY_HIST
+
+
+def _observe_verify(backend: str, n: int, elapsed_s: float) -> None:
+    _VERIFY_HIST.with_labels(
+        backend, str(ops_ed25519._bucket(n))).observe(elapsed_s)
 
 
 def supports_batch_verifier(pub_key: PubKey) -> bool:
@@ -40,13 +66,39 @@ class CudaBatchVerifier(BatchVerifier):
         return len(self._items)
 
     def verify(self) -> tuple[bool, Sequence[bool]]:
-        from ..ops.ed25519 import verify_batch
-        return verify_batch(self._items, device=self.device)
+        return ops_ed25519.verify_batch(self._items, device=self.device)
+
+
+class TracedBatchVerifier(BatchVerifier):
+    """A ``batch_verify`` span and a latency observation around any
+    BatchVerifier's verify, labelled with its backend."""
+
+    def __init__(self, inner: BatchVerifier, backend: str):
+        self._inner = inner
+        self._backend = backend
+
+    def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
+        self._inner.add(pub_key, msg, sig)
+
+    def __len__(self) -> int:
+        return len(self._inner)
+
+    def verify(self) -> tuple[bool, Sequence[bool]]:
+        n = len(self)
+        t0 = time.perf_counter()
+        with tracing.span(tracing.CRYPTO, "batch_verify", batch=n,
+                          backend=self._backend):
+            out = self._inner.verify()
+        _observe_verify(self._backend, n, time.perf_counter() - t0)
+        return out
 
 
 def create_batch_verifier(pub_key: PubKey, device=None) -> BatchVerifier:
-    """Reference: batch.go:10 — errors for unsupported key types."""
+    """Reference: batch.go:10 — errors for unsupported key types.  The
+    backend label is the device type: ``cuda`` on the card, ``cpu``
+    for the plain version."""
     if not supports_batch_verifier(pub_key):
         raise ValueError(
             f"batch verification unsupported for {pub_key.type()}")
-    return CudaBatchVerifier(device)
+    inner = CudaBatchVerifier(device)
+    return TracedBatchVerifier(inner, inner.device.type)

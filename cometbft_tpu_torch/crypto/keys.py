@@ -1,7 +1,8 @@
 """Key and signature interfaces.
 
 Reference: crypto/crypto.go:23-55 — PubKey (Address/Bytes/VerifySignature/Type),
-PrivKey (Bytes/Sign/PubKey/Type), BatchVerifier (Add / Verify -> (bool, []bool)).
+PrivKey (Bytes/Sign/PubKey/Type), BatchVerifier (Add / Verify -> (bool, []bool)),
+and cometbft_tpu/crypto/keys.py:72 for ``BatchVerifier.verify_async``.
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import abc
 from typing import Sequence
 
 from . import tmhash
+from .pipeline import run_off_loop
 
 
 def address_hash(b: bytes) -> bytes:
@@ -66,3 +68,10 @@ class BatchVerifier(abc.ABC):
 
     @abc.abstractmethod
     def verify(self) -> tuple[bool, Sequence[bool]]: ...
+
+    def verify_async(self):
+        """Awaitable verdict: ``verify()`` runs on the shared
+        verification worker (crypto/pipeline.py), so the awaiting event
+        loop never runs the batch itself.  Await it from a running
+        loop."""
+        return run_off_loop(self.verify)

@@ -1,12 +1,18 @@
-"""Build and load the CUDA kernels: nvcc by hand into one shared library
-with a plain C interface, loaded through ctypes.
+"""Build and load the port's two native libraries, each with a plain C
+interface, loaded through ctypes.
 
-The library is built at first use into ``build/`` at the repository
+  * the CUDA kernels: nvcc by hand into one shared library.  Each source
+    compiles in its own nvcc process, all started together, and one
+    more nvcc links the objects into the library;
+  * the host prep (``ed25519_prep.cpp``): g++ into a library of its own,
+    so it builds and runs where there is no nvcc.  No ``-march=native``:
+    the multi-buffer SHA-512 carries its own ``target("avx512f")`` and
+    checks the CPU at run time.
+
+Each library is built at first use into ``build/`` at the repository
 root, named by a hash of its sources, its headers and the flags, so an
 edited source or header rebuilds and an unchanged one loads what is
-there.  Each source compiles in its own nvcc process, all started
-together, and one more nvcc links the objects into the library.
-Nothing here runs at import; a failed build raises.
+there.  Nothing here runs at import; a failed build raises.
 """
 from __future__ import annotations
 
@@ -26,12 +32,18 @@ SOURCES = ("ed25519_verify.cu", "ed25519_verify8.cu", "microbench.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
+HOST_SOURCE = "ed25519_prep.cpp"
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
+_host_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_host_lib: ctypes.CDLL | None = None
 # what the last build or load reported: path, seconds (wall, the
 # compiles and the link), ptxas output
 build_info: dict = {}
+# the same for the host library: path, seconds (g++ wall), cached
+host_build_info: dict = {}
 
 
 def nvcc_path() -> str:
@@ -44,23 +56,31 @@ def nvcc_path() -> str:
     return found
 
 
-def _source_key() -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for path in [_CSRC / s for s in SOURCES] + sorted(_CSRC.glob("*.cuh")):
+def _key(flags, paths) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _nvcc(args: list[str]) -> str:
-    """Run nvcc; its merged output.  A failed run raises."""
-    cmd = [nvcc_path(), *args]
+def _source_key() -> str:
+    return _key(COMPILE_FLAGS, [_CSRC / s for s in SOURCES] +
+                sorted(_CSRC.glob("*.cuh")))
+
+
+def _run(cmd: list[str]) -> str:
+    """Run a compiler; its merged output.  A failed run raises."""
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}")
+        raise RuntimeError(f"{Path(cmd[0]).name} failed ({proc.returncode}):"
+                           f"\n{' '.join(cmd)}\n{proc.stdout}")
     return proc.stdout
+
+
+def _nvcc(args: list[str]) -> str:
+    return _run([nvcc_path(), *args])
 
 
 def build() -> Path:
@@ -114,3 +134,44 @@ def load() -> ctypes.CDLL:
             lib.ed25519_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def build_host() -> Path:
+    """Compile the host prep with g++ (if this hash is not built yet);
+    return the library's path."""
+    key = _key(HOST_FLAGS,
+               [_CSRC / HOST_SOURCE, *sorted(_CSRC.glob("*.hpp"))])
+    out = BUILD_DIR / f"cometbft_prep-{key}.so"
+    if out.is_file():
+        host_build_info.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        _run(["g++", *HOST_FLAGS, "-o", str(tmp), str(_CSRC / HOST_SOURCE)])
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+    host_build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                           cached=False)
+    return out
+
+
+def load_host() -> ctypes.CDLL:
+    """The built host library with its C signatures declared."""
+    global _host_lib
+    with _host_lock:
+        if _host_lib is None:
+            lib = ctypes.CDLL(str(build_host()))
+            lib.ed25519_prep.argtypes = (
+                [ctypes.c_char_p] * 3 + [ctypes.c_void_p] * 2 +
+                [ctypes.c_int64] * 2 + [ctypes.c_char_p] * 2 +
+                [ctypes.c_void_p] * 5)
+            lib.ed25519_prep.restype = ctypes.c_int
+            lib.ed25519_prep_threads.argtypes = [ctypes.c_int64]
+            lib.ed25519_prep_threads.restype = ctypes.c_int
+            lib.ed25519_prep_multibuffer.argtypes = []
+            lib.ed25519_prep_multibuffer.restype = ctypes.c_int
+            _host_lib = lib
+        return _host_lib

@@ -2,15 +2,27 @@
 
 Reference: types/signature_cache.go — map sig → (valAddr, signBytes),
 shared across light-client adjacent/non-adjacent checks.  LRU-bounded
-as in cometbft_tpu/types/signature_cache.py (the metrics counters are
-not ported yet; the hit/miss/eviction counts live on the cache).
+as in cometbft_tpu/types/signature_cache.py, whose hit/miss/eviction
+counters (:25-40) it keeps twice: on the cache, and summed over every
+cache on the process-global registry (``light_signature_cache_*``).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import NamedTuple, Optional
 
+from ..libs import metrics as libmetrics
+
 DEFAULT_CAPACITY = 10_000
+
+_HITS = libmetrics.DEFAULT.counter(
+    "light", "signature_cache_hits",
+    "Signature-cache hits across commit verifications.")
+_MISSES = libmetrics.DEFAULT.counter(
+    "light", "signature_cache_misses", "Signature-cache misses.")
+_EVICTIONS = libmetrics.DEFAULT.counter(
+    "light", "signature_cache_evictions",
+    "Entries evicted by the signature-cache LRU cap.")
 
 
 class SignatureCacheValue(NamedTuple):
@@ -31,8 +43,10 @@ class SignatureCache:
         if v is not None:
             self._m.move_to_end(sig)
             self.hits += 1
+            _HITS.add()
         else:
             self.misses += 1
+            _MISSES.add()
         return v
 
     def add(self, sig: bytes, value: SignatureCacheValue) -> None:
@@ -42,6 +56,7 @@ class SignatureCache:
         if len(self._m) > self.capacity:
             self._m.popitem(last=False)
             self.evictions += 1
+            _EVICTIONS.add()
 
     def __len__(self) -> int:
         return len(self._m)

@@ -14,13 +14,17 @@ The batch path defers every signature into crypto/batch's verifier, one
 kernel launch per tile on the card (``device=None``) or the kernel's
 plain version on ``device="cpu"``.  Aggregate (BLS) commits and the
 mixed-key grouped path are not ported yet: the port's keys are ed25519.
+Each verification is timed into ``consensus_commit_verify_seconds`` by
+its kind, ``batch`` or ``single`` (reference: validation.py:42-80).
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional
 
 from ..crypto import batch as crypto_batch
 from ..device import resolve
+from ..libs import metrics as libmetrics
 from .block_id import BlockID
 from .commit import Commit, CommitError, CommitSig
 from .signature_cache import SignatureCache, SignatureCacheValue
@@ -28,6 +32,38 @@ from .validator_set import ValidatorSet
 from .vote import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT
 
 BATCH_VERIFY_THRESHOLD = 2
+
+_COMMIT_VERIFY_HIST = libmetrics.DEFAULT.histogram(
+    "consensus", "commit_verify_seconds",
+    "Commit verification latency in seconds, by verification "
+    "kind (aggregate = O(1) BLS pairing path; "
+    "batch/grouped/single = per-signature paths).",
+    labels=("kind",),
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+             0.1, 0.25, 0.5, 1.0, 2.5))
+
+
+def commit_verify_histogram() -> libmetrics.Histogram:
+    return _COMMIT_VERIFY_HIST
+
+
+class _observe_kind:
+    """Times one commit verification into the kind-labelled histogram
+    (a rejected commit is observed too: it paid the verification)."""
+
+    __slots__ = ("kind", "t0")
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _COMMIT_VERIFY_HIST.with_labels(self.kind).observe(
+            time.perf_counter() - self.t0)
+        return False
 
 
 class Fraction(NamedTuple):
@@ -78,13 +114,15 @@ def _verify(chain_id, vals, commit, voting_power_needed, ignore, count,
             count_all_signatures, look_up_by_index, cache, device) -> None:
     device = resolve(device)      # the card unless the caller names one
     if _should_batch_verify(vals, commit):
-        _verify_commit_batch(
-            chain_id, vals, commit, voting_power_needed, ignore, count,
-            count_all_signatures, look_up_by_index, cache, device)
+        with _observe_kind("batch"):
+            _verify_commit_batch(
+                chain_id, vals, commit, voting_power_needed, ignore, count,
+                count_all_signatures, look_up_by_index, cache, device)
     else:
-        _verify_commit_single(
-            chain_id, vals, commit, voting_power_needed, ignore, count,
-            count_all_signatures, look_up_by_index, cache)
+        with _observe_kind("single"):
+            _verify_commit_single(
+                chain_id, vals, commit, voting_power_needed, ignore, count,
+                count_all_signatures, look_up_by_index, cache)
 
 
 def verify_commit(chain_id: str, vals: ValidatorSet, block_id: BlockID,

@@ -168,7 +168,7 @@ def test_batch_spanning_two_tiles(monkeypatch):
             pub = b"short"
         items.append((pub, msg, sig))
         golden.append(ref.verify(pub, msg, sig))
-    monkeypatch.setattr(oe, "DEFAULT_TILE", 64)
+    monkeypatch.setenv("COMETBFT_TPU_TORCH_VERIFY_TILE", "64")
     before = ek.launches
     ok, mask = oe.verify_batch(items, device=CPU)
     assert mask == golden and not ok

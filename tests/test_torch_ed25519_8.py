@@ -110,7 +110,7 @@ def test_batch_spanning_two_tiles(cuda8, monkeypatch):
             pub = b"short"
         items.append((pub, msg, sig))
         golden.append(ref.verify(pub, msg, sig))
-    monkeypatch.setattr(oe, "DEFAULT_TILE", 64)
+    monkeypatch.setenv("COMETBFT_TPU_TORCH_VERIFY_TILE", "64")
     calls = []
     plain = ek8.verify_cols_plain
     monkeypatch.setattr(ek8, "verify_cols_plain",

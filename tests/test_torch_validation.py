@@ -6,10 +6,15 @@ cometbft_tpu_torch/convert.py (as dicts and as wire bytes), and verified
 by both packages: the reference on its ``cpu`` backend, the port with
 ``device="cpu"`` (the CUDA kernel's plain version, of the first kernel
 and, under COMETBFT_TPU_TORCH_KERNEL=cuda8, of the second).  Verdicts
-and error texts must be equal."""
+and error texts must be equal.  Besides whole commits, SCENARIOS pins
+the walk's corner cases: malformed and non-canonical signatures, a
+duplicated and an unknown address, a zeroed timestamp, a NIL flag on a
+slot signed for the block, a signature cache used for two verifications
+and a one-validator set; the port's signatures go through its C prep."""
 import pytest
 import torch
 
+from cometbft_tpu.crypto import _ed25519_ref as r_ed_ref
 from cometbft_tpu.crypto import ed25519 as r_ed
 from cometbft_tpu.types import validation as rv
 from cometbft_tpu.types.block_id import BlockID as RBlockID
@@ -41,8 +46,10 @@ def _block_id(tag=b"b"):
     return RBlockID(hash=tag * 32, part_set_header=RPSH(3, tag * 32))
 
 
-def _signed(n, powers=None, absent=(), nil=(), bad=()):
-    """A reference ValidatorSet and a Commit signed by its validators."""
+def _signed(n, powers=None, absent=(), nil=(), bad=(), zero_ts=(),
+            mutate=None):
+    """A reference ValidatorSet and a Commit signed by its validators;
+    ``mutate`` names a change made to the signed commit (_MUTATIONS)."""
     privs = [r_ed.gen_priv_key_from_secret(b"validator-%d" % i)
              for i in range(n)]
     powers = powers or [10] * n
@@ -58,17 +65,46 @@ def _signed(n, powers=None, absent=(), nil=(), bad=()):
             sigs.append(RCommitSig.absent())
             continue
         flag = BLOCK_ID_FLAG_NIL if i in nil else BLOCK_ID_FLAG_COMMIT
+        ts = RTimestamp(0, 0) if i in zero_ts else \
+            RTimestamp(1_700_000_000 + i, 1000 * i)
         cs = RCommitSig(block_id_flag=flag,
-                        validator_address=val.address,
-                        timestamp=RTimestamp(1_700_000_000 + i, 1000 * i))
+                        validator_address=val.address, timestamp=ts)
         commit.signatures[i] = cs
         sig = by_addr[val.address].sign(commit.vote_sign_bytes(CHAIN_ID, i))
         if i in bad:
             sig = sig[:5] + bytes([sig[5] ^ 0x40]) + sig[6:]
         cs.signature = sig
         sigs.append(cs)
+    if mutate is not None:
+        _MUTATIONS[mutate](sigs)
     return vals, RCommit(height=HEIGHT, round=1, block_id=bid,
                          signatures=sigs)
+
+
+def _s_plus_l(sig):
+    s = int.from_bytes(sig[32:], "little") + r_ed_ref.L
+    return sig[:32] + s.to_bytes(32, "little")
+
+
+# each one edits the signed CommitSigs in place, before the commit is
+# built (sign bytes are memoised per commit)
+_MUTATIONS = {
+    "sig_63_bytes": lambda sigs: setattr(sigs[0], "signature",
+                                         sigs[0].signature[:63]),
+    "sig_empty": lambda sigs: setattr(sigs[1], "signature", b""),
+    "s_plus_l": lambda sigs: setattr(sigs[1], "signature",
+                                     _s_plus_l(sigs[1].signature)),
+    # by address (the trusting call) this is a double vote
+    "duplicate_address": lambda sigs: setattr(
+        sigs[1], "validator_address", sigs[0].validator_address),
+    # by address four of six slots are skipped: too little power
+    "unknown_address": lambda sigs: [
+        setattr(cs, "validator_address", bytes([i + 1]) * 20)
+        for i, cs in enumerate(sigs[:4])],
+    # signed for the block, then flagged NIL: its sign bytes change
+    "nil_on_signed_slot": lambda sigs: setattr(
+        sigs[2], "block_id_flag", BLOCK_ID_FLAG_NIL),
+}
 
 
 def _outcome(fn):
@@ -87,6 +123,15 @@ SCENARIOS = {
     "wrong_height": dict(n=4),
     "wrong_block_id": dict(n=5),
     "unequal_power": dict(n=7, powers=[50, 1, 1, 30, 2, 9, 7], bad=(6,)),
+    "sig_63_bytes": dict(n=5, mutate="sig_63_bytes"),
+    "sig_empty": dict(n=5, mutate="sig_empty"),
+    "s_plus_l": dict(n=6, mutate="s_plus_l"),
+    "duplicate_address": dict(n=6, mutate="duplicate_address"),
+    "unknown_address": dict(n=6, mutate="unknown_address"),
+    "zero_timestamp": dict(n=4, zero_ts=(1,)),
+    "nil_on_signed_slot": dict(n=5, mutate="nil_on_signed_slot"),
+    "cache_reused_twice": dict(n=5, bad=(4,)),
+    "one_validator": dict(n=1),
 }
 
 CALLS = ["verify_commit", "verify_commit_light",
@@ -94,6 +139,8 @@ CALLS = ["verify_commit", "verify_commit_light",
 
 
 def _check_against_reference(scenario, call):
+    from cometbft_tpu.types.signature_cache import SignatureCache as RCache
+    from cometbft_tpu_torch.types.signature_cache import SignatureCache
     opts = dict(SCENARIOS[scenario])
     vals, commit = _signed(**opts)
     # carried across once as dicts, once as wire bytes
@@ -104,17 +151,26 @@ def _check_against_reference(scenario, call):
     p_bid = BlockID(r_bid.hash, PartSetHeader(
         r_bid.part_set_header.total, r_bid.part_set_header.hash))
 
-    if call == "verify_commit_light_trusting":
-        want = _outcome(lambda: rv.verify_commit_light_trusting(
-            CHAIN_ID, vals, commit, rv.Fraction(1, 3)))
-        got = _outcome(lambda: pv.verify_commit_light_trusting(
-            CHAIN_ID, p_vals, p_commit, pv.Fraction(1, 3), device="cpu"))
-    else:
-        want = _outcome(lambda: getattr(rv, call)(
-            CHAIN_ID, vals, r_bid, height, commit))
-        got = _outcome(lambda: getattr(pv, call)(
-            CHAIN_ID, p_vals, p_bid, height, p_commit, device="cpu"))
-    assert got == want
+    reused = scenario == "cache_reused_twice"
+    r_cache = RCache() if reused else None
+    p_cache = SignatureCache() if reused else None
+
+    for _ in range(2 if reused else 1):
+        if call == "verify_commit_light_trusting":
+            want = _outcome(lambda: rv.verify_commit_light_trusting(
+                CHAIN_ID, vals, commit, rv.Fraction(1, 3), cache=r_cache))
+            got = _outcome(lambda: pv.verify_commit_light_trusting(
+                CHAIN_ID, p_vals, p_commit, pv.Fraction(1, 3),
+                cache=p_cache, device="cpu"))
+        else:
+            want = _outcome(lambda: getattr(rv, call)(
+                CHAIN_ID, vals, r_bid, height, commit, cache=r_cache))
+            got = _outcome(lambda: getattr(pv, call)(
+                CHAIN_ID, p_vals, p_bid, height, p_commit, cache=p_cache,
+                device="cpu"))
+        assert got == want
+        if reused:
+            assert len(p_cache) == len(r_cache)
     if scenario in ("valid", "absent_signatures"):
         assert want is None
     if scenario == "bad_signature":
