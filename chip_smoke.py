@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the CUDA kernels from the sources in this checkout (one library:
-ed25519_verify.cu, ed25519_verify8.cu, microbench.cu) and the host prep
-(ed25519_prep.cpp, g++, a library of its own), prints what ptxas says of
+ed25519_verify.cu, ed25519_verify8.cu, microbench.cu), the host prep
+(ed25519_prep.cpp, g++, a library of its own) and the host BLS12-381
+library (bls_native.cpp, g++, self-tested at load), prints what ptxas says of
 the two verifiers and of B3's four point-op kernels, holds the C prep
 byte for byte to its plain version (numpy and hashlib) on edge-case
 items, block-crossing message lengths and the commit's own entries, and
@@ -26,8 +27,18 @@ suite (B3) at 16,384 and 262,144 lanes, holding each of its nine kernels
 to its plain version on the suite's own inputs, and its four point ops
 (four threads a lane on B1's own rounds) also at lane counts that leave
 a partial quad, warp or block; it times the suite again at B1's tile
-(4,096 lanes) for the cost of one of B1's rounds.  Any failure exits
-non-zero.  The last three lines are the kernels JSON, the card's name
+(4,096 lanes) for the cost of one of B1's rounds.  Phases 8a-8d take
+the commit forms beyond ed25519 (BASELINE.json config 5): the BLS
+library against its plain Python formulas byte for byte; a
+10,000-validator mixed-key commit (secp256k1, bls12_381, ed25519 by
+i % 3, i % 7) through verify_commit's grouped path, with B1's launches
+on its ed25519 group counted and the time split into the ed25519
+group, the BLS group and the inline secp256k1 walk; corrupted mixed
+commits at 1,000 validators, each rejected naming the lowest bad index,
+and the light and trusting calls; a 10,000-validator aggregate commit
+cold and warm, its rejections (sub-quorum, wrong key, a rogue key in
+the trusting call's signer set) and a 256-message aggregate_verify.
+Any failure exits non-zero.  The last three lines are the kernels JSON, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
 """
@@ -114,6 +125,47 @@ MB_YARDSTICK_WORK = {
     "sqr": (1, 1024, 2), "double": (1 + 128 * 4, 128 * 4, 2),
     "add": (1 + 128 * 9, 0, 2), "madd": (1 + 128 * 7, 0, 2),
     "select16": (1, 0, 3), "window": (1 + 16 * 29, 16 * 16, 2)}
+
+
+# phase 8: BASELINE.json config 5 ("stress: 10k-validator Commit +
+# bls12381 aggregate-sig path, mixed key types"), sized as the JAX
+# package's cometbft_tpu/tools/benchmarks.py:179-220 does at --full
+MIXED_VALIDATORS = 10_000
+# phase 8c's corrupted commits: the same mix at a tenth of the size
+MIXED_SMALL = 1_000
+AGG_VALIDATORS = 10_000
+AGG_MESSAGES = 256
+# a known RIPEMD-160 digest (of b"abc"): secp256k1 addresses need it
+RIPEMD160_ABC = "8eb208f7e05d987a9b044a8e98c6b087f15a0bfc"
+
+
+def _mixed_kind(i: int) -> str:
+    """Config 5's key type of validator i (benchmarks.py:190-197)."""
+    if i % 3 == 0:
+        return "secp256k1"
+    if i % 7 == 0:
+        return "bls12_381"
+    return "ed25519"
+
+
+def _mixed_sign_job(job):
+    """Worker: (key type, seed, msg) -> (pub, sig) with the port's keys
+    (the BLS library is built by then; a worker loads it)."""
+    from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    from cometbft_tpu_torch.crypto import bls12381, secp256k1
+    kind, seed, msg = job
+    if kind == "ed25519":
+        return ref.public_key(seed), ref.sign(seed, msg)
+    mod = secp256k1 if kind == "secp256k1" else bls12381
+    priv = mod.gen_priv_key_from_secret(seed)
+    return priv.pub_key().bytes(), priv.sign(msg)
+
+
+def _bls_key_job(seed):
+    """Worker: seed -> (BLS pubkey bytes, secret scalar)."""
+    from cometbft_tpu_torch.crypto import bls12381
+    priv = bls12381.gen_priv_key_from_secret(seed)
+    return priv.pub_key().bytes(), int.from_bytes(priv.bytes(), "big")
 
 
 def _sign_job(job):
@@ -419,6 +471,151 @@ def _reject_corrupted(validation, vals, block_id, commit, bad_idx=7777):
         commit.signatures[bad_idx] = good
 
 
+def _mixed_commit(kinds, signed, stamps, block_id):
+    """The port's ValidatorSet (equal power, the consensus order) and a
+    fully signed precommit commit from per-key (pub, sig) pairs."""
+    from cometbft_tpu_torch.crypto.encoding import pub_key_from_type_and_bytes
+    from cometbft_tpu_torch.types.commit import Commit, CommitSig
+    from cometbft_tpu_torch.types.validator import Validator
+    from cometbft_tpu_torch.types.validator_set import ValidatorSet
+    from cometbft_tpu_torch.types.vote import BLOCK_ID_FLAG_COMMIT
+    keys = [pub_key_from_type_and_bytes(kind, pub)
+            for kind, (pub, _) in zip(kinds, signed)]
+    vals = ValidatorSet([Validator.new(pk, 10) for pk in keys])
+    slot = {pk.address(): j for j, pk in enumerate(keys)}
+    sigs = []
+    for v in vals.validators:
+        j = slot[v.address]
+        sigs.append(CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, stamps[j],
+                              signed[j][1]))
+    return vals, Commit(height=HEIGHT, round=0, block_id=block_id,
+                        signatures=sigs)
+
+
+def _corrupted(commit, idxs):
+    """A copy of commit with bit 0 of each named slot's signature
+    flipped."""
+    from cometbft_tpu_torch.types.commit import Commit, CommitSig
+    sigs = list(commit.signatures)
+    for i in idxs:
+        cs = sigs[i]
+        sigs[i] = CommitSig(cs.block_id_flag, cs.validator_address,
+                            cs.timestamp,
+                            bytes([cs.signature[0] ^ 1]) + cs.signature[1:])
+    return Commit(height=commit.height, round=commit.round,
+                  block_id=commit.block_id, signatures=sigs)
+
+
+def _expect_rejection(fn, exc_type, text=None):
+    """fn must raise exactly exc_type (with the text, when given);
+    returns the message."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 — checked below
+        if type(e) is not exc_type or (text is not None and str(e) != text):
+            raise AssertionError(f"expected {exc_type.__name__} "
+                                 f"{text!r}, got {type(e).__name__}: "
+                                 f"{e}") from e
+        return str(e)
+    raise AssertionError(f"expected {exc_type.__name__}, got acceptance")
+
+
+def _bls_library_vs_plain(seed):
+    """Phase 8a: the host BLS library against the plain formulas
+    (crypto/_bls12381_math.py) on seeded inputs, byte for byte; returns
+    the number of comparisons."""
+    from cometbft_tpu_torch.crypto import _bls12381_math as m
+    from cometbft_tpu_torch.crypto.bls12381 import DST
+    from cometbft_tpu_torch.ops import bls_native as nat
+
+    def scalar(tag):
+        return int.from_bytes(hashlib.sha256(b"%d/%s" % (seed, tag))
+                              .digest(), "big") % m.R_ORDER
+
+    def outcome(fn, *args):
+        try:
+            return fn(*args)
+        except ValueError:
+            return "ValueError"
+
+    checks = []
+
+    def same(what, got, want):
+        checks.append(what)
+        if got != want:
+            raise AssertionError(f"BLS library != plain formulas: {what}")
+
+    for msg in (b"", b"chip-smoke %d" % seed):
+        same(f"hash_to_g2({msg!r})", nat.hash_to_g2(msg, DST),
+             m._g2_raw(m.hash_to_g2(msg, DST)))
+    g1 = m.pt_mul(m.G1_OPS, m.G1_GEN, scalar(b"g1"))
+    g2 = m.pt_mul(m.G2_OPS, m.G2_GEN, scalar(b"g2"))
+    x = 4 + seed % 1000                      # off-curve and off-subgroup
+    while m._sqrt_fq((x ** 3 + 4) % m.P) is not None:
+        x += 1
+    off_g1 = bytearray(x.to_bytes(48, "big"))
+    off_g1[0] |= 0x80
+    x += 1
+    while m._sqrt_fq((x ** 3 + 4) % m.P) is None:
+        x += 1
+    non_sub_g1 = (x, m._sqrt_fq((x ** 3 + 4) % m.P))
+    x2 = (x, 1)
+    while m._sqrt_fq2(m.f2_add(m.f2_mul(m.f2_sqr(x2), x2), m.G2_B)) is None:
+        x2 = (x2[0] + 1, 1)
+    non_sub_g2 = (x2, m._sqrt_fq2(m.f2_add(m.f2_mul(m.f2_sqr(x2), x2),
+                                           m.G2_B)))
+    x2 = (x2[0] + 1, 1)
+    while m._sqrt_fq2(m.f2_add(m.f2_mul(m.f2_sqr(x2), x2), m.G2_B)):
+        x2 = (x2[0] + 1, 1)
+    off_g2 = bytearray(x2[1].to_bytes(48, "big") + x2[0].to_bytes(48, "big"))
+    off_g2[0] |= 0x80
+    for name, data in (("valid", m.g1_compress(g1)),
+                       ("non-subgroup", m.g1_compress(non_sub_g1)),
+                       ("off-curve", bytes(off_g1))):
+        got = outcome(nat.g1_uncompress, data)
+        want = outcome(m.g1_uncompress, data)
+        same(f"G1 uncompress {name}", got if isinstance(got, str)
+             else m._g1_unraw(got), want)
+    for name, data in (("valid", m.g2_compress(g2)),
+                       ("non-subgroup", m.g2_compress(non_sub_g2)),
+                       ("off-curve", bytes(off_g2))):
+        got = outcome(nat.g2_uncompress, data)
+        want = outcome(m.g2_uncompress, data)
+        same(f"G2 uncompress {name}", got if isinstance(got, str)
+             else m._g2_unraw(got), want)
+    for name, pt in (("valid", g1), ("non-subgroup", non_sub_g1)):
+        same(f"G1 subgroup {name}", nat.g1_in_subgroup(m._g1_raw(pt)),
+             m.g1_in_subgroup(pt))
+    for name, pt in (("valid", g2), ("non-subgroup", non_sub_g2)):
+        same(f"G2 subgroup {name}", nat.g2_in_subgroup(m._g2_raw(pt)),
+             m.g2_in_subgroup(pt))
+    h = m.hash_to_g2(b"pairs %d" % seed, DST)
+    a, b = scalar(b"a"), scalar(b"b")
+    pa = m.pt_mul(m.G1_OPS, m.G1_GEN, a)
+    pb = m.pt_mul(m.G1_OPS, m.G1_GEN, b)
+    pab = m.pt_neg(m.G1_OPS, m.pt_mul(m.G1_OPS, m.G1_GEN, (a + b) % m.R_ORDER))
+    for name, pairs in (("true", [(pa, h), (pb, h), (pab, h)]),
+                        ("false", [(pa, h), (pa, h), (pab, h)])):
+        got = nat.pairings_product_is_one(
+            [(m._g1_raw(p), m._g2_raw(q)) for p, q in pairs])
+        same(f"3-pair product ({name})", got,
+             m.pairings_product_is_one(pairs))
+        if got != (name == "true"):
+            raise AssertionError(f"3-pair product ({name}) gave {got}")
+    k = scalar(b"k")
+    same("G1 sum", nat.g1_sum(b"".join(m._g1_raw(p) for p in (g1, pa, pb,
+                                                              non_sub_g1))),
+         m._g1_raw(m.pt_sum(m.G1_OPS, [g1, pa, pb, non_sub_g1])))
+    same("G2 sum", nat.g2_sum(m._g2_raw(g2) + m._g2_raw(h) +
+                              m._g2_raw(non_sub_g2)),
+         m._g2_raw(m.pt_sum(m.G2_OPS, [g2, h, non_sub_g2])))
+    same("G1 mul", nat.g1_mul(m._g1_raw(non_sub_g1), k),
+         m._g1_raw(m.pt_mul(m.G1_OPS, non_sub_g1, k)))
+    same("G2 mul", nat.g2_mul(m._g2_raw(g2), k),
+         m._g2_raw(m.pt_mul(m.G2_OPS, g2, k)))
+    return len(checks)
+
+
 def _device_busy(fn):
     """Run fn once under torch.profiler; returns (window_ms, busy_ms,
     kernel_ms, device_events): the host-clock window of the call, the
@@ -483,6 +680,279 @@ async def _loop_stalls(bv):
             (sync[0], list(sync[1])):
         raise AssertionError("verify_async != verify")
     return out[0], sync_gap * 1e3, async_gap * 1e3, async_ms
+
+
+def _config5_data(seed, make, stamps):
+    """Phase 8's keys and signatures, made in a pool of worker processes
+    that is closed before anything is timed: {size: (key types, [(pub,
+    sig)])} for the two mixed commits, and (pub, secret) pairs of the
+    aggregate's keys and of the 256-message aggregate's."""
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(os.cpu_count() or 4) as pool:
+        mixed = {}
+        for size, base in ((MIXED_VALIDATORS, 8), (MIXED_SMALL, 9)):
+            kinds = [_mixed_kind(j) for j in range(size)]
+            mixed[size] = (kinds, pool.map(_mixed_sign_job, [
+                (kinds[j], _seed(seed + base, j), make(stamps[j]))
+                for j in range(size)], chunksize=32))
+        agg_keys = pool.map(_bls_key_job, [
+            _seed(seed + 10, j) for j in range(AGG_VALIDATORS)], chunksize=64)
+        msg_keys = pool.map(_bls_key_job, [
+            _seed(seed + 11, j) for j in range(AGG_MESSAGES)])
+    _log(f"phase 8 data: {MIXED_VALIDATORS} + {MIXED_SMALL} mixed-key votes "
+         f"signed and {AGG_VALIDATORS} + {AGG_MESSAGES} BLS keys made in "
+         f"{time.perf_counter() - t0:.1f} s")
+    return mixed, agg_keys, msg_keys
+
+
+def _config5_phases(seed, card, make, stamps, block_id):
+    """Phases 8a-8d: the BLS library against its plain version, config 5's
+    mixed-key commit (the grouped path, B1 on its ed25519 group),
+    corrupted mixed commits, and the aggregate commit.  Returns B1's and
+    B2's launches on the grouped commit."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.crypto import bls12381
+    from cometbft_tpu_torch.crypto.pipeline import DEFAULT_TILE, tile_plan
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.libs.bits import BitArray
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.commit import AggregateCommit
+    from cometbft_tpu_torch.types.part_set import PartSetHeader
+    from cometbft_tpu_torch.types.signature_cache import SignatureCache
+    from cometbft_tpu_torch.types.validator import Validator
+    from cometbft_tpu_torch.types.validator_set import ValidatorSet
+
+    # -- 8a. the host BLS library against the plain formulas --------------
+    _phase("8a BLS library vs plain formulas, on the card's host")
+    t0 = time.perf_counter()
+    n_checks = _bls_library_vs_plain(seed)
+    _log(f"BLS library == plain formulas byte for byte on {n_checks} "
+         f"checks (hash_to_g2, G1/G2 uncompress of valid, off-curve and "
+         f"non-subgroup points, subgroup checks, 3-pair products true and "
+         f"false, sums, muls) in {time.perf_counter() - t0:.1f} s")
+
+    # -- 8b. config 5: a 10,000-validator mixed-key commit ---------------
+    mixed, agg_keys, msg_keys = _config5_data(seed, make, stamps)
+    nm = MIXED_VALIDATORS
+    _phase(f"8b config 5: {nm}-validator mixed-key commit (grouped path)")
+    kinds, signed_m = mixed[nm]
+    t0 = time.perf_counter()
+    mvals, mcommit = _mixed_commit(kinds, signed_m, stamps, block_id)
+    by_kind = collections.Counter(v.pub_key.type() for v in mvals.validators)
+    _log(f"set built in {time.perf_counter() - t0:.1f} s: "
+         f"{dict(sorted(by_kind.items()))}; same type: "
+         f"{mvals.all_keys_have_same_type()}")
+    n_ed, n_bls = by_kind["ed25519"], by_kind["bls12_381"]
+    tiles_grouped = len(tile_plan(n_ed, DEFAULT_TILE))
+    bls_hist = crypto_batch.verify_seconds_histogram().with_labels(
+        "bls_native", str(oe._bucket(n_bls)))
+    grouped_hist = validation.commit_verify_histogram().with_labels("grouped")
+    bls_sum0, g_sum0, g_n0 = bls_hist.sum, grouped_hist.sum, grouped_hist.count
+    tracing.clear()
+    ek.launches = ek8.launches = 0
+    t0 = time.perf_counter()
+    validation.verify_commit(CHAIN_ID, mvals, block_id, HEIGHT, mcommit)
+    mixed_ms = (time.perf_counter() - t0) * 1e3
+    grouped_launches, grouped_b2 = ek.launches, ek8.launches
+    if (grouped_launches, grouped_b2) != (tiles_grouped, 0):
+        raise AssertionError(
+            f"the grouped commit launched B1 {grouped_launches} and B2 "
+            f"{grouped_b2} times, expected {tiles_grouped} and 0")
+    spans = collections.defaultdict(float)
+    for ev in tracing.snapshot(category=tracing.CRYPTO):
+        if ev["name"] == "batch_verify":
+            spans[ev["attrs"]["backend"]] += ev["dur_ns"] / 1e6
+    # two batches: the ed25519 group (backend: the device type) and BLS
+    ed_backend = "".join(set(spans) - {"bls_native"})
+    if len(spans) != 2 or "bls_native" not in spans:
+        raise AssertionError(f"batch_verify spans: {dict(spans)}")
+    if grouped_hist.count != g_n0 + 1:
+        raise AssertionError("the mixed commit was not observed as grouped")
+    walk_ms = mixed_ms - spans[ed_backend] - spans["bls_native"]
+    _log(f"card: {card}")
+    _log(f"config5_verify_commit_ms {mixed_ms:.1f} (one call, host clock; "
+         f"{nm} signatures: {n_ed} ed25519 on B1 in {grouped_launches} "
+         f"launches ({tiles_grouped} tiles), {n_bls} bls12_381 on the host "
+         f"library, {by_kind['secp256k1']} secp256k1 inline)")
+    _log(f"config5 split (ms): ed25519 group batch_verify span "
+         f"{spans[ed_backend]:.2f} (backend {ed_backend}); BLS group batch_verify span "
+         f"{spans['bls_native']:.2f} (crypto_batch_verify_seconds"
+         f"{{backend=\"bls_native\"}} +{(bls_hist.sum - bls_sum0) * 1e3:.2f}"
+         f" ms); rest of the walk (the inline secp256k1 checks) "
+         f"{walk_ms:.1f}; consensus_commit_verify_seconds{{kind=\"grouped\"}}"
+         f" +{(grouped_hist.sum - g_sum0) * 1e3:.1f} ms")
+
+    window_ms, busy_ms, traced_kernel_ms, n_dev = _device_busy(
+        lambda: validation.verify_commit(CHAIN_ID, mvals, block_id, HEIGHT,
+                                         mcommit))
+    if busy_ms is None:
+        _log(f"profiler: no device events in a {window_ms:.0f} ms window; "
+             f"device busy share of config 5 not measured")
+    else:
+        _log(f"config5 profiled verify_commit window_ms {window_ms:.1f} "
+             f"(host clock, under the profiler); device_busy_ms "
+             f"{busy_ms:.4f} ({n_dev} device events; ed25519_verify_kernel "
+             f"{traced_kernel_ms:.4f} ms); device_idle_share "
+             f"{1 - busy_ms / window_ms:.6f}")
+
+    # -- 8c. corrupted mixed commits at 1,000 validators -------------------
+    ns = MIXED_SMALL
+    _phase(f"8c corrupted mixed-key commits, {ns} validators")
+    svals, scommit = _mixed_commit(*mixed[ns], stamps, block_id)
+    stypes = [v.pub_key.type() for v in svals.validators]
+
+    def first(kind, start=0):
+        return next(i for i in range(start, ns) if stypes[i] == kind)
+
+    t0 = time.perf_counter()
+    validation.verify_commit(CHAIN_ID, svals, block_id, HEIGHT, scommit)
+    _log(f"honest verify_commit ok in {(time.perf_counter() - t0) * 1e3:.1f}"
+         f" ms")
+    ed_i, bls_i, secp_i = (first(k, ns // 2) for k in
+                           ("ed25519", "bls12_381", "secp256k1"))
+    inline_late = first("secp256k1", first("ed25519", ns // 4) + 1)
+    deferred_late = first("bls12_381", first("secp256k1", ns // 4) + 1)
+    cases = [("ed25519", (ed_i,)), ("bls12_381", (bls_i,)),
+             ("secp256k1", (secp_i,)),
+             ("deferred ed25519 below inline secp256k1",
+              (first("ed25519", ns // 4), inline_late)),
+             ("inline secp256k1 below deferred bls12_381",
+              (first("secp256k1", ns // 4), deferred_late))]
+    for what, idxs in cases:
+        bad = _corrupted(scommit, idxs)
+        want = min(idxs)
+        t0 = time.perf_counter()
+        _expect_rejection(
+            lambda: validation.verify_commit(CHAIN_ID, svals, block_id,
+                                             HEIGHT, bad),
+            validation.VerificationError,
+            f"wrong signature (#{want}): "
+            f"{bad.signatures[want].signature.hex().upper()}")
+        _log(f"corrupted {what} at {list(idxs)} rejected naming #{want} "
+             f"in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    t0 = time.perf_counter()
+    validation.verify_commit_light(CHAIN_ID, svals, block_id, HEIGHT,
+                                   scommit)
+    light_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    validation.verify_commit_light_trusting(
+        CHAIN_ID, svals, scommit, validation.Fraction(1, 3))
+    trusting_ms = (time.perf_counter() - t0) * 1e3
+    _log(f"verify_commit_light ok in {light_ms:.1f} ms; "
+         f"verify_commit_light_trusting (1/3) ok in {trusting_ms:.1f} ms")
+
+    # -- 8d. aggregate commit at 10,000 BLS validators ----------------------
+    na = AGG_VALIDATORS
+    _phase(f"8d aggregate commit, {na} BLS validators")
+    t0 = time.perf_counter()
+    apubs = [bls12381.Bls12381PubKey(pub) for pub, _ in agg_keys]
+    avals = ValidatorSet([Validator.new(pk, 10) for pk in apubs])
+    secret = {pk.address(): sk for pk, (_, sk) in zip(apubs, agg_keys)}
+    abid = BlockID(hashlib.sha256(b"agg-block").digest(),
+                   PartSetHeader(1, hashlib.sha256(b"agg-p").digest()))
+
+    def aggregate_commit(signers, extra=0):
+        """One signature over the zero-timestamp precommit by the sum of
+        the signers' secrets, (sum sk_i)·H(m): the bytes of the sum of
+        their signatures."""
+        agg = AggregateCommit(height=HEIGHT, round=0, block_id=abid,
+                              signers=BitArray.from_indices(na, signers))
+        total = (sum(secret[avals.validators[i].address] for i in signers)
+                 + extra) % bls12381.R_ORDER
+        agg.signature = bls12381.Bls12381PrivKey(
+            total.to_bytes(32, "big")).sign(agg.vote_sign_bytes(CHAIN_ID))
+        return agg
+
+    acommit = aggregate_commit(range(na))
+    few = [bls12381.Bls12381PrivKey(sk.to_bytes(32, "big"))
+           for _, sk in agg_keys[:8]]
+    sb = acommit.vote_sign_bytes(CHAIN_ID)
+    few_sum = sum(int.from_bytes(p.bytes(), "big") for p in few) % \
+        bls12381.R_ORDER
+    if bls12381.aggregate_signatures([p.sign(sb) for p in few]) != \
+            bls12381.Bls12381PrivKey(few_sum.to_bytes(32, "big")).sign(sb):
+        raise AssertionError("(sum sk)·H(m) != the sum of 8 signatures")
+    _log(f"{na} keys checked and set built in "
+         f"{time.perf_counter() - t0:.1f} s; (sum sk)·H(m) == the sum of "
+         f"8 signatures")
+    validation.reset_aggregate_caches()
+    cache = SignatureCache()
+    ek.launches = 0
+    t0 = time.perf_counter()
+    validation.verify_commit(CHAIN_ID, avals, abid, HEIGHT, acommit,
+                             cache=cache)
+    agg_cold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    validation.verify_commit(CHAIN_ID, avals, abid, HEIGHT, acommit,
+                             cache=cache)
+    agg_memo_ms = (time.perf_counter() - t0) * 1e3
+    agg_warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        validation.verify_commit(CHAIN_ID, avals, abid, HEIGHT, acommit)
+        agg_warm.append((time.perf_counter() - t0) * 1e3)
+    if ek.launches:
+        raise AssertionError("the aggregate path launched B1")
+    validation.verify_commit_light(CHAIN_ID, avals, abid, HEIGHT, acommit)
+    validation.verify_commit_light_trusting(
+        CHAIN_ID, avals, acommit, validation.Fraction(1, 3),
+        signer_vals=avals)
+    _log(f"aggregate verify_commit cold {agg_cold_ms:.2f} ms (set hash, "
+         f"key sum, pairing); warm with the verdict memo "
+         f"{agg_memo_ms:.3f} ms; warm without it (key-sum cache hit, "
+         f"pairing) median {statistics.median(agg_warm):.2f} ms of 5; "
+         f"verify_commit_light and verify_commit_light_trusting "
+         f"(signer_vals) ok")
+    quorum = na * 2 // 3
+    msg = _expect_rejection(
+        lambda: validation.verify_commit(
+            CHAIN_ID, avals, abid, HEIGHT, aggregate_commit(range(quorum))),
+        validation.NotEnoughVotingPowerError)
+    _log(f"sub-quorum bitmap ({quorum} of {na}) rejected: {msg}")
+    msg = _expect_rejection(
+        lambda: validation.verify_commit(
+            CHAIN_ID, avals, abid, HEIGHT, aggregate_commit(range(na), 1)),
+        validation.VerificationError)
+    _log(f"wrong-key aggregate rejected: {msg[:40]}...")
+    rogue = bls12381.gen_priv_key_from_secret(b"rogue %d" % seed)
+    swapped = [v.copy() for v in avals.validators]
+    swapped[na // 2] = Validator.new(rogue.pub_key(), 10)
+    rogue_signers = ValidatorSet(swapped)
+    msg = _expect_rejection(
+        lambda: validation.verify_commit_light_trusting(
+            CHAIN_ID, avals, acommit, validation.Fraction(1, 3),
+            signer_vals=rogue_signers),
+        validation.NotEnoughVotingPowerError)
+    _log(f"rogue key in signer_vals rejected by the trusting path: {msg}")
+
+    # config 5's second half: one aggregate over distinct messages
+    mprivs = [bls12381.Bls12381PrivKey(sk.to_bytes(32, "big"))
+              for _, sk in msg_keys]
+    mpubs = [bls12381.Bls12381PubKey(pub) for pub, _ in msg_keys]
+    msgs = [b"block-%d" % i for i in range(AGG_MESSAGES)]
+    magg = bls12381.aggregate_signatures(
+        [p.sign(mm) for p, mm in zip(mprivs, msgs)])
+    agg_verify_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ok = bls12381.aggregate_verify(mpubs, msgs, magg)
+        agg_verify_ms.append((time.perf_counter() - t0) * 1e3)
+        if not ok:
+            raise AssertionError("aggregate_verify rejected an honest "
+                                 "aggregate")
+    if bls12381.aggregate_verify(mpubs, msgs[:-1] + [b"other"], magg):
+        raise AssertionError("aggregate_verify accepted a wrong message")
+    _log(f"aggregate_verify of {AGG_MESSAGES} distinct messages "
+         f"{statistics.median(agg_verify_ms):.1f} ms (median of 3; "
+         f"{AGG_MESSAGES} hashes to G2, {AGG_MESSAGES + 1} Miller loops, "
+         f"one final exponentiation); a wrong message rejected")
+    _log(f"card: {card}")
+    return grouped_launches, grouped_b2
 
 
 def main() -> int:
@@ -552,6 +1022,17 @@ def main() -> int:
              f"{bool(host.ed25519_prep_multibuffer())}; prep threads at "
              f"3,334 / 10,000 items: {host.ed25519_prep_threads(3334)} / "
              f"{host.ed25519_prep_threads(10000)}")
+        t0 = time.perf_counter()
+        _build.load_bls()
+        _log(f"bls_build_seconds {time.perf_counter() - t0:.3f} (g++ "
+             f"{_build.bls_build_info['seconds']:.3f} s for "
+             f"{_build.BLS_SOURCE}, cached="
+             f"{_build.bls_build_info['cached']}); self-test passed in "
+             f"{_build.bls_build_info['selftest_seconds'] * 1e3:.1f} ms")
+        ripemd = hashlib.new("ripemd160", b"abc").hexdigest()
+        if ripemd != RIPEMD160_ABC:
+            raise AssertionError(f"ripemd160(abc) = {ripemd}")
+        _log(f"hashlib ripemd160 available ({ripemd})")
         mb_ptxas = {op: _ptxas_summary(report, "mb_kernelILi%d"
                                        % list(mb.REPS).index(op))
                     for op in mb.POINT_OPS}
@@ -672,7 +1153,7 @@ def main() -> int:
         signed = pool.map(_sign_job, [(_seed(args.seed, j), make(stamps[j]))
                                       for j in range(n)], chunksize=64)
         _log(f"signed {n} votes in {time.perf_counter() - t0:.1f} s")
-    # the pool is closed: nothing below forks or spawns
+    # the pool is closed: nothing below forks or spawns until phase 8
 
     keys = [Ed25519PubKey(pub) for pub, _ in signed]
     vals = ValidatorSet([Validator.new(pk, 10) for pk in keys])
@@ -1046,6 +1527,9 @@ def main() -> int:
               f"{rec['per_op_us'] / MB_ROUNDS[op]:.4f}"
               if op in MB_ROUNDS else ""))
 
+    grouped_launches, grouped_b2 = _config5_phases(
+        args.seed, card, make, stamps, block_id)
+
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
     # tile; the 10240-lane bucket and the whole commit ride beside them
@@ -1059,6 +1543,8 @@ def main() -> int:
                   "coordinate rounds, 55-product squaring, cached lane "
                   "table in shared memory",
         "launches": main_launches,
+        "launches_by_path": {"commit_10k": main_launches,
+                             "config5_grouped": grouped_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -1081,6 +1567,8 @@ def main() -> int:
                   "doubling and unified add, lane table of (X, Y, Z, 2dT) "
                   "entries in shared memory",
         "launches": main8_launches,
+        "launches_by_path": {"commit_10k_cuda8": main8_launches,
+                             "config5_grouped": grouped_b2},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

@@ -1,13 +1,15 @@
 """Carry validator sets and commits across from the reference package.
 
 Accepts the reference's plain data — a ``ValidatorSet.to_proto()`` /
-``Commit.to_proto()`` dict of Python bytes and ints, or its protobuf
-wire bytes — and returns the port's objects.  Nothing of the reference
-is imported: the dict layout and the wire schema are the contract.
+``Commit.to_proto()`` / ``AggregateCommit.to_proto()`` dict of Python
+bytes and ints, or its protobuf wire bytes — and returns the port's
+objects.  Validator sets may hold any of the four key types.  Nothing
+of the reference is imported: the dict layout and the wire schema are
+the contract.
 """
 from __future__ import annotations
 
-from .types.commit import Commit
+from .types.commit import AggregateCommit, Commit
 from .types.validator_set import ValidatorSet
 from .wire import decode, pb
 
@@ -28,3 +30,7 @@ def validator_set(obj) -> ValidatorSet:
 
 def commit(obj) -> Commit:
     return Commit.from_proto(_as_dict(obj, pb.COMMIT))
+
+
+def aggregate_commit(obj) -> AggregateCommit:
+    return AggregateCommit.from_proto(_as_dict(obj, pb.AGGREGATE_COMMIT))

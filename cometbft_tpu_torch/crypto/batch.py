@@ -1,8 +1,9 @@
 """Batch-verifier dispatch: key type -> BatchVerifier.
 
 Reference: crypto/batch/batch.go — CreateBatchVerifier (:10),
-SupportsBatchVerifier (:21); only ed25519 supports batching.  Through
-cometbft_tpu/crypto/batch.py: the batch-verify latency histogram
+SupportsBatchVerifier (:21).  Through cometbft_tpu/crypto/batch.py:
+ed25519 and, beyond the Go reference, bls12_381 batch (:154-158,
+:332-335); the batch-verify latency histogram
 (``verify_seconds_histogram`` / ``_observe_verify``, :68-93) and
 ``TracedBatchVerifier`` (:303-328), which ``create_batch_verifier``
 wraps around every verifier it hands out.
@@ -11,13 +12,15 @@ Every ed25519 batch goes to the CUDA kernel through
 ops/ed25519.verify_batch.  There is no circuit breaker and no CPU
 fallback: a kernel that fails to build or launch raises to the caller.
 ``device="cpu"`` runs the kernel's plain PyTorch version, for tests.
+A bls12_381 batch runs on the host, in the BLS library
+(crypto/bls12381.Bls12381BatchVerifier, backend ``bls_native``).
 """
 from __future__ import annotations
 
 import time
 from typing import Sequence
 
-from . import ed25519
+from . import bls12381, ed25519
 from .keys import BatchVerifier, PubKey
 from ..device import resolve
 from ..libs import metrics as libmetrics
@@ -44,7 +47,7 @@ def _observe_verify(backend: str, n: int, elapsed_s: float) -> None:
 
 
 def supports_batch_verifier(pub_key: PubKey) -> bool:
-    return pub_key.type() == ed25519.KEY_TYPE
+    return pub_key.type() in (ed25519.KEY_TYPE, bls12381.KEY_TYPE)
 
 
 class CudaBatchVerifier(BatchVerifier):
@@ -95,10 +98,16 @@ class TracedBatchVerifier(BatchVerifier):
 
 def create_batch_verifier(pub_key: PubKey, device=None) -> BatchVerifier:
     """Reference: batch.go:10 — errors for unsupported key types.  The
-    backend label is the device type: ``cuda`` on the card, ``cpu``
-    for the plain version."""
+    ed25519 backend label is the device type: ``cuda`` on the card,
+    ``cpu`` for the plain version.  ``device`` is resolved for every key
+    type, so the device rule is the same for a BLS batch, whose work is
+    on the host."""
     if not supports_batch_verifier(pub_key):
         raise ValueError(
             f"batch verification unsupported for {pub_key.type()}")
+    if pub_key.type() == bls12381.KEY_TYPE:
+        resolve(device)
+        return TracedBatchVerifier(bls12381.Bls12381BatchVerifier(),
+                                   "bls_native")
     inner = CudaBatchVerifier(device)
     return TracedBatchVerifier(inner, inner.device.type)

@@ -2,7 +2,8 @@
 
 Reference: crypto/crypto.go:23-55 — PubKey (Address/Bytes/VerifySignature/Type),
 PrivKey (Bytes/Sign/PubKey/Type), BatchVerifier (Add / Verify -> (bool, []bool)),
-and cometbft_tpu/crypto/keys.py:72 for ``BatchVerifier.verify_async``.
+and cometbft_tpu/crypto/keys.py:72 for ``BatchVerifier.verify_async``
+and :85-104 for ``bisect_bad``.
 """
 from __future__ import annotations
 
@@ -75,3 +76,22 @@ class BatchVerifier(abc.ABC):
         loop never runs the batch itself.  Await it from a running
         loop."""
         return run_off_loop(self.verify)
+
+
+def bisect_bad(idxs: list, mask: list, subset_holds, verify_one) -> None:
+    """Batch-reject bisection (the BLS RLC verifier's): ``idxs`` is a
+    subset whose batch equation already failed — split, re-check each
+    half with ``subset_holds(half_idxs)`` (which MUST draw fresh
+    randomizers per call, so a subset that only passed by randomizer
+    collision upstream cannot keep passing down the bisection), and
+    descend only into failing halves; k bad signatures cost O(k log n)
+    subset checks.  A failing singleton goes straight to
+    ``verify_one(i)``.  ``mask[i]`` is cleared for each bad item."""
+    if len(idxs) == 1:
+        i = idxs[0]
+        mask[i] = verify_one(i)
+        return
+    mid = len(idxs) // 2
+    for half in (idxs[:mid], idxs[mid:]):
+        if len(half) == 1 or not subset_holds(half):
+            bisect_bad(half, mask, subset_holds, verify_one)

@@ -1,13 +1,16 @@
-"""Build and load the port's two native libraries, each with a plain C
+"""Build and load the port's three native libraries, each with a plain C
 interface, loaded through ctypes.
 
   * the CUDA kernels: nvcc by hand into one shared library.  Each source
     compiles in its own nvcc process, all started together, and one
     more nvcc links the objects into the library;
-  * the host prep (``ed25519_prep.cpp``): g++ into a library of its own,
-    so it builds and runs where there is no nvcc.  No ``-march=native``:
-    the multi-buffer SHA-512 carries its own ``target("avx512f")`` and
-    checks the CPU at run time.
+  * the host prep (``ed25519_prep.cpp``) and the host BLS12-381
+    arithmetic (``bls_native.cpp``): g++, each into a library of its
+    own, so they build and run where there is no nvcc.  No
+    ``-march=native``: the multi-buffer SHA-512 and SHA-NI paths carry
+    their own ``target(...)`` attributes and check the CPU at run time.
+    The BLS library runs its self-test once a load and raises if it
+    fails.
 
 Each library is built at first use into ``build/`` at the repository
 root, named by a hash of its sources, its headers and the flags, so an
@@ -33,17 +36,21 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
 HOST_SOURCE = "ed25519_prep.cpp"
+BLS_SOURCE = "bls_native.cpp"
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _host_lock = threading.Lock()
+_bls_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _host_lib: ctypes.CDLL | None = None
+_bls_lib: ctypes.CDLL | None = None
 # what the last build or load reported: path, seconds (wall, the
 # compiles and the link), ptxas output
 build_info: dict = {}
-# the same for the host library: path, seconds (g++ wall), cached
+# the same for the host libraries: path, seconds (g++ wall), cached
 host_build_info: dict = {}
+bls_build_info: dict = {}
 
 
 def nvcc_path() -> str:
@@ -136,26 +143,35 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def build_host() -> Path:
-    """Compile the host prep with g++ (if this hash is not built yet);
+def _build_host_library(source: str, stem: str, info: dict) -> Path:
+    """Compile one host source with g++ (if this hash is not built yet);
     return the library's path."""
-    key = _key(HOST_FLAGS,
-               [_CSRC / HOST_SOURCE, *sorted(_CSRC.glob("*.hpp"))])
-    out = BUILD_DIR / f"cometbft_prep-{key}.so"
+    key = _key(HOST_FLAGS, [_CSRC / source, *sorted(_CSRC.glob("*.hpp"))])
+    out = BUILD_DIR / f"{stem}-{key}.so"
     if out.is_file():
-        host_build_info.update(path=str(out), seconds=0.0, cached=True)
+        info.update(path=str(out), seconds=0.0, cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        _run(["g++", *HOST_FLAGS, "-o", str(tmp), str(_CSRC / HOST_SOURCE)])
+        _run(["g++", *HOST_FLAGS, "-o", str(tmp), str(_CSRC / source)])
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
-    host_build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                           cached=False)
+    info.update(path=str(out), seconds=time.perf_counter() - t0,
+                cached=False)
     return out
+
+
+def build_host() -> Path:
+    """The host prep's library, built at first use."""
+    return _build_host_library(HOST_SOURCE, "cometbft_prep", host_build_info)
+
+
+def build_bls() -> Path:
+    """The host BLS library, built at first use."""
+    return _build_host_library(BLS_SOURCE, "cometbft_bls", bls_build_info)
 
 
 def load_host() -> ctypes.CDLL:
@@ -175,3 +191,37 @@ def load_host() -> ctypes.CDLL:
             lib.ed25519_prep_multibuffer.restype = ctypes.c_int
             _host_lib = lib
         return _host_lib
+
+
+def load_bls() -> ctypes.CDLL:
+    """The built BLS library with its C signatures declared, after its
+    self-test passed (once a load); a failed self-test raises."""
+    global _bls_lib
+    with _bls_lock:
+        if _bls_lib is None:
+            lib = ctypes.CDLL(str(build_bls()))
+            ptr, i64 = ctypes.c_char_p, ctypes.c_int64
+            buf = ctypes.c_void_p
+            for name, args in (
+                    ("bls_selftest", []),
+                    ("bls_pairings_product_is_one", [ptr, buf, ptr, buf, i64]),
+                    ("bls_g1_in_subgroup", [ptr, i64]),
+                    ("bls_g2_in_subgroup", [ptr, i64]),
+                    ("bls_hash_to_g2", [ptr, i64, ptr, i64, buf]),
+                    ("bls_g1_uncompress", [ptr, buf]),
+                    ("bls_g2_uncompress", [ptr, buf]),
+                    ("bls_g1_mul", [ptr, i64, ptr, i64, buf]),
+                    ("bls_g2_mul", [ptr, i64, ptr, i64, buf]),
+                    ("bls_g1_sum", [ptr, i64, buf]),
+                    ("bls_g2_sum", [ptr, i64, buf])):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            t0 = time.perf_counter()
+            if lib.bls_selftest() != 1:
+                raise RuntimeError(
+                    f"the BLS library failed its self-test: "
+                    f"{bls_build_info.get('path')}")
+            bls_build_info["selftest_seconds"] = time.perf_counter() - t0
+            _bls_lib = lib
+        return _bls_lib

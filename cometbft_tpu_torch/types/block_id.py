@@ -1,6 +1,6 @@
 """BlockID: a block's hash plus its part-set header.
 
-Reference: types/block.go BlockID (IsNil).
+Reference: types/block.go BlockID (IsNil, Key).
 """
 from __future__ import annotations
 
@@ -16,6 +16,11 @@ class BlockID:
 
     def is_nil(self) -> bool:
         return len(self.hash) == 0 and self.part_set_header.is_zero()
+
+    def key(self) -> bytes:
+        """Map key uniquely identifying this BlockID."""
+        return (self.hash + self.part_set_header.total.to_bytes(4, "big") +
+                self.part_set_header.hash)
 
     def to_proto(self) -> dict:
         d: dict = {"part_set_header": self.part_set_header.to_proto()}

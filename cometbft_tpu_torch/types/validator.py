@@ -6,8 +6,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-from ..crypto import ed25519
+from ..crypto import encoding
 from ..crypto.keys import PubKey
+from ..wire import encode, pb
 
 INT64_MAX = (1 << 63) - 1
 INT64_MIN = -(1 << 63)
@@ -33,11 +34,9 @@ class ValidatorError(Exception):
 
 
 def pub_key_from_type_and_bytes(key_type: str, raw: bytes) -> PubKey:
-    """Reference: crypto/encoding codec.  The port verifies ed25519
-    only; other key types are not ported yet."""
-    if key_type != ed25519.KEY_TYPE:
-        raise ValueError(f"unsupported key type {key_type}")
-    return ed25519.Ed25519PubKey(raw)
+    """Reference: crypto/encoding codec — ed25519, secp256k1,
+    secp256k1eth and bls12_381 (crypto/encoding.py)."""
+    return encoding.pub_key_from_type_and_bytes(key_type, raw)
 
 
 @dataclass
@@ -69,6 +68,15 @@ class Validator:
             return other
         raise ValidatorError("cannot compare identical validators")
 
+    def bytes(self) -> bytes:
+        """SimpleValidator proto bytes — merkle leaf for ValidatorSet.Hash.
+
+        Reference: validator.go Bytes (:142-158)."""
+        return encode(pb.SIMPLE_VALIDATOR, {
+            "pub_key": encoding.pub_key_to_proto(self.pub_key),
+            "voting_power": self.voting_power,
+        })
+
     def to_proto(self) -> dict:
         d: dict = {}
         if self.address:
@@ -84,13 +92,10 @@ class Validator:
     @classmethod
     def from_proto(cls, d: dict) -> "Validator":
         if d.get("pub_key_bytes"):
-            pk = pub_key_from_type_and_bytes(
-                d.get("pub_key_type", ed25519.KEY_TYPE), d["pub_key_bytes"])
+            pk = encoding.pub_key_from_type_and_bytes(
+                d.get("pub_key_type", "ed25519"), d["pub_key_bytes"])
         else:
-            legacy = d.get("pub_key") or {}
-            if set(legacy) != {ed25519.KEY_TYPE}:
-                raise ValueError(f"unsupported proto pubkey {sorted(legacy)}")
-            pk = ed25519.Ed25519PubKey(legacy[ed25519.KEY_TYPE])
+            pk = encoding.pub_key_from_proto(d.get("pub_key") or {})
         return cls(
             address=d.get("address", b"") or pk.address(),
             pub_key=pk,

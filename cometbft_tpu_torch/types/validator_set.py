@@ -1,9 +1,12 @@
 """ValidatorSet: sorted validator list with proposer-priority round-robin.
 
 Reference: types/validator_set.go — deterministic proposer selection
-(:122-250) and the initial change set of NewValidatorSet (:430-717),
-trimmed to a set built from scratch: updates and deletions of a live
-set, and the set's hash, are not ported yet.  The priority arithmetic
+(:122-250), the initial change set of NewValidatorSet (:430-717), the
+set's hash (merkle root over SimpleValidator bytes) and the by-address
+index, through cometbft_tpu/types/validator_set.py.  Trimmed to a set
+built from scratch: updates and deletions of a live set
+(``update_with_change_set``) are not ported yet, so the memoised hash
+and address index are never invalidated.  The priority arithmetic
 (int64 clipping, floor-average centering) matches the reference
 bit for bit.
 """
@@ -11,6 +14,7 @@ from __future__ import annotations
 
 from typing import Iterable, Optional
 
+from ..crypto import merkle
 from .validator import (
     MAX_TOTAL_VOTING_POWER, PRIORITY_WINDOW_SIZE_FACTOR, Validator,
     safe_add_clip, safe_sub_clip,
@@ -38,6 +42,8 @@ class ValidatorSet:
         self.proposer: Optional[Validator] = None
         self._total_voting_power = 0
         self._all_keys_same_type = True
+        self._hash_memo: Optional[bytes] = None
+        self._addr_index_memo: Optional[dict[bytes, int]] = None
         vals = [v.copy() for v in (validators or [])]
         if vals:
             self._init_from(vals)
@@ -87,6 +93,15 @@ class ValidatorSet:
             if v.address == address:
                 return i, v.copy()
         return -1, None
+
+    def index_by_address(self, address: bytes) -> int:
+        """Index of the validator with ``address``, or -1; O(1) after
+        the first call (reference: validator_set.py:77-88)."""
+        memo = self._addr_index_memo
+        if memo is None:
+            memo = {v.address: i for i, v in enumerate(self.validators)}
+            self._addr_index_memo = memo
+        return memo.get(address, -1)
 
     def all_keys_have_same_type(self) -> bool:
         return self._all_keys_same_type
@@ -181,6 +196,16 @@ class ValidatorSet:
         avg = self._compute_avg_proposer_priority()
         for v in self.validators:
             v.proposer_priority = safe_sub_clip(v.proposer_priority, avg)
+
+    # ------------------------------------------------------------------
+    def hash(self) -> bytes:
+        """Merkle root over SimpleValidator bytes (reference:
+        validator_set.go Hash), memoised: it covers (pubkey, power)
+        only, which proposer-priority rotation does not touch."""
+        if self._hash_memo is None:
+            self._hash_memo = merkle.hash_from_byte_slices(
+                [v.bytes() for v in self.validators])
+        return self._hash_memo
 
     # ------------------------------------------------------------------
     def to_proto(self) -> dict:

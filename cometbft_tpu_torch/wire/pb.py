@@ -1,4 +1,5 @@
-"""Message descriptors for canonical votes, commits and validator sets.
+"""Message descriptors for canonical votes, commits (per-signature and
+aggregate) and validator sets.
 
 The port's trimmed copy of cometbft_tpu/wire/pb.py (which mirrors the
 reference's proto/cometbft/**/*.proto).  Field numbers, kinds and
@@ -48,6 +49,16 @@ COMMIT = Msg(
     F(4, "signatures", "msg", msg=COMMIT_SIG, repeated=True),
 )
 
+AGGREGATE_COMMIT = Msg(
+    "cometbft.types.v2.AggregateCommit",
+    F(1, "height", "int64"),
+    F(2, "round", "int32"),
+    F(3, "block_id", "msg", msg=BLOCK_ID, always=True),
+    F(4, "signer_count", "int64"),
+    F(5, "signers", "bytes"),
+    F(6, "signature", "bytes"),
+)
+
 VALIDATOR = Msg(
     "cometbft.types.v2.Validator",
     F(1, "address", "bytes"),
@@ -56,6 +67,12 @@ VALIDATOR = Msg(
     F(4, "proposer_priority", "int64"),
     F(5, "pub_key_bytes", "bytes"),
     F(6, "pub_key_type", "string"),
+)
+
+SIMPLE_VALIDATOR = Msg(
+    "cometbft.types.v2.SimpleValidator",
+    F(1, "pub_key", "msg", msg=PUBLIC_KEY),
+    F(2, "voting_power", "int64"),
 )
 
 VALIDATOR_SET = Msg(

@@ -19,7 +19,7 @@ from cometbft_tpu.ops import field24 as f24
 from cometbft_tpu_torch.ops import ed25519 as oe
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import field as F
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = "cpu"
 

@@ -24,7 +24,7 @@ from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
 from cometbft_tpu_torch.ops import field16 as F16
 from tests.test_torch_ed25519 import CASES, _Gen, _cases, _golden
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 ENV = "COMETBFT_TPU_TORCH_KERNEL"

@@ -27,8 +27,8 @@ from cometbft_tpu_torch.crypto import _ed25519_ref as ref
 from cometbft_tpu_torch.ops import ed25519 as oe
 from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
 from cometbft_tpu_torch.ops import field16 as F
-from tests.torch_helpers import Lazy
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import Lazy
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 P = F.P
 L = F.LIMBS

@@ -27,8 +27,8 @@ from cometbft_tpu_torch.crypto import _ed25519_ref as ref
 from cometbft_tpu_torch.ops import ed25519 as oe
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import field as F
-from tests.torch_helpers import Lazy
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import Lazy
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 P = F.P
 TWO_D = torch.tensor(F.balanced(2 * ref.D % P), dtype=torch.int64)

@@ -12,7 +12,7 @@ import torch
 
 from cometbft_tpu.ops import field as jfield
 from cometbft_tpu_torch.ops import field16 as F
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 P = F.P
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from cometbft_tpu.crypto import batch as r_batch
+from cometbft_tpu.crypto import bls12381 as r_bls
 from cometbft_tpu.crypto import pipeline as r_pipeline
 from cometbft_tpu.libs import metrics as r_metrics
 from cometbft_tpu.libs.workers import SupervisedWorker as RWorker
@@ -36,7 +37,7 @@ from cometbft_tpu_torch.types.timestamp import Timestamp
 from cometbft_tpu_torch.types.validator import Validator
 from cometbft_tpu_torch.types.validator_set import ValidatorSet
 from cometbft_tpu_torch.types.vote import BLOCK_ID_FLAG_COMMIT
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)
@@ -99,6 +100,7 @@ def _reference_families():
     r_batch.verify_seconds_histogram()
     r_validation.commit_verify_histogram()
     r_cache._metrics()
+    r_bls._agg_pk_metrics()
     reg = r_metrics.Registry()
     RWorker("w", registry=reg).stop()
     return {m.name: m for m in r_metrics.DEFAULT.families() +
@@ -114,6 +116,9 @@ def _port_families():
 
 PORT_FAMILIES = [
     "cometbft_consensus_commit_verify_seconds",
+    "cometbft_crypto_agg_pubkey_cache_evictions",
+    "cometbft_crypto_agg_pubkey_cache_hits",
+    "cometbft_crypto_agg_pubkey_cache_misses",
     "cometbft_crypto_batch_verify_seconds",
     "cometbft_crypto_kernel_dispatch_seconds",
     "cometbft_crypto_pad_bucket_refinements",

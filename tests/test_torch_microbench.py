@@ -30,8 +30,8 @@ from cometbft_tpu.ops import microbench as jmb
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import field
 from cometbft_tpu_torch.ops import microbench as mb
-from tests.torch_helpers import Lazy
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import Lazy
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 P = field.P
 TWO_D = 2 * ref.D % P

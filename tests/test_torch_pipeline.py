@@ -37,7 +37,7 @@ from cometbft_tpu_torch.libs.workers import SupervisedWorker
 from cometbft_tpu_torch.ops import ed25519 as oe
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 TILE_ENV = "COMETBFT_TPU_TORCH_VERIFY_TILE"
 

@@ -18,7 +18,7 @@ from cometbft_tpu.ops import ed25519_jax as ej
 from cometbft_tpu_torch.crypto import pipeline
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import ed25519 as oe
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 L = ref.L

@@ -36,7 +36,7 @@ from cometbft_tpu_torch.types.block_id import BlockID
 from cometbft_tpu_torch.types.part_set import PartSetHeader
 from cometbft_tpu_torch.types.validator import Validator
 from cometbft_tpu_torch.types.validator_set import ValidatorSet
-from tests.torch_helpers import one_torch_thread  # noqa: F401  (autouse)
+from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 CHAIN_ID = "test-chain"
 HEIGHT = 7
