@@ -38,6 +38,20 @@ commits at 1,000 validators, each rejected naming the lowest bad index,
 and the light and trusting calls; a 10,000-validator aggregate commit
 cold and warm, its rejections (sub-quorum, wrong key, a rogue key in
 the trusting call's signer set) and a 256-message aggregate_verify.
+Phases 9a-9d drive the vote tally (types/vote, types/vote_set,
+consensus/height_vote_set, consensus/messages, consensus/state): the
+commit's 10,000 precommits as VoteMessage wire bytes in a shuffled
+order, decoded into an asyncio.Queue and drained as the JAX package's
+receive routine does, in bursts of 256, each pre-verified on B1 and then
+tallied serially into a HeightVoteSet, with zero serial misses, 40 B1
+launches and the made commit equal to the source and verified again,
+traced once for the device's idle share, and one burst under cuda8
+leaving the same memo; 1,024 extended precommits (extensions across
+SHA-512 block edges and one of 1 MiB) and their restore from the
+extended commit with cleared memos; rejections in a 256-message burst
+(a corrupted signature, an equivocation, another height, a
+VoteBatchMessage) and a burst of config 5's key mix; config 4's shape,
+150 validators for 20 heights.
 Any failure exits non-zero.  The last three lines are the kernels JSON, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -137,6 +151,22 @@ AGG_VALIDATORS = 10_000
 AGG_MESSAGES = 256
 # a known RIPEMD-160 digest (of b"abc"): secp256k1 addresses need it
 RIPEMD160_ABC = "8eb208f7e05d987a9b044a8e98c6b087f15a0bfc"
+
+# phase 9: the vote tally.  The receive routine drains bursts of at most
+# 256 queued messages (the JAX package's consensus/state.py:297)
+BURST_MAX = 256
+# 9b: extended votes, each non-nil precommit with an extension and a
+# non-RP extension of a few dozen bytes; validator 0's extension is the
+# 1 MiB cap (types/vote.MAX_VOTE_EXTENSION_SIZE)
+EXT_VALIDATORS = 1024
+# 9c: a 256-message burst with one corrupted signature, one
+# equivocation, one vote of another height and one VoteBatchMessage
+REJECT_GOOD = 253
+REJECT_BATCH = 4
+# 9d: BASELINE.json config 4's shape ("consensus replay: 150-validator
+# WAL, VoteSet tally + Commit verify per height") without the WAL
+REPLAY_VALIDATORS = 150
+REPLAY_HEIGHTS = 20
 
 
 def _mixed_kind(i: int) -> str:
@@ -710,7 +740,8 @@ def _config5_phases(seed, card, make, stamps, block_id):
     """Phases 8a-8d: the BLS library against its plain version, config 5's
     mixed-key commit (the grouped path, B1 on its ed25519 group),
     corrupted mixed commits, and the aggregate commit.  Returns B1's and
-    B2's launches on the grouped commit."""
+    B2's launches on the grouped commit, and 8c's 1,000-validator mixed
+    set and commit (phase 9c drains a burst of their votes)."""
     from cometbft_tpu_torch.crypto import batch as crypto_batch
     from cometbft_tpu_torch.crypto import bls12381
     from cometbft_tpu_torch.crypto.pipeline import DEFAULT_TILE, tile_plan
@@ -952,7 +983,573 @@ def _config5_phases(seed, card, make, stamps, block_id):
          f"{AGG_MESSAGES} hashes to G2, {AGG_MESSAGES + 1} Miller loops, "
          f"one final exponentiation); a wrong message rejected")
     _log(f"card: {card}")
-    return grouped_launches, grouped_b2
+    return grouped_launches, grouped_b2, (svals, scommit)
+
+
+# -- phase 9: the vote tally ---------------------------------------------------
+
+def _ext_lengths(j: int) -> tuple[int, int]:
+    """Extension and non-RP extension lengths of 9b's validator j: a few
+    dozen bytes, sweeping the SHA-512 block edges of R || A || sign bytes
+    (64 + 24 + len bytes for the extension's sign bytes at this chain id,
+    64 + len for the non-RP extension's raw bytes), and the 1 MiB cap at
+    j = 0."""
+    if j == 0:
+        return 1024 * 1024, 16
+    return 16 + j % 64, 16 + (5 * j) % 48
+
+
+def _replay_block_id(height: int):
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.part_set import PartSetHeader
+    return BlockID(hashlib.sha256(b"replay-%d" % height).digest(),
+                   PartSetHeader(1, hashlib.sha256(b"rp-%d" % height)
+                                 .digest()))
+
+
+def _stamp(base: int, j: int):
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    return Timestamp.from_unix_ns(1_700_000_000_000_000_000 + base * 10**12
+                                  + j * 1_000_003)
+
+
+def _vote_data(seed, pool):
+    """Phase 9's signatures, made in the pool with the golden model
+    (_sign_job): 9b's three a validator (the vote, its extension, its
+    non-RP extension) and 9d's 150 a height.  Returns {"ext": [(pub,
+    vote sig, ext sig, non-RP sig)], "replay": [[(pub, sig)] a height]}."""
+    from cometbft_tpu_torch.types import canonical
+    t0 = time.perf_counter()
+    ext_bid = _replay_block_id(0)
+    jobs = []
+    for j in range(EXT_VALIDATORS):
+        key = _seed(seed + 20, j)
+        ext_len, nrp_len = _ext_lengths(j)
+        ext = hashlib.shake_256(b"ext-%d" % j).digest(ext_len)
+        nrp = hashlib.shake_256(b"nrp-%d" % j).digest(nrp_len)
+        jobs += [(key, canonical.vote_sign_bytes(
+                     CHAIN_ID, canonical.PRECOMMIT_TYPE, HEIGHT, 0, ext_bid,
+                     _stamp(20, j))),
+                 (key, canonical.vote_extension_sign_bytes(
+                     CHAIN_ID, HEIGHT, 0, ext)),
+                 (key, nrp)]
+    for h in range(1, REPLAY_HEIGHTS + 1):
+        make = canonical.vote_sign_bytes_template(
+            CHAIN_ID, canonical.PRECOMMIT_TYPE, h, 0, _replay_block_id(h))
+        jobs += [(_seed(seed + 30, j), make(_stamp(30 + h, j)))
+                 for j in range(REPLAY_VALIDATORS)]
+    out = pool.map(_sign_job, jobs, chunksize=16)
+    n_ext = 3 * EXT_VALIDATORS
+    ext = [(out[i][0], out[i][1], out[i + 1][1], out[i + 2][1])
+           for i in range(0, n_ext, 3)]
+    replay = [out[n_ext + k * REPLAY_VALIDATORS:
+                  n_ext + (k + 1) * REPLAY_VALIDATORS]
+              for k in range(REPLAY_HEIGHTS)]
+    _log(f"phase 9 data: {len(jobs)} signatures made in "
+         f"{time.perf_counter() - t0:.1f} s")
+    return {"ext": ext, "replay": replay}
+
+
+@contextlib.contextmanager
+def _serial_misses():
+    """Count the calls of types/vote.checked_verify that find the triple
+    in neither memo (each one verifies a signature on the host); yields
+    a one-element list holding the count."""
+    from cometbft_tpu_torch.types import vote as vote_mod
+    real = vote_mod.checked_verify
+    count = [0]
+
+    def checked(pub_key, msg, sig):
+        key = vote_mod._memo_key(pub_key, msg, sig)
+        if key not in vote_mod._VERIFIED and key not in vote_mod._REJECTED:
+            count[0] += 1
+        return real(pub_key, msg, sig)
+
+    vote_mod.checked_verify = checked
+    try:
+        yield count
+    finally:
+        vote_mod.checked_verify = real
+
+
+@contextlib.contextmanager
+def _timed(module, name):
+    """Time each call of module.<name> while the block runs; yields the
+    list of seconds."""
+    real = getattr(module, name)
+    seconds = []
+
+    def timed(*a):
+        t = time.perf_counter()
+        try:
+            return real(*a)
+        finally:
+            seconds.append(time.perf_counter() - t)
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def _gc_pauses():
+    """Time the garbage collector's passes while the block runs; yields
+    a dict {generation: [count, seconds]} filled as they happen."""
+    import gc
+    pauses = {0: [0, 0.0], 1: [0, 0.0], 2: [0, 0.0]}
+    started = [0.0]
+
+    def callback(phase, info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            rec = pauses[info["generation"]]
+            rec[0] += 1
+            rec[1] += time.perf_counter() - started[0]
+
+    gc.callbacks.append(callback)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(callback)
+
+
+def _gc_line(pauses) -> str:
+    return ", ".join(f"gen{g} {n} x {sec * 1e3:.1f} ms"
+                     for g, (n, sec) in pauses.items())
+
+
+def _clear_memos():
+    """Empty the verified / rejected triple memos, as a node that
+    restarts has them."""
+    from cometbft_tpu_torch.types import vote as vote_mod
+    vote_mod._VERIFIED.clear()
+    vote_mod._REJECTED.clear()
+
+
+def _vote_storm(chain_id, height, votes, vals, seed, burst_max=BURST_MAX,
+                device=None, extensions=False, count_misses=True):
+    """The live vote path as the JAX package's receive routine runs it
+    (consensus/state.py:282-313): ``votes`` go out as VoteMessage wire
+    bytes (encode_p2p) in an order shuffled from ``seed``, come back
+    through decode_p2p into an asyncio.Queue, and are drained in bursts
+    of at most ``burst_max`` messages: each burst pre-verified
+    (preverify_burst: the batch on the staging worker), then tallied
+    serially, in arrival order, into a HeightVoteSet.  Returns a dict:
+    the precommit vote set, its extended commit and that commit stripped,
+    the 2/3 block id, the burst count and sizes, each burst's
+    pre-verification seconds, the decode, tally and end-to-end seconds
+    (decode to made commit) and the serial misses (None when not
+    counted)."""
+    import random
+    from cometbft_tpu_torch.consensus import messages
+    from cometbft_tpu_torch.consensus import state as cstate
+    from cometbft_tpu_torch.consensus.height_vote_set import HeightVoteSet
+    wire = [messages.encode_p2p(messages.VoteMessage(v)) for v in votes]
+    random.Random(seed).shuffle(wire)
+
+    async def drain():
+        queue = asyncio.Queue()
+        t0 = time.perf_counter()
+        for raw in wire:
+            queue.put_nowait(("peer", messages.decode_p2p(raw), "storm"))
+        decode_s = time.perf_counter() - t0
+        hvs = HeightVoteSet(chain_id, height, vals,
+                            extensions_enabled=extensions)
+        pre_s, sizes, tally_s = [], [], 0.0
+        while not queue.empty():
+            burst = [await queue.get()]
+            while len(burst) < burst_max:
+                try:
+                    burst.append(queue.get_nowait())
+                except asyncio.QueueEmpty:
+                    break
+            t1 = time.perf_counter()
+            if len(burst) > 1:
+                await cstate.preverify_burst(burst, height, vals, chain_id,
+                                             device)
+            t2 = time.perf_counter()
+            for i, (_, msg, peer) in enumerate(burst):
+                if i:
+                    await asyncio.sleep(0)
+                hvs.add_vote(msg.vote, peer)
+            tally_s += time.perf_counter() - t2
+            pre_s.append(t2 - t1)
+            sizes.append(len(burst))
+        precommits = hvs.precommits(0)
+        ec = precommits.make_extended_commit(height if extensions else 0)
+        return {"vote_set": precommits, "extended_commit": ec,
+                "commit": ec.to_commit(),
+                "maj23": precommits.two_thirds_majority()[0],
+                "bursts": len(sizes), "sizes": sizes, "preverify_s": pre_s,
+                "decode_s": decode_s, "tally_s": tally_s,
+                "e2e_s": time.perf_counter() - t0}
+
+    with (_serial_misses() if count_misses
+          else contextlib.nullcontext([None])) as misses:
+        out = asyncio.run(drain())
+    out["misses"] = misses[0]
+    return out
+
+
+def _storm_line(what, out, launches, card):
+    n = sum(out["sizes"])
+    pre_ms = [t * 1e3 for t in out["preverify_s"]]
+    _log(f"{what}: e2e_ms {out['e2e_s'] * 1e3:.1f} ({n} votes, "
+         f"{n / out['e2e_s']:.0f} votes/s, host clock); bursts "
+         f"{out['bursts']} (sizes {min(out['sizes'])}..{max(out['sizes'])}); "
+         f"burst preverify ms {_p50_p90(pre_ms)}, {sum(pre_ms):.1f} in all; "
+         f"serial tally "
+         f"{out['tally_s'] * 1e6 / n:.2f} us/vote; decode "
+         f"{out['decode_s'] * 1e6 / n:.2f} us/vote; B1 launches {launches}; "
+         f"card: {card}")
+
+
+def _vote_phases(seed, card, vals, commit, slot, data, mixed_small):
+    """Phases 9a-9d: the vote tally at full width (the live storm over
+    phase 3's 10,000-validator commit), extended votes and their restore,
+    rejections, and config 4's shape.  Returns B1's and B2's launches by
+    path."""
+    from cometbft_tpu_torch.consensus import messages
+    from cometbft_tpu_torch.consensus import state as cstate
+    from cometbft_tpu_torch.consensus.height_vote_set import HeightVoteSet
+    from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
+    from cometbft_tpu_torch.crypto.pipeline import DEFAULT_TILE, tile_plan
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.types import vote as vote_mod
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.canonical import PRECOMMIT_TYPE
+    from cometbft_tpu_torch.types.validator import Validator
+    from cometbft_tpu_torch.types.validator_set import ValidatorSet
+    from cometbft_tpu_torch.types.vote import Vote
+    from cometbft_tpu_torch.types.vote_set import (
+        ConflictingVoteError, VoteSet, VoteSetError)
+    launches = {}
+    n = commit.size()
+    n_bursts = -(-n // BURST_MAX)
+
+    # -- 9a. vote-storm-10k: the live path at full width -----------------
+    _phase(f"9a vote-storm-10k: {n} precommits gossiped and drained in "
+           f"bursts of {BURST_MAX}")
+    votes = [commit.get_vote(i) for i in range(n)]
+    _clear_memos()
+    ek.launches = 0
+    out = _vote_storm(CHAIN_ID, HEIGHT, votes, vals, seed)
+    launches["vote_storm_10k"] = ek.launches
+    if (out["bursts"], ek.launches) != (n_bursts, n_bursts):
+        raise AssertionError(f"the storm ran {out['bursts']} bursts and "
+                             f"{ek.launches} B1 launches, expected "
+                             f"{n_bursts} of each")
+    if out["misses"] != 0:
+        raise AssertionError(f"the serial tally verified {out['misses']} "
+                             f"signatures itself, expected 0")
+    if out["maj23"] != commit.block_id:
+        raise AssertionError("the storm's +2/3 is not the commit's block")
+    if out["commit"].to_proto() != commit.to_proto():
+        raise AssertionError("the made commit differs from the source")
+    ek.launches = 0
+    validation.verify_commit(CHAIN_ID, vals, commit.block_id, HEIGHT,
+                             out["commit"])
+    launches["vote_storm_made_commit"] = ek.launches
+    if ek.launches != len(tile_plan(n, DEFAULT_TILE)):
+        raise AssertionError(f"verify_commit of the made commit launched "
+                             f"B1 {ek.launches} times, expected "
+                             f"{len(tile_plan(n, DEFAULT_TILE))}")
+    _log(f"storm: {out['bursts']} bursts, {launches['vote_storm_10k']} B1 "
+         f"launches, 0 serial misses; +2/3 for the commit's block; made "
+         f"commit == source field for field; its verify_commit ok "
+         f"({launches['vote_storm_made_commit']} launches)")
+    _storm_line("vote_storm_10k first run", out, launches["vote_storm_10k"],
+                card)
+    _clear_memos()
+    tracing.clear()
+    ek.launches = 0
+    with _gc_pauses() as pauses:
+        out = _vote_storm(CHAIN_ID, HEIGHT, votes, vals, seed,
+                          count_misses=False)
+    buckets = [ev["attrs"]["bucket"] for ev in
+               tracing.snapshot(category=tracing.CRYPTO)
+               if ev["name"] == "kernel_execute"]
+    _storm_line("vote_storm_10k warm run (no miss counter)", out,
+                ek.launches, card)
+    _log(f"garbage collector passes in that run (encode included): "
+         f"{_gc_line(pauses)}")
+    _log(f"pad bucket of each burst: {buckets}")
+    _clear_memos()
+    window_ms, busy_ms, kernel_ms, n_dev = _device_busy(
+        lambda: _vote_storm(CHAIN_ID, HEIGHT, votes, vals, seed,
+                            count_misses=False))
+    if busy_ms is None:
+        _log(f"profiler: no device events in a {window_ms:.0f} ms window; "
+             f"device idle share of the storm not measured")
+    else:
+        _log(f"vote_storm_10k profiled window_ms {window_ms:.1f} (host "
+             f"clock, under the profiler, encode included); device_busy_ms "
+             f"{busy_ms:.4f} ({n_dev} device events; ed25519_verify_kernel "
+             f"{kernel_ms:.4f} ms); device_idle_share "
+             f"{1 - busy_ms / window_ms:.6f}")
+    # one burst again under cuda8: the memo must end the same
+    burst = [("peer", messages.VoteMessage(v), "p")
+             for v in votes[:BURST_MAX]]
+    memos = []
+    for choice in ("cuda", "cuda8"):
+        _clear_memos()
+        os.environ[oe.KERNEL_ENV] = choice
+        try:
+            ek.launches = ek8.launches = 0
+            asyncio.run(cstate.preverify_burst(burst, HEIGHT, vals,
+                                               CHAIN_ID))
+        finally:
+            os.environ.pop(oe.KERNEL_ENV, None)
+        memos.append((list(vote_mod._VERIFIED), list(vote_mod._REJECTED),
+                      ek.launches, ek8.launches))
+    if memos[0][:2] != memos[1][:2] or len(memos[0][0]) != BURST_MAX:
+        raise AssertionError("the cuda8 burst left another memo than B1's")
+    if memos[1][2:] != (0, 1) or memos[0][2:] != (1, 0):
+        raise AssertionError(f"burst launches (B1, B2): {memos[0][2:]} and "
+                             f"{memos[1][2:]}, expected (1, 0) and (0, 1)")
+    launches["vote_burst_cuda8"] = memos[1][3]
+    _log(f"one {BURST_MAX}-vote burst under cuda8 (1 B2 launch, 0 B1): "
+         f"the memo ends the same as under B1 ({len(memos[0][0])} verified, "
+         f"0 rejected)")
+
+    # -- 9b. extended votes, 1,024 validators ------------------------------
+    ne = EXT_VALIDATORS
+    _phase(f"9b vote-ext-1k: {ne} extended precommits, then the restore "
+           f"from the extended commit with cleared memos")
+    ext_bid = _replay_block_id(0)
+    ekeys = [Ed25519PubKey(pub) for pub, *_ in data["ext"]]
+    evals = ValidatorSet([Validator.new(pk, 10) for pk in ekeys])
+    eslot = {pk.address(): j for j, pk in enumerate(ekeys)}
+    evotes = []
+    for i, v in enumerate(evals.validators):
+        j = eslot[v.address]
+        ext_len, nrp_len = _ext_lengths(j)
+        _, sig, ext_sig, nrp_sig = data["ext"][j]
+        evotes.append(Vote(
+            type=PRECOMMIT_TYPE, height=HEIGHT, round=0, block_id=ext_bid,
+            timestamp=_stamp(20, j), validator_address=v.address,
+            validator_index=i, signature=sig,
+            extension=hashlib.shake_256(b"ext-%d" % j).digest(ext_len),
+            extension_signature=ext_sig,
+            non_rp_extension=hashlib.shake_256(b"nrp-%d" % j).digest(nrp_len),
+            non_rp_extension_signature=nrp_sig))
+    sb_edges = sorted({64 + len(v.extension_sign_bytes(CHAIN_ID)) for v in
+                       evotes if len(v.extension) < 1024} |
+                      {64 + len(v.non_rp_extension) for v in evotes})
+    _clear_memos()
+    ek.launches = 0
+    out = _vote_storm(CHAIN_ID, HEIGHT, evotes, evals, seed + 1,
+                      extensions=True)
+    launches["vote_ext_1k_bursts"] = ek.launches
+    ext_bursts = -(-ne // BURST_MAX)
+    if ek.launches != ext_bursts or out["misses"] != 0:
+        raise AssertionError(f"extended storm: {ek.launches} launches, "
+                             f"{out['misses']} misses; expected "
+                             f"{ext_bursts} and 0")
+    if out["maj23"] != ext_bid:
+        raise AssertionError("the extended storm's +2/3 is wrong")
+    ec = out["extended_commit"]
+    ec.validate_basic()
+    ec.ensure_extensions(True)
+    if len(vote_mod._VERIFIED) != 3 * ne:
+        raise AssertionError(f"{len(vote_mod._VERIFIED)} triples memoised, "
+                             f"expected {3 * ne}")
+    _storm_line(f"vote_ext_1k storm ({3 * ne} triples, "
+                f"{3 * BURST_MAX} lanes a burst)", out, ek.launches, card)
+    _log(f"R || A || message lengths of the extension triples cover "
+         f"{len(sb_edges)} values in {sb_edges[0]}..{sb_edges[-1]} B "
+         f"(SHA-512 block edges at 111/112 and 239/240), and one 1 MiB "
+         f"extension")
+    _clear_memos()
+    tracing.clear()
+    ek.launches = 0
+    with _timed(cstate, "preverify_votes") as pre_s, \
+            _timed(vote_mod, "preverify_signatures") as sig_s, \
+            _serial_misses() as misses, _gc_pauses() as pauses:
+        t0 = time.perf_counter()
+        restored = cstate.vote_set_from_extended_commit(CHAIN_ID, ec, evals)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    batch_ms = sum(ev["dur_ns"] / 1e6 for ev in
+                   tracing.snapshot(category=tracing.CRYPTO)
+                   if ev["name"] == "batch_verify")
+    launches["vote_ext_1k_restore"] = ek.launches
+    if ek.launches != 1 or misses[0] != 0:
+        raise AssertionError(f"restore: {ek.launches} launches, {misses[0]} "
+                             f"misses; expected 1 and 0")
+    if restored.make_extended_commit(HEIGHT).to_proto() != ec.to_proto():
+        raise AssertionError("the restored set makes another extended "
+                             "commit")
+    _log(f"vote_ext_1k restore: vote_set_from_extended_commit "
+         f"{restore_ms:.1f} ms (host clock, the miss counter on): "
+         f"preverify_votes of {3 * ne} triples {pre_s[0] * 1e3:.1f} ms "
+         f"(its entries {(pre_s[0] - sig_s[0]) * 1e3:.1f} ms, "
+         f"preverify_signatures {sig_s[0] * 1e3:.1f} ms, of which the "
+         f"batch_verify span {batch_ms:.2f} ms), the votes built and "
+         f"tallied serially {restore_ms - pre_s[0] * 1e3:.1f} ms; garbage "
+         f"collector passes {_gc_line(pauses)}; B1 launches {ek.launches}; "
+         f"serial misses 0; the restored set makes the same extended "
+         f"commit; card: {card}")
+
+    # -- 9c. rejections in a 256-message burst -----------------------------
+    _phase(f"9c vote-reject-256: a corrupted signature, an equivocation, "
+           f"another height, a VoteBatchMessage; config 5's key mix")
+    good = [commit.get_vote(i) for i in range(REJECT_GOOD)]
+    bad = good[7].copy()
+    bad.signature = bytes([bad.signature[0] ^ 1]) + bad.signature[1:]
+    good[7] = bad
+    other_bid = BlockID(hashlib.sha256(b"other").digest(),
+                        commit.block_id.part_set_header)
+    equiv = Vote(type=PRECOMMIT_TYPE, height=HEIGHT, round=0,
+                 block_id=other_bid, timestamp=good[3].timestamp,
+                 validator_address=good[3].validator_address,
+                 validator_index=3)
+    equiv.signature = ref.sign(_seed(seed, slot[equiv.validator_address]),
+                               equiv.sign_bytes(CHAIN_ID))
+    late = commit.get_vote(300)
+    late.height = HEIGHT + 1
+    late.signature = ref.sign(_seed(seed, slot[late.validator_address]),
+                              late.sign_bytes(CHAIN_ID))
+    batch = messages.VoteBatchMessage(
+        [commit.get_vote(i) for i in
+         range(REJECT_GOOD, REJECT_GOOD + REJECT_BATCH)])
+    burst = [("peer", messages.VoteMessage(v), "p") for v in good[:5]]
+    burst.append(("peer", messages.VoteMessage(equiv), "q"))
+    burst += [("peer", messages.VoteMessage(v), "p") for v in good[5:]]
+    burst += [("peer", messages.VoteMessage(late), "p"),
+              ("peer", batch, "p")]
+    confirmations = [0]
+    real_verify = Ed25519PubKey.verify_signature
+
+    def counting(self, msg, sig):
+        confirmations[0] += 1
+        return real_verify(self, msg, sig)
+
+    _clear_memos()
+    ek.launches = 0
+    Ed25519PubKey.verify_signature = counting
+    try:
+        asyncio.run(cstate.preverify_burst(burst, HEIGHT, vals, CHAIN_ID))
+    finally:
+        Ed25519PubKey.verify_signature = real_verify
+    launches["vote_reject_256"] = ek.launches
+    bad_key = vote_mod._memo_key(vals.validators[7].pub_key,
+                                 bad.sign_bytes(CHAIN_ID), bad.signature)
+    if (len(burst), ek.launches, confirmations[0]) != (BURST_MAX, 1, 1) or \
+            list(vote_mod._REJECTED) != [bad_key] or \
+            len(vote_mod._VERIFIED) != REJECT_GOOD:
+        raise AssertionError(
+            f"reject burst: {len(burst)} messages, {ek.launches} launches, "
+            f"{confirmations[0]} serial confirmations, "
+            f"{len(vote_mod._VERIFIED)} verified, "
+            f"{len(vote_mod._REJECTED)} rejected")
+    hvs = HeightVoteSet(CHAIN_ID, HEIGHT, vals)
+    errors = []
+    with _serial_misses() as misses:
+        for _, msg, peer in burst:
+            for v in (msg.votes if isinstance(msg, messages.VoteBatchMessage)
+                      else [msg.vote]):
+                try:
+                    hvs.add_vote(v, peer)
+                except VoteSetError as e:
+                    errors.append((v.validator_index, type(e), str(e)))
+    want = [(3, ConflictingVoteError, "conflicting votes from validator "
+                                      f"{equiv.validator_address.hex().upper()}"),
+            (7, VoteSetError, "failed to verify vote: invalid vote "
+                              "signature"),
+            (300, VoteSetError, f"expected {HEIGHT}/0/{PRECOMMIT_TYPE}, got "
+                                f"{HEIGHT + 1}/0/{PRECOMMIT_TYPE}")]
+    if errors != want or misses[0] != REJECT_BATCH:
+        raise AssertionError(f"reject tally: errors {errors}, "
+                             f"{misses[0]} misses")
+    for idx, exc, text in errors:
+        _log(f"validator {idx}: {exc.__name__}({text!r})")
+    _log(f"the burst's {REJECT_GOOD + 1} VoteMessages of this height went "
+         f"to B1 in 1 launch; the corrupted one was confirmed by 1 serial "
+         f"verify into the negative memo; the other height was skipped by "
+         f"the filter; the VoteBatchMessage's {REJECT_BATCH} votes were "
+         f"verified serially ({misses[0]} misses), as the JAX package "
+         f"leaves them")
+    svals, scommit = mixed_small
+    mvotes = [scommit.get_vote(i) for i in range(BURST_MAX)]
+    kinds = collections.Counter(svals.validators[i].pub_key.type()
+                                for i in range(BURST_MAX))
+    mburst = [("peer", messages.VoteMessage(v), "p") for v in mvotes]
+    _clear_memos()
+    tracing.clear()
+    ek.launches = 0
+    t0 = time.perf_counter()
+    asyncio.run(cstate.preverify_burst(mburst, HEIGHT, svals, CHAIN_ID))
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    launches["vote_mixed_256"] = ek.launches
+    backends = collections.Counter(
+        ev["attrs"]["backend"] for ev in
+        tracing.snapshot(category=tracing.CRYPTO)
+        if ev["name"] == "batch_verify")
+    vs = VoteSet(CHAIN_ID, HEIGHT, 0, PRECOMMIT_TYPE, svals)
+    with _serial_misses() as misses:
+        t0 = time.perf_counter()
+        for v in mvotes:
+            vs.add_vote(v)
+        tally_ms = (time.perf_counter() - t0) * 1e3
+    if ek.launches != 1 or backends.get("bls_native") != 1 or \
+            len(vote_mod._VERIFIED) != BURST_MAX or \
+            misses[0] != kinds["secp256k1"]:
+        raise AssertionError(
+            f"mixed burst: {ek.launches} launches, backends "
+            f"{dict(backends)}, {len(vote_mod._VERIFIED)} verified, "
+            f"{misses[0]} misses for {dict(kinds)}")
+    _log(f"vote_mixed_256 ({dict(sorted(kinds.items()))}): preverify_burst "
+         f"{pre_ms:.1f} ms (ed25519 on B1, 1 launch; bls12_381 on the host "
+         f"library; secp256k1 left None); serial tally {tally_ms:.1f} ms "
+         f"with {misses[0]} misses, all secp256k1; card: {card}")
+
+    # -- 9d. config 4's shape: 150 validators x 20 heights -----------------
+    nr = REPLAY_VALIDATORS
+    _phase(f"9d replay-150x20: {nr} precommits a height drained as one "
+           f"burst, tallied, made into a commit and verified, "
+           f"{REPLAY_HEIGHTS} heights")
+    rkeys = [Ed25519PubKey(pub) for pub, _ in data["replay"][0]]
+    rvals = ValidatorSet([Validator.new(pk, 10) for pk in rkeys])
+    rslot = {pk.address(): j for j, pk in enumerate(rkeys)}
+    per_height_ms, per_height_launches = [], []
+    for k, signed_h in enumerate(data["replay"]):
+        h = k + 1
+        bid = _replay_block_id(h)
+        hvotes = []
+        for i, v in enumerate(rvals.validators):
+            j = rslot[v.address]
+            hvotes.append(Vote(type=PRECOMMIT_TYPE, height=h, round=0,
+                               block_id=bid, timestamp=_stamp(30 + h, j),
+                               validator_address=v.address,
+                               validator_index=i, signature=signed_h[j][1]))
+        ek.launches = 0
+        t0 = time.perf_counter()
+        out = _vote_storm(CHAIN_ID, h, hvotes, rvals, seed + h,
+                          count_misses=False)
+        validation.verify_commit(CHAIN_ID, rvals, bid, h, out["commit"])
+        per_height_ms.append((time.perf_counter() - t0) * 1e3)
+        per_height_launches.append(ek.launches)
+        if out["bursts"] != 1 or out["maj23"] != bid:
+            raise AssertionError(f"height {h}: {out['bursts']} bursts")
+    launches["replay_150x20"] = sum(per_height_launches)
+    if set(per_height_launches) != {2}:
+        raise AssertionError(f"B1 launches a height: {per_height_launches}, "
+                             f"expected 2 each")
+    _log(f"replay_150x20 ms a height {_p50_p90(per_height_ms)} (host clock; "
+         f"decode, one burst, tally, make the commit, verify_commit; the "
+         f"votes were signed beforehand in the pool); B1 launches a height "
+         f"2 (the burst and verify_commit); {REPLAY_HEIGHTS} heights; "
+         f"card: {card}")
+    _clear_memos()
+    return launches
 
 
 def main() -> int:
@@ -1153,6 +1750,7 @@ def main() -> int:
         signed = pool.map(_sign_job, [(_seed(args.seed, j), make(stamps[j]))
                                       for j in range(n)], chunksize=64)
         _log(f"signed {n} votes in {time.perf_counter() - t0:.1f} s")
+        vote_data = _vote_data(args.seed, pool)
     # the pool is closed: nothing below forks or spawns until phase 8
 
     keys = [Ed25519PubKey(pub) for pub, _ in signed]
@@ -1527,8 +2125,11 @@ def main() -> int:
               f"{rec['per_op_us'] / MB_ROUNDS[op]:.4f}"
               if op in MB_ROUNDS else ""))
 
-    grouped_launches, grouped_b2 = _config5_phases(
+    grouped_launches, grouped_b2, mixed_small = _config5_phases(
         args.seed, card, make, stamps, block_id)
+
+    vote_launches = _vote_phases(args.seed, card, vals, commit, slot,
+                                 vote_data, mixed_small)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -1544,7 +2145,9 @@ def main() -> int:
                   "table in shared memory",
         "launches": main_launches,
         "launches_by_path": {"commit_10k": main_launches,
-                             "config5_grouped": grouped_launches},
+                             "config5_grouped": grouped_launches,
+                             **{k: v for k, v in vote_launches.items()
+                                if k != "vote_burst_cuda8"}},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -1568,7 +2171,9 @@ def main() -> int:
                   "entries in shared memory",
         "launches": main8_launches,
         "launches_by_path": {"commit_10k_cuda8": main8_launches,
-                             "config5_grouped": grouped_b2},
+                             "config5_grouped": grouped_b2,
+                             "vote_burst_cuda8":
+                                 vote_launches["vote_burst_cuda8"]},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

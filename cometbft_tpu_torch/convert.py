@@ -1,16 +1,18 @@
-"""Carry validator sets and commits across from the reference package.
+"""Carry validator sets, commits and votes across from the reference
+package.
 
 Accepts the reference's plain data — a ``ValidatorSet.to_proto()`` /
-``Commit.to_proto()`` / ``AggregateCommit.to_proto()`` dict of Python
-bytes and ints, or its protobuf wire bytes — and returns the port's
-objects.  Validator sets may hold any of the four key types.  Nothing
+``Commit.to_proto()`` / ``AggregateCommit.to_proto()`` /
+``Vote.to_proto()`` / ``ExtendedCommit.to_proto()`` dict of Python bytes
+and ints, or its protobuf wire bytes — and returns the port's objects.  Validator sets may hold any of the four key types.  Nothing
 of the reference is imported: the dict layout and the wire schema are
 the contract.
 """
 from __future__ import annotations
 
-from .types.commit import AggregateCommit, Commit
+from .types.commit import AggregateCommit, Commit, ExtendedCommit
 from .types.validator_set import ValidatorSet
+from .types.vote import Vote
 from .wire import decode, pb
 
 
@@ -34,3 +36,11 @@ def commit(obj) -> Commit:
 
 def aggregate_commit(obj) -> AggregateCommit:
     return AggregateCommit.from_proto(_as_dict(obj, pb.AGGREGATE_COMMIT))
+
+
+def vote(obj) -> Vote:
+    return Vote.from_proto(_as_dict(obj, pb.VOTE))
+
+
+def extended_commit(obj) -> ExtendedCommit:
+    return ExtendedCommit.from_proto(_as_dict(obj, pb.EXTENDED_COMMIT))

@@ -3,14 +3,17 @@
 Reference: crypto/batch/batch.go — CreateBatchVerifier (:10),
 SupportsBatchVerifier (:21).  Through cometbft_tpu/crypto/batch.py:
 ed25519 and, beyond the Go reference, bls12_381 batch (:154-158,
-:332-335); the batch-verify latency histogram
+:332-335); ``batch_verify_by_type`` (:161-197), the grouped batch of the
+vote-burst pre-verification; the batch-verify latency histogram
 (``verify_seconds_histogram`` / ``_observe_verify``, :68-93) and
 ``TracedBatchVerifier`` (:303-328), which ``create_batch_verifier``
 wraps around every verifier it hands out.
 
 Every ed25519 batch goes to the CUDA kernel through
 ops/ed25519.verify_batch.  There is no circuit breaker and no CPU
-fallback: a kernel that fails to build or launch raises to the caller.
+fallback: a kernel that fails to build or launch raises to the caller,
+through ``batch_verify_by_type`` too, where the JAX package turns any
+verifier error into "verify it yourself".
 ``device="cpu"`` runs the kernel's plain PyTorch version, for tests.
 A bls12_381 batch runs on the host, in the BLS library
 (crypto/bls12381.Bls12381BatchVerifier, backend ``bls_native``).
@@ -94,6 +97,38 @@ class TracedBatchVerifier(BatchVerifier):
             out = self._inner.verify()
         _observe_verify(self._backend, n, time.perf_counter() - t0)
         return out
+
+
+def batch_verify_by_type(entries, device=None) -> list:
+    """Batch verification of (pub_key, msg, sig) triples grouped by key
+    type: ed25519 into the kernel on ``device``, bls12_381 into the host
+    BLS library.  Returns a per-entry list: True/False for entries a
+    batch verifier judged, None for entries it could not — a key type
+    with no batch verifier, an entry its verifier's ``add`` refused (a
+    wrong signature length), a group of one.  Callers treat None as
+    "verify it yourself".  Unlike the JAX package, an error from
+    building or launching a kernel, or from the BLS library, raises."""
+    out = [None] * len(entries)
+    groups: dict[str, tuple[BatchVerifier, list[int]]] = {}
+    for i, (pub_key, msg, sig) in enumerate(entries):
+        if not supports_batch_verifier(pub_key):
+            continue
+        entry = groups.get(pub_key.type())
+        if entry is None:
+            entry = (create_batch_verifier(pub_key, device), [])
+            groups[pub_key.type()] = entry
+        try:
+            entry[0].add(pub_key, msg, sig)
+        except (TypeError, ValueError):
+            continue
+        entry[1].append(i)
+    for bv, idxs in groups.values():
+        if len(idxs) < 2:
+            continue
+        _, mask = bv.verify()
+        for i, good in zip(idxs, mask):
+            out[i] = bool(good)
+    return out
 
 
 def create_batch_verifier(pub_key: PubKey, device=None) -> BatchVerifier:

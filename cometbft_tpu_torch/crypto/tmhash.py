@@ -4,6 +4,7 @@ Reference: crypto/tmhash/hash.go — Sum (32 bytes), SumTruncated (20 bytes).
 """
 import hashlib
 
+SIZE = 32
 TRUNCATED_SIZE = 20
 
 

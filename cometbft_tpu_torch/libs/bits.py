@@ -1,9 +1,11 @@
-"""BitArray: the aggregate commit's signer bitmap.
+"""BitArray: the aggregate commit's signer bitmap and a vote set's
+record of who voted.
 
 Reference: internal/bits/bit_array.go, through cometbft_tpu/libs/bits.py
-— a fixed-size bit array with set/get, not, the true indices, the
-canonical little-endian packing and the proto form.  The set operations
-and random picking that vote gossip uses are not ported yet.
+— a fixed-size bit array with set/get, copy, not, the true indices, the
+text form, the canonical little-endian packing and the proto form.  The
+set operations and random picking that vote gossip uses are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -46,6 +48,11 @@ class BitArray:
             self._elems &= ~(1 << i)
         return True
 
+    def copy(self) -> "BitArray":
+        ba = BitArray(self.bits)
+        ba._elems = self._elems
+        return ba
+
     def not_(self) -> "BitArray":
         ba = BitArray(self.bits)
         ba._elems = ~self._elems & ((1 << self.bits) - 1)
@@ -81,6 +88,11 @@ class BitArray:
     def __eq__(self, other) -> bool:
         return (isinstance(other, BitArray) and self.bits == other.bits and
                 self._elems == other._elems)
+
+    def __str__(self) -> str:
+        s = "".join("x" if self.get_index(i) else "_"
+                    for i in range(self.bits))
+        return f"BA{{{self.bits}:{s}}}"
 
     def to_le_bytes(self) -> bytes:
         """Canonical little-endian packing: (bits+7)//8 bytes, byte i

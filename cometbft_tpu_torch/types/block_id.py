@@ -1,12 +1,13 @@
 """BlockID: a block's hash plus its part-set header.
 
-Reference: types/block.go BlockID (IsNil, Key).
+Reference: types/block.go BlockID (IsNil/IsComplete/ValidateBasic, Key).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from .part_set import PartSetHeader
+from ..crypto import tmhash
+from .part_set import PartSetError, PartSetHeader
 
 
 @dataclass(frozen=True)
@@ -16,6 +17,16 @@ class BlockID:
 
     def is_nil(self) -> bool:
         return len(self.hash) == 0 and self.part_set_header.is_zero()
+
+    def is_complete(self) -> bool:
+        return (len(self.hash) == tmhash.SIZE and
+                self.part_set_header.total > 0 and
+                len(self.part_set_header.hash) == tmhash.SIZE)
+
+    def validate_basic(self) -> None:
+        if self.hash and len(self.hash) != tmhash.SIZE:
+            raise PartSetError(f"wrong BlockID hash size {len(self.hash)}")
+        self.part_set_header.validate_basic()
 
     def key(self) -> bytes:
         """Map key uniquely identifying this BlockID."""

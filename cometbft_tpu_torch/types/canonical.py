@@ -13,7 +13,13 @@ from .block_id import BlockID
 from .timestamp import Timestamp
 
 # SignedMsgType (proto/cometbft/types/v2/types.proto)
+UNKNOWN_TYPE = 0
+PREVOTE_TYPE = 1
 PRECOMMIT_TYPE = 2
+
+
+def is_vote_type_valid(t: int) -> bool:
+    return t in (PREVOTE_TYPE, PRECOMMIT_TYPE)
 
 
 def canonicalize_block_id(bid: BlockID) -> dict | None:
@@ -94,3 +100,18 @@ def vote_sign_bytes_template(chain_id: str, type_: int, height: int,
         return encode_uvarint(body_len) + pre + mid + suf
 
     return make
+
+
+def vote_extension_sign_bytes(chain_id: str, height: int, round_: int,
+                              extension: bytes) -> bytes:
+    """Reference: types/vote.go VoteExtensionSignBytes."""
+    d: dict = {}
+    if extension:
+        d["extension"] = extension
+    if height:
+        d["height"] = height
+    if round_:
+        d["round"] = round_
+    if chain_id:
+        d["chain_id"] = chain_id
+    return marshal_delimited(pb.CANONICAL_VOTE_EXTENSION, d)

@@ -1,10 +1,12 @@
-"""Commit and AggregateCommit: the evidence a block was committed.
+"""Commit, AggregateCommit and ExtendedCommit: the evidence a block was
+committed.
 
 Reference: types/block.go:634-1300 — CommitSig (one slot per validator,
-flag Absent/Commit/Nil) and VoteSignBytes reconstruction — and
-cometbft_tpu/types/commit.py:230-360 for AggregateCommit (one BLS
-signature and a signer bitmap).  Hashing, median time and extended
-commits are not ported yet.
+flag Absent/Commit/Nil), GetVote and VoteSignBytes reconstruction,
+ExtendedCommitSig / ExtendedCommit (the votes' extensions kept beside
+the commit) — through cometbft_tpu/types/commit.py (:111-126, :216-227,
+:375-514), and its :230-360 for AggregateCommit (one BLS signature and a
+signer bitmap).  Hashing and median time are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from .block_id import BlockID
 from .timestamp import Timestamp
 from .vote import (
     BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, BLOCK_ID_FLAG_NIL,
-    MAX_SIGNATURE_SIZE,
+    MAX_SIGNATURE_SIZE, Vote,
 )
 from . import canonical
 
@@ -40,6 +42,12 @@ class CommitSig:
         """Reference: NewCommitSigAbsent — validator did not sign."""
         return cls(block_id_flag=BLOCK_ID_FLAG_ABSENT,
                    timestamp=Timestamp.zero())
+
+    def for_block(self) -> bool:
+        return self.block_id_flag == BLOCK_ID_FLAG_COMMIT
+
+    def absent_flag(self) -> bool:
+        return self.block_id_flag == BLOCK_ID_FLAG_ABSENT
 
     def block_id(self, commit_block_id: BlockID) -> BlockID:
         """The BlockID this sig signed over (reference: CommitSig.BlockID)."""
@@ -98,6 +106,22 @@ class Commit:
     def size(self) -> int:
         return len(self.signatures)
 
+    def get_vote(self, val_idx: int) -> Vote:
+        """Reconstruct the precommit Vote of validator val_idx.
+
+        Reference: block.go GetVote (:898)."""
+        cs = self.signatures[val_idx]
+        return Vote(
+            type=canonical.PRECOMMIT_TYPE,
+            height=self.height,
+            round=self.round,
+            block_id=cs.block_id(self.block_id),
+            timestamp=cs.timestamp,
+            validator_address=cs.validator_address,
+            validator_index=val_idx,
+            signature=cs.signature,
+        )
+
     def vote_sign_bytes(self, chain_id: str, val_idx: int) -> bytes:
         """Canonical signed bytes of validator val_idx's vote.
 
@@ -138,6 +162,18 @@ class Commit:
             signatures=[CommitSig.from_proto(s)
                         for s in d.get("signatures", [])],
         )
+
+    def wrapped_extended_commit(self) -> "ExtendedCommit":
+        """Wrap as an ExtendedCommit with empty extensions (reference:
+        :1013)."""
+        return ExtendedCommit(
+            height=self.height, round=self.round, block_id=self.block_id,
+            extended_signatures=[
+                ExtendedCommitSig(
+                    block_id_flag=cs.block_id_flag,
+                    validator_address=cs.validator_address,
+                    timestamp=cs.timestamp, signature=cs.signature)
+                for cs in self.signatures])
 
 
 @dataclass
@@ -227,4 +263,147 @@ class AggregateCommit:
             block_id=BlockID.from_proto(d.get("block_id") or {}),
             signers=ba,
             signature=d.get("signature", b""),
+        )
+
+
+@dataclass
+class ExtendedCommitSig(CommitSig):
+    extension: bytes = b""
+    extension_signature: bytes = b""
+    non_rp_extension: bytes = b""
+    non_rp_extension_signature: bytes = b""
+
+    def ensure_extension(self, ext_enabled: bool) -> None:
+        """Reference: block.go EnsureExtension (:791) — both signatures
+        (replay-protected and non-RP) required on COMMIT entries."""
+        if ext_enabled:
+            if self.block_id_flag == BLOCK_ID_FLAG_COMMIT and \
+                    (not self.extension_signature or
+                     not self.non_rp_extension_signature):
+                raise CommitError(
+                    "vote extension signature missing with extensions "
+                    "enabled")
+            if self.block_id_flag != BLOCK_ID_FLAG_COMMIT and \
+                    (self.extension or self.non_rp_extension or
+                     self.extension_signature or
+                     self.non_rp_extension_signature):
+                raise CommitError(
+                    "non-commit vote extension (signature) present")
+        else:
+            if self.extension or self.extension_signature or \
+                    self.non_rp_extension or self.non_rp_extension_signature:
+                raise CommitError(
+                    "vote extension present with extensions disabled")
+
+    def to_proto(self) -> dict:
+        d = super().to_proto()
+        if self.extension:
+            d["extension"] = self.extension
+        if self.extension_signature:
+            d["extension_signature"] = self.extension_signature
+        if self.non_rp_extension:
+            d["non_rp_extension"] = self.non_rp_extension
+        if self.non_rp_extension_signature:
+            d["non_rp_extension_signature"] = self.non_rp_extension_signature
+        return d
+
+    @classmethod
+    def from_proto(cls, d: dict) -> "ExtendedCommitSig":
+        return cls(
+            block_id_flag=d.get("block_id_flag", 0),
+            validator_address=d.get("validator_address", b""),
+            timestamp=Timestamp.from_proto(d.get("timestamp") or {}),
+            signature=d.get("signature", b""),
+            extension=d.get("extension", b""),
+            extension_signature=d.get("extension_signature", b""),
+            non_rp_extension=d.get("non_rp_extension", b""),
+            non_rp_extension_signature=d.get(
+                "non_rp_extension_signature", b""),
+        )
+
+
+@dataclass
+class ExtendedCommit:
+    height: int = 0
+    round: int = 0
+    block_id: BlockID = field(default_factory=BlockID)
+    extended_signatures: list[ExtendedCommitSig] = field(
+        default_factory=list)
+
+    def size(self) -> int:
+        return len(self.extended_signatures)
+
+    def is_commit(self) -> bool:
+        return len(self.extended_signatures) != 0
+
+    def to_commit(self) -> Commit:
+        """Strip extensions (reference: block.go ToCommit :1184)."""
+        return Commit(
+            height=self.height, round=self.round, block_id=self.block_id,
+            signatures=[
+                CommitSig(block_id_flag=ecs.block_id_flag,
+                          validator_address=ecs.validator_address,
+                          timestamp=ecs.timestamp,
+                          signature=ecs.signature)
+                for ecs in self.extended_signatures])
+
+    def get_extended_vote(self, val_idx: int) -> Vote:
+        """Reference: block.go GetExtendedVote (:1200)."""
+        ecs = self.extended_signatures[val_idx]
+        return Vote(
+            type=canonical.PRECOMMIT_TYPE,
+            height=self.height, round=self.round,
+            block_id=ecs.block_id(self.block_id),
+            timestamp=ecs.timestamp,
+            validator_address=ecs.validator_address,
+            validator_index=val_idx,
+            signature=ecs.signature,
+            extension=ecs.extension,
+            extension_signature=ecs.extension_signature,
+            non_rp_extension=ecs.non_rp_extension,
+            non_rp_extension_signature=ecs.non_rp_extension_signature,
+        )
+
+    def ensure_extensions(self, ext_enabled: bool) -> None:
+        for ecs in self.extended_signatures:
+            ecs.ensure_extension(ext_enabled)
+
+    def validate_basic(self) -> None:
+        if self.height < 0:
+            raise CommitError("negative Height")
+        if self.round < 0:
+            raise CommitError("negative Round")
+        if self.height >= 1:
+            if self.block_id.is_nil():
+                raise CommitError("extended commit cannot be for nil block")
+            if not self.extended_signatures:
+                raise CommitError("no signatures in commit")
+            for i, ecs in enumerate(self.extended_signatures):
+                try:
+                    ecs.validate_basic()
+                except CommitError as e:
+                    raise CommitError(
+                        f"wrong ExtendedCommitSig #{i}: {e}") from e
+
+    def to_proto(self) -> dict:
+        d: dict = {
+            "block_id": self.block_id.to_proto(),
+            "extended_signatures": [ecs.to_proto()
+                                    for ecs in self.extended_signatures],
+        }
+        if self.height:
+            d["height"] = self.height
+        if self.round:
+            d["round"] = self.round
+        return d
+
+    @classmethod
+    def from_proto(cls, d: dict) -> "ExtendedCommit":
+        return cls(
+            height=d.get("height", 0),
+            round=d.get("round", 0),
+            block_id=BlockID.from_proto(d.get("block_id") or {}),
+            extended_signatures=[
+                ExtendedCommitSig.from_proto(s)
+                for s in d.get("extended_signatures", [])],
         )

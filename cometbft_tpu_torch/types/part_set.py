@@ -7,6 +7,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ..crypto import tmhash
+
+
+class PartSetError(Exception):
+    pass
+
 
 @dataclass(frozen=True)
 class PartSetHeader:
@@ -15,6 +21,11 @@ class PartSetHeader:
 
     def is_zero(self) -> bool:
         return self.total == 0 and len(self.hash) == 0
+
+    def validate_basic(self) -> None:
+        if self.hash and len(self.hash) != tmhash.SIZE:
+            raise PartSetError(
+                f"wrong PartSetHeader hash size {len(self.hash)}")
 
     def to_proto(self) -> dict:
         d: dict = {}

@@ -103,6 +103,12 @@ class ValidatorSet:
             self._addr_index_memo = memo
         return memo.get(address, -1)
 
+    def get_by_index(self, index: int) -> tuple[bytes, Optional[Validator]]:
+        if index < 0 or index >= len(self.validators):
+            return b"", None
+        v = self.validators[index]
+        return v.address, v.copy()
+
     def all_keys_have_same_type(self) -> bool:
         return self._all_keys_same_type
 

@@ -1,5 +1,5 @@
-"""Message descriptors for canonical votes, commits (per-signature and
-aggregate) and validator sets.
+"""Message descriptors for votes and their canonical forms, commits
+(per-signature, aggregate and extended) and validator sets.
 
 The port's trimmed copy of cometbft_tpu/wire/pb.py (which mirrors the
 reference's proto/cometbft/**/*.proto).  Field numbers, kinds and
@@ -33,6 +33,22 @@ BLOCK_ID = Msg(
     F(2, "part_set_header", "msg", msg=PART_SET_HEADER, always=True),
 )
 
+VOTE = Msg(
+    "cometbft.types.v2.Vote",
+    F(1, "type", "enum"),
+    F(2, "height", "int64"),
+    F(3, "round", "int32"),
+    F(4, "block_id", "msg", msg=BLOCK_ID, always=True),
+    F(5, "timestamp", "msg", msg=TIMESTAMP, always=True),
+    F(6, "validator_address", "bytes"),
+    F(7, "validator_index", "int32"),
+    F(8, "signature", "bytes"),
+    F(9, "extension", "bytes"),
+    F(10, "extension_signature", "bytes"),
+    F(11, "non_rp_extension", "bytes"),
+    F(12, "non_rp_extension_signature", "bytes"),
+)
+
 COMMIT_SIG = Msg(
     "cometbft.types.v2.CommitSig",
     F(1, "block_id_flag", "enum"),
@@ -57,6 +73,27 @@ AGGREGATE_COMMIT = Msg(
     F(4, "signer_count", "int64"),
     F(5, "signers", "bytes"),
     F(6, "signature", "bytes"),
+)
+
+EXTENDED_COMMIT_SIG = Msg(
+    "cometbft.types.v2.ExtendedCommitSig",
+    F(1, "block_id_flag", "enum"),
+    F(2, "validator_address", "bytes"),
+    F(3, "timestamp", "msg", msg=TIMESTAMP, always=True),
+    F(4, "signature", "bytes"),
+    F(5, "extension", "bytes"),
+    F(6, "extension_signature", "bytes"),
+    F(7, "non_rp_extension", "bytes"),
+    F(8, "non_rp_extension_signature", "bytes"),
+)
+
+EXTENDED_COMMIT = Msg(
+    "cometbft.types.v2.ExtendedCommit",
+    F(1, "height", "int64"),
+    F(2, "round", "int32"),
+    F(3, "block_id", "msg", msg=BLOCK_ID, always=True),
+    F(4, "extended_signatures", "msg", msg=EXTENDED_COMMIT_SIG,
+      repeated=True),
 )
 
 VALIDATOR = Msg(
@@ -103,4 +140,12 @@ CANONICAL_VOTE = Msg(
     F(4, "block_id", "msg", msg=CANONICAL_BLOCK_ID),  # nullable
     F(5, "timestamp", "msg", msg=TIMESTAMP, always=True),
     F(6, "chain_id", "string"),
+)
+
+CANONICAL_VOTE_EXTENSION = Msg(
+    "cometbft.types.v2.CanonicalVoteExtension",
+    F(1, "extension", "bytes"),
+    F(2, "height", "sfixed64"),
+    F(3, "round", "sfixed64"),
+    F(4, "chain_id", "string"),
 )
