@@ -52,6 +52,18 @@ extended commit with cleared memos; rejections in a 256-message burst
 (a corrupted signature, an equivocation, another height, a
 VoteBatchMessage) and a burst of config 5's key mix; config 4's shape,
 150 validators for 20 heights.
+Phases 10a-10d drive the light client (light/verifier, light/store,
+light/client over the port's db, every commit check on B1): BASELINE.json
+config 3 (1,000 validators, hops from 1 to 11, 21, 31, 41), then a
+skipping sync to the tip of a 1,000-height chain whose 1,000 validators
+rotate a quarter every 100 heights, with two witnesses, on MemDB and on
+SQLiteDB, its stored heights held to the JAX client's algorithm; 20
+heights in sequential mode; one hop over the 10,000 keys of phase 3 with
+a quarter replaced, under B1 and B2; and the rejections (a corrupted
+signature, an expired root, clock drift, a lunatic witness with its
+evidence) and backwards verification.  The providers sign a height's
+commit on its first fetch, with a fixed-base table signer held byte for
+byte to the golden model.
 Any failure exits non-zero.  The last three lines are the kernels JSON, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -167,6 +179,40 @@ REJECT_BATCH = 4
 # WAL, VoteSet tally + Commit verify per height") without the WAL
 REPLAY_VALIDATORS = 150
 REPLAY_HEIGHTS = 20
+
+# phase 10: the light client.  10a is BASELINE.json config 3
+# ("light-client verifier: 1k-validator SignedHeader chain, skipping
+# verification") at the JAX package's --full size
+# (cometbft_tpu/tools/benchmarks.py:91-128): one set, a root at height
+# 1, hops to 11, 21, 31, 41.  Then a real sync over a rotating chain:
+# 1,000 heights 1 s apart, the 250 oldest of 1,000 validators replaced
+# every 100 heights, a 168 h trusting period (the JAX config default)
+# and a 10 s clock drift.
+LIGHT_CHAIN_ID = "light-chip"
+LIGHT_VALIDATORS = 1_000
+LIGHT_HEIGHTS = 1_000
+LIGHT_EVERY = 100
+LIGHT_ROTATE = 250
+LIGHT_POWER = 10
+LIGHT_T0 = 1_700_000_000
+LIGHT_TRUSTING_PERIOD_NS = 168 * 3600 * 10**9
+LIGHT_DRIFT_NS = 10 * 10**9
+CONFIG3_HOPS = (11, 21, 31, 41)
+CONFIG3_PERIOD_NS = 365 * 24 * 3600 * 10**9
+CONFIG3_DRIFT_NS = 10**9
+# warm syncs timed after the first (which signs what it fetches)
+LIGHT_SYNC_RUNS = 3
+# 10b: sequential mode over 20 adjacent heights across the rotation at 101
+LIGHT_SEQ_ROOT = 90
+LIGHT_SEQ_TARGET = 110
+# 10c: one hop over commit-10k's keys with a quarter of them replaced
+HOP10K_REPLACE_EVERY = 4
+# 10d: a lunatic fork signed by 700 of the common set; backwards
+# verification 50 heights below a root at 151
+FORK_HEIGHT = 41
+FORK_SIGNERS = 700
+BACKWARDS_ROOT = 151
+BACKWARDS_DEPTH = 50
 
 
 def _mixed_kind(i: int) -> str:
@@ -740,8 +786,9 @@ def _config5_phases(seed, card, make, stamps, block_id):
     """Phases 8a-8d: the BLS library against its plain version, config 5's
     mixed-key commit (the grouped path, B1 on its ed25519 group),
     corrupted mixed commits, and the aggregate commit.  Returns B1's and
-    B2's launches on the grouped commit, and 8c's 1,000-validator mixed
-    set and commit (phase 9c drains a burst of their votes)."""
+    B2's launches on the grouped commit, 8c's 1,000-validator mixed set
+    and commit (phase 9c drains a burst of their votes), and 8d's BLS
+    set with its secrets by address (phase 10c's aggregate hop)."""
     from cometbft_tpu_torch.crypto import batch as crypto_batch
     from cometbft_tpu_torch.crypto import bls12381
     from cometbft_tpu_torch.crypto.pipeline import DEFAULT_TILE, tile_plan
@@ -983,7 +1030,7 @@ def _config5_phases(seed, card, make, stamps, block_id):
          f"{AGG_MESSAGES} hashes to G2, {AGG_MESSAGES + 1} Miller loops, "
          f"one final exponentiation); a wrong message rejected")
     _log(f"card: {card}")
-    return grouped_launches, grouped_b2, (svals, scommit)
+    return grouped_launches, grouped_b2, (svals, scommit), (avals, secret)
 
 
 # -- phase 9: the vote tally ---------------------------------------------------
@@ -1079,10 +1126,10 @@ def _timed(module, name):
     real = getattr(module, name)
     seconds = []
 
-    def timed(*a):
+    def timed(*a, **kw):
         t = time.perf_counter()
         try:
-            return real(*a)
+            return real(*a, **kw)
         finally:
             seconds.append(time.perf_counter() - t)
 
@@ -1550,6 +1597,770 @@ def _vote_phases(seed, card, vals, commit, slot, data, mixed_small):
          f"card: {card}")
     _clear_memos()
     return launches
+
+
+
+# -- phase 10: the light client ------------------------------------------------
+
+_FB = {"table": None, "keys": {}}
+
+
+def _fb_table():
+    """B·d·256^w for w < 32, d < 256 as (y - x, y + x, 2d·x·y), affine:
+    the fixed-base table of the fast signer (built once a process)."""
+    if _FB["table"] is None:
+        from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+        p, d2 = ref.P, 2 * ref.D % ref.P
+        table, base = [], ref._ext(ref.B)
+        for _ in range(32):
+            row, acc = [None], (0, 1, 1, 0)
+            for _ in range(255):
+                acc = ref._ext_add(acc, base)
+                zi = pow(acc[2], -1, p)
+                x, y = acc[0] * zi % p, acc[1] * zi % p
+                row.append(((y - x) % p, (y + x) % p, d2 * x * y % p))
+            table.append(row)
+            base = ref._ext_add(acc, base)
+        _FB["table"] = table
+    return _FB["table"]
+
+
+def _fb_mult(k: int) -> bytes:
+    """compress(k·B) by 32 mixed additions from the table (the same
+    unified formula as the golden model's _ext_add with Z2 = 1)."""
+    from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    p, table = ref.P, _fb_table()
+    x1, y1, z1, t1 = 0, 1, 1, 0
+    for w, digit in enumerate(k.to_bytes(32, "little")):
+        if digit:
+            ymx, ypx, t2d = table[w][digit]
+            a = (y1 - x1) * ymx % p
+            b = (y1 + x1) * ypx % p
+            c = t1 * t2d % p
+            d = 2 * z1
+            e, f, g, h = b - a, d - c, d + c, b + a
+            x1, y1, z1, t1 = e * f % p, g * h % p, f * g % p, e * h % p
+    zi = pow(z1, -1, p)                 # the golden model's inverse, faster
+    return ref.compress((x1 * zi % p, y1 * zi % p))
+
+
+def _fast_key(seed: bytes):
+    key = _FB["keys"].get(seed)
+    if key is None:
+        from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+        a, prefix = ref.secret_expand(seed)
+        key = _FB["keys"][seed] = (a, prefix, _fb_mult(a))
+    return key
+
+
+def _fast_pub_job(seed: bytes) -> bytes:
+    """Worker: seed -> the golden model's public key, by the table."""
+    return _fast_key(seed)[2]
+
+
+def _fast_sign_job(job) -> bytes:
+    """Worker: (seed, msg) -> the golden model's signature (RFC 8032
+    deterministic, so byte-equal to _ed25519_ref.sign), by the table."""
+    from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    seed, msg = job
+    a, prefix, pub = _fast_key(seed)
+    r = ref.sha512_mod_l(prefix, msg)
+    rb = _fb_mult(r)
+    s = (r + ref.sha512_mod_l(rb, pub, msg) * a) % ref.L
+    return rb + s.to_bytes(32, "little")
+
+
+class _Signer:
+    """Signs (seed, msg) jobs with the fast signer, in a pool of worker
+    processes or, with ``pool=None``, in this one; counts what it
+    signed."""
+
+    def __init__(self, pool=None):
+        self.pool = pool
+        self.signed = 0
+        self.seconds = 0.0
+
+    def _map(self, fn, jobs):
+        t0 = time.perf_counter()
+        out = (self.pool.map(fn, jobs, chunksize=32) if self.pool and
+               len(jobs) > 64 else [fn(j) for j in jobs])
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def pubs(self, seeds):
+        return self._map(_fast_pub_job, seeds)
+
+    def sign(self, jobs):
+        self.signed += len(jobs)
+        return self._map(_fast_sign_job, jobs)
+
+
+def _light_header(chain_id, h, vals, next_vals, last_block_id,
+                  app=b"app", t0=LIGHT_T0):
+    from cometbft_tpu_torch.types.block import Header
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    return Header(chain_id=chain_id, height=h, time=Timestamp(t0 + h, 0),
+                  last_block_id=last_block_id,
+                  validators_hash=vals.hash(),
+                  next_validators_hash=next_vals.hash(),
+                  app_hash=hashlib.sha256(b"%s/%d" % (app, h)).digest(),
+                  proposer_address=vals.get_proposer().address)
+
+
+def _block_id(header):
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.part_set import PartSetHeader
+    return BlockID(header.hash(), PartSetHeader(
+        1, hashlib.sha256(b"parts/%d" % header.height).digest()))
+
+
+def _signed_light_block(header, vals, seed_of, signer, signers=None):
+    """The LightBlock of header whose commit is signed by vals'
+    validators (every one, or the indices in ``signers``; the others
+    absent), each precommit at header time + (index + 1) ns."""
+    from cometbft_tpu_torch.types.block import LightBlock, SignedHeader
+    from cometbft_tpu_torch.types.canonical import (
+        PRECOMMIT_TYPE, vote_sign_bytes_template)
+    from cometbft_tpu_torch.types.commit import Commit, CommitSig
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import BLOCK_ID_FLAG_COMMIT
+    h, bid = header.height, _block_id(header)
+    make = vote_sign_bytes_template(header.chain_id, PRECOMMIT_TYPE, h, 0,
+                                    bid)
+    idx = list(range(vals.size())) if signers is None else sorted(signers)
+    stamps = {i: Timestamp(header.time.seconds, i + 1) for i in idx}
+    sigs = signer.sign([(seed_of[vals.validators[i].address],
+                         make(stamps[i])) for i in idx])
+    slots = [CommitSig.absent() for _ in range(vals.size())]
+    for i, sig in zip(idx, sigs):
+        slots[i] = CommitSig(BLOCK_ID_FLAG_COMMIT, vals.validators[i].address,
+                             stamps[i], sig)
+    return LightBlock(SignedHeader(header, Commit(h, 0, bid, slots)), vals)
+
+
+class _LightChain:
+    """Headers 1..top of ``chain_id``: header h carries the hash of
+    ``vals_of(h)`` and of ``vals_of(h + 1)`` and the block id of h - 1.
+    A height's commit is signed on its first fetch and kept."""
+
+    def __init__(self, chain_id, top, vals_of, seed_of, signer):
+        from cometbft_tpu_torch.types.block_id import BlockID
+        self.chain_id, self.top = chain_id, top
+        self.vals_of, self.seed_of, self.signer = vals_of, seed_of, signer
+        self.headers, prev = {}, BlockID()
+        for h in range(1, top + 1):
+            hdr = _light_header(chain_id, h, vals_of(h), vals_of(h + 1), prev)
+            self.headers[h] = hdr
+            prev = _block_id(hdr)
+        self._blocks = {}
+
+    def light_block(self, h):
+        lb = self._blocks.get(h)
+        if lb is None:
+            lb = self._blocks[h] = _signed_light_block(
+                self.headers[h], self.vals_of(h), self.seed_of, self.signer)
+        return lb
+
+    @classmethod
+    def rotating(cls, chain_id, n, top, every, rotate, seed_base, signer):
+        """Equal-power ed25519 validators; every ``every`` heights the
+        ``rotate`` oldest leave and as many new keys join, through
+        ValidatorSet.update_with_change_set, and the new set's proposer
+        priorities move on by one, as a node's state does."""
+        from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
+        from cometbft_tpu_torch.types.validator import Validator
+        from cometbft_tpu_torch.types.validator_set import ValidatorSet
+        epochs = top // every + 1          # the next set of the top height
+        seeds = [_seed(seed_base, j) for j in range(n + rotate * (epochs - 1))]
+        vals = [Validator.new(Ed25519PubKey(pub), LIGHT_POWER)
+                for pub in signer.pubs(seeds)]
+        sets = [ValidatorSet(vals[:n])]
+        for k in range(1, epochs):
+            nxt = sets[-1].copy()
+            nxt.update_with_change_set(
+                [Validator(v.address, v.pub_key, 0)
+                 for v in vals[(k - 1) * rotate:k * rotate]] +
+                vals[n + (k - 1) * rotate:n + k * rotate])
+            sets.append(nxt.copy_increment_proposer_priority(1))
+        chain = cls(chain_id, top, lambda h: sets[(h - 1) // every],
+                    {v.address: s for v, s in zip(vals, seeds)}, signer)
+        chain.sets = sets
+        return chain
+
+
+def _chain_provider(chain, name, forks=None):
+    """A Provider over ``chain`` recording the heights asked of it and
+    the evidence reported to it; ``forks`` {height: LightBlock} replaces
+    the chain's blocks at those heights."""
+    from cometbft_tpu_torch.light.provider import (
+        LightBlockNotFoundError, Provider)
+
+    class ChainProvider(Provider):
+        def __init__(self):
+            self.requests, self.evidence = [], []
+
+        async def light_block(self, height):
+            self.requests.append(height)
+            height = height or chain.top
+            if forks and height in forks:
+                return forks[height]
+            if not 1 <= height <= chain.top:
+                raise LightBlockNotFoundError(
+                    f"no light block at height {height}")
+            return chain.light_block(height)
+
+        async def report_evidence(self, ev):
+            self.evidence.append(ev)
+
+        def id(self):
+            return name
+
+    return ChainProvider()
+
+
+def _trusts(chain, a, b):
+    """Whether a hop from height a to height b passes on an honest chain
+    whose every commit is signed by its whole set: adjacent, or the
+    validators of a's set that are in b's set hold more than a third of
+    a's power (verify_commit_light_trusting at trust level 1/3)."""
+    if b == a + 1:
+        return True
+    old, new = chain.vals_of(a), chain.vals_of(b)
+    power = sum(v.voting_power for v in old.validators
+                if new.has_address(v.address))
+    return power > old.total_voting_power() // 3
+
+
+def _skipping_plan(chain, root, target):
+    """What the skipping algorithm of the JAX package's light client
+    (cometbft_tpu/light/client.py:203-240) fetches and stores syncing
+    ``chain`` from ``root`` to ``target``: (fetched heights after the
+    root, stored heights, hops tried, hops refused for lack of trust)."""
+    verified, pivots, fetched, stored = root, [target], [target], [root]
+    tried = refused = 0
+    while pivots:
+        candidate = pivots[-1]
+        tried += 1
+        if _trusts(chain, verified, candidate):
+            stored.append(candidate)
+            verified = pivots.pop()
+            continue
+        refused += 1
+        pivot = (verified + candidate) // 2
+        pivots.append(pivot)
+        fetched.append(pivot)
+    return fetched, sorted(stored), tried, refused
+
+
+@contextlib.contextmanager
+def _hop_log(client_mod, verifier):
+    """Time each hop the light client tries (light/client.verify) and
+    count the hops refused for lack of trust; yields the record."""
+    real = client_mod.verify
+    rec = {"ms": [], "refused": 0}
+
+    def hop(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        except verifier.NewValSetCantBeTrustedError:
+            rec["refused"] += 1
+            raise
+        finally:
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+
+    client_mod.verify = hop
+    try:
+        yield rec
+    finally:
+        client_mod.verify = real
+
+
+@contextlib.contextmanager
+def _launch_log(kernel_module):
+    """The bucket (padded lanes) of each launch of the kernel module's
+    wrapper while the block runs; the wrapper's own count decides what
+    was a launch."""
+    real = kernel_module.verify_cols
+    buckets = []
+
+    def logged(*a):
+        before = kernel_module.launches
+        out = real(*a)
+        if kernel_module.launches != before:
+            buckets.append(int(a[0].shape[1]))
+        return out
+
+    kernel_module.verify_cols = logged
+    try:
+        yield buckets
+    finally:
+        kernel_module.verify_cols = real
+
+
+@contextlib.contextmanager
+def _async_timed(cls, name):
+    """Time each await of the coroutine method cls.<name>; yields the
+    list of seconds."""
+    real = getattr(cls, name)
+    seconds = []
+
+    async def timed(self, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return await real(self, *a, **kw)
+        finally:
+            seconds.append(time.perf_counter() - t)
+
+    setattr(cls, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(cls, name, real)
+
+
+def _light_client(chain, root, primary, witnesses, db, mode="skipping",
+                  period_ns=LIGHT_TRUSTING_PERIOD_NS):
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.store import TrustedStore
+    return Client(chain.chain_id,
+                  TrustOptions(period_ns, root, chain.headers[root].hash()),
+                  primary, witnesses, TrustedStore(db),
+                  verification_mode=mode, max_clock_drift_ns=LIGHT_DRIFT_NS)
+
+
+def _sync(chain, root, target, now, db=None, witnesses=2, mode="skipping",
+          on_start=None):
+    """Initialize a client at ``root`` over a fresh store and sync it to
+    ``target`` (``on_start()`` runs between the two); returns (client,
+    primary, witnesses, sync ms)."""
+    from cometbft_tpu_torch.db import MemDB
+    primary = _chain_provider(chain, "primary")
+    wits = [_chain_provider(chain, f"witness-{i}") for i in range(witnesses)]
+    client = _light_client(chain, root, primary, wits,
+                           db if db is not None else MemDB(), mode)
+    asyncio.run(client.initialize(now=now))
+    if on_start is not None:
+        on_start()
+    t0 = time.perf_counter()
+    lb = asyncio.run(client.verify_to_height(target, now=now))
+    ms = (time.perf_counter() - t0) * 1e3
+    if lb.height != target or lb.hash() != chain.headers[target].hash():
+        raise AssertionError(f"the sync ended at {lb.height}, not {target}")
+    return client, primary, wits, ms
+
+
+def _sync_split(run):
+    """The parts of one sync (ms) from the spans and timers of run."""
+    batch = [ev for ev in run["spans"] if ev["name"] == "batch_verify"]
+    return {
+        "walk": sum(run["walks"]) * 1e3,
+        "batch_verify": sum(ev["dur_ns"] for ev in batch) / 1e6,
+        "store_encode": sum(run["encode"]) * 1e3,
+        "store_decode": sum(run["decode"]) * 1e3,
+        "witness_check": sum(run["detect"]) * 1e3,
+        "lanes": [ev["attrs"]["batch"] for ev in batch],
+    }
+
+
+def _bls_hop(agg_set, now, card):
+    """10c's aggregate hop: a root and a target 10 heights on, both over
+    8d's BLS set and each carrying one aggregate signature of every
+    validator; the trusting check takes the signer_vals arm.  No kernel
+    runs."""
+    from cometbft_tpu_torch.crypto import bls12381
+    from cometbft_tpu_torch.libs.bits import BitArray
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.types.block import LightBlock, SignedHeader
+    from cometbft_tpu_torch.types.commit import AggregateCommit
+    avals, secret = agg_set
+    na = avals.size()
+    _phase(f"10c light-hop-bls-10k: one hop to an aggregate commit over "
+           f"{na} BLS validators")
+    priv = bls12381.Bls12381PrivKey(
+        (sum(secret.values()) % bls12381.R_ORDER).to_bytes(32, "big"))
+    chain = _LightChain("light-bls", 11, lambda h: avals, {}, None)
+    for h in (1, 11):
+        hdr = chain.headers[h]
+        agg = AggregateCommit(height=h, round=0, block_id=_block_id(hdr),
+                              signers=BitArray.from_indices(na, range(na)))
+        agg.signature = priv.sign(agg.vote_sign_bytes(chain.chain_id))
+        chain._blocks[h] = LightBlock(SignedHeader(hdr, agg), avals)
+    validation.reset_aggregate_caches()
+    ek.launches = 0
+    with _timed(validation, "_verify_aggregate_commit") as pairing:
+        client, _, _, ms = _sync(chain, 1, 11, now, witnesses=0)
+    if ek.launches or client.store.heights() != [1, 11] or \
+            len(pairing) != 2:
+        raise AssertionError(f"the aggregate hop launched B1 {ek.launches}"
+                             f" times, stored {client.store.heights()}")
+    _log(f"light_hop_bls_10k ms {ms:.1f} (the root decoded from the store "
+         f"with its {na} keys checked, the trusting check through "
+         f"signer_vals and the 2/3 check: {sum(pairing) * 1e3:.1f} ms in "
+         f"the two aggregate verifications); 0 launches; card: {card}")
+
+
+def _light_phases(seed, card, pool, keys10k, vals10k, agg_set=None):
+    """Phases 10a-10d: the light client (light/verifier, light/store,
+    light/client over the port's db) on B1, and with ``agg_set`` (8d's
+    BLS set and secrets) one hop to an aggregate commit.  Returns B1's
+    launches by part and B2's on the cuda8 hop."""
+    import tempfile
+
+    from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
+    from cometbft_tpu_torch.db import MemDB, SQLiteDB
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.light import client as client_mod
+    from cometbft_tpu_torch.light import store as store_mod
+    from cometbft_tpu_torch.light import verifier
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    from cometbft_tpu_torch.types import signature_cache, validation
+    from cometbft_tpu_torch.types.block import LightBlock, SignedHeader
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator
+    from cometbft_tpu_torch.types.validator_set import ValidatorSet
+    from cometbft_tpu_torch.wire import encode, pb
+
+    t_phase = time.perf_counter()
+    signer = _Signer(pool)
+    launches, launches8 = {}, {}
+    # the fast signer is the golden model's arithmetic on a table
+    probe = [(_seed(seed + 60, i), b"light %d " % i * (i * 37)) for i in
+             range(3)] + [(_seed(seed + 60, i % 3), b"pool %d" % i)
+                          for i in range(97)]
+    fast = signer.sign(probe)
+    signer.signed = 0
+    if [_fast_pub_job(s) for s, _ in probe[:3]] != \
+            [ref.public_key(s) for s, _ in probe[:3]] or \
+            [fast[i] for i in (0, 1, 2, 50, 96)] != \
+            [ref.sign(*probe[i]) for i in (0, 1, 2, 50, 96)]:
+        raise AssertionError("the fast signer != the golden model")
+
+    # -- 10a. light-skip-1k ------------------------------------------------
+    n, top = LIGHT_VALIDATORS, LIGHT_HEIGHTS
+    _phase(f"10a light-skip-1k: BASELINE config 3 at {n} validators, then a "
+           f"skipping sync over {top} heights rotating {LIGHT_ROTATE} of "
+           f"{n} every {LIGHT_EVERY}")
+    t0 = time.perf_counter()
+    chain = _LightChain.rotating(LIGHT_CHAIN_ID, n, top, LIGHT_EVERY,
+                                 LIGHT_ROTATE, seed + 70, signer)
+    build_s = time.perf_counter() - t0
+    for k, vs in enumerate(chain.sets[1:], 1):
+        fresh = ValidatorSet([Validator(v.address, v.pub_key, v.voting_power)
+                              for v in vs.validators])
+        if fresh.hash() != vs.hash() or \
+                [v.address for v in fresh.validators] != \
+                [v.address for v in vs.validators]:
+            raise AssertionError(f"set {k} after update_with_change_set != "
+                                 f"the same members built from scratch")
+    _log(f"chain of {top} headers over {len(chain.sets)} sets "
+         f"({len(chain.seed_of)} keys) built in {build_s:.1f} s; every "
+         f"rotated set == its members built from scratch (hash, order)")
+
+    # config 3 exactly as the JAX package runs it: no cache across hops
+    root = chain.light_block(1)
+    hops = [chain.light_block(h) for h in CONFIG3_HOPS]
+    vs0, now3 = chain.vals_of(1), Timestamp(LIGHT_T0 + 600, 0)
+
+    def config3():
+        for lb in hops:
+            verifier.verify(root.signed_header, vs0, lb.signed_header, vs0,
+                            CONFIG3_PERIOD_NS, now3, CONFIG3_DRIFT_NS,
+                            verifier.DEFAULT_TRUST_LEVEL)
+
+    config3_ms = []
+    for _ in range(6):
+        ek.launches = 0
+        with _launch_log(ek) as buckets:
+            t0 = time.perf_counter()
+            config3()
+            config3_ms.append((time.perf_counter() - t0) * 1e3 / len(hops))
+        if ek.launches != 2 * len(hops):
+            raise AssertionError(f"config 3 launched B1 {ek.launches} "
+                                 f"times, expected {2 * len(hops)}")
+    launches["light_config3"] = 2 * len(hops)
+    _log(f"light_skipping_verify_ms_per_hop first {config3_ms[0]:.2f}, "
+         f"then {_p50_p90(config3_ms[1:])} over {len(config3_ms) - 1} runs "
+         f"of {len(hops)} hops (1 -> {', '.join(map(str, CONFIG3_HOPS))}); "
+         f"B1 launches a hop 2 (trusting, then 2/3), buckets {buckets[:2]}; "
+         f"card: {card}")
+
+    # the sync: cold first (the providers sign what the client fetches)
+    now = Timestamp(LIGHT_T0 + top + 5, 0)
+    fetched, stored, tried, refused = _skipping_plan(chain, 1, top)
+    signed0, sign_s0 = signer.signed, signer.seconds
+    client, primary, wits, cold_ms = _sync(chain, 1, top, now)
+    if client.store.heights() != stored:
+        raise AssertionError(f"stored {client.store.heights()}, the JAX "
+                             f"client's algorithm stores {stored}")
+    if primary.requests != [1] + fetched or \
+            any(w.requests != [top] for w in wits):
+        raise AssertionError(f"fetched {primary.requests} / "
+                             f"{[w.requests for w in wits]}, expected "
+                             f"{[1] + fetched}")
+    _log(f"cold sync 1 -> {top}: {cold_ms:.1f} ms, of which signing "
+         f"{signer.signed - signed0} signatures for the fetched heights "
+         f"{signer.seconds - sign_s0:.2f} s; stored heights {stored} == "
+         f"the JAX client's algorithm; primary fetched {primary.requests}")
+
+    runs = []
+    for _ in range(LIGHT_SYNC_RUNS):
+        hits0 = signature_cache._HITS.value
+        ek.launches = 0
+        tracing.clear()
+        with _hop_log(client_mod, verifier) as hop_rec, \
+                _launch_log(ek) as buckets, \
+                _timed(validation, "_walk_commit") as walks, \
+                _timed(store_mod.TrustedStore, "save_light_block") as enc, \
+                _timed(store_mod, "_light_block") as dec, \
+                _async_timed(client_mod.Client, "_detect_divergence") as det, \
+                _gc_pauses() as gc_rec:
+            client, primary, wits, ms = _sync(
+                chain, 1, top, now, on_start=lambda: [
+                    rec.clear() for rec in (walks, enc, dec, det)])
+        if client.store.heights() != stored:
+            raise AssertionError("a warm sync stored other heights")
+        runs.append({"ms": ms, "launches": ek.launches, "buckets": buckets,
+                     "hops": hop_rec, "hits": signature_cache._HITS.value -
+                     hits0, "walks": walks, "encode": enc, "decode": dec,
+                     "detect": det, "gc": gc_rec,
+                     "spans": tracing.snapshot(category=tracing.CRYPTO)})
+    last = runs[-1]
+    split = _sync_split(last)
+    if len(last["hops"]["ms"]) != tried or last["hops"]["refused"] != \
+            refused or last["launches"] != len(split["lanes"]):
+        raise AssertionError(
+            f"hops {len(last['hops']['ms'])} tried / "
+            f"{last['hops']['refused']} refused, launches "
+            f"{last['launches']} for {len(split['lanes'])} batches; the "
+            f"plan says {tried} / {refused}")
+    launches["light_sync_1k"] = last["launches"]
+    hop_ms = [x for r in runs for x in r["hops"]["ms"]]
+    sync_ms = ", ".join(f"{r['ms']:.1f}" for r in runs)
+    rest_ms = last["ms"] - sum(split[k] for k in (
+        "walk", "batch_verify", "store_encode", "store_decode",
+        "witness_check"))
+    _log(f"light_sync_1k ms {sync_ms} "
+         f"({LIGHT_SYNC_RUNS} warm syncs 1 -> {top}, MemDB, 2 honest "
+         f"witnesses); hops tried {tried}, accepted {tried - refused}, "
+         f"refused for lack of trust {refused}; heights fetched "
+         f"{len(fetched)} + the root; B1 launches {last['launches']} with "
+         f"lanes {split['lanes']} in buckets {last['buckets']}; cache hits "
+         f"{last['hits']:.0f}; hop ms {_p50_p90(hop_ms)} over "
+         f"{len(hop_ms)} hops; card: {card}")
+    _log(f"light_sync_1k split (last run, ms): commit walks "
+         f"{split['walk']:.1f}, batch_verify spans "
+         f"{split['batch_verify']:.1f}, store encode "
+         f"{split['store_encode']:.1f} ({len(last['encode'])} saves), "
+         f"store decode {split['store_decode']:.1f} "
+         f"({len(last['decode'])} reads), witnesses' cross-check "
+         f"{split['witness_check']:.1f}, the rest {rest_ms:.1f} of "
+         f"{last['ms']:.1f}; gc per run: "
+         f"{'; '.join(_gc_line(r['gc']) for r in runs)}")
+    window_ms, busy_ms, kernel_ms, events = _device_busy(
+        lambda: _sync(chain, 1, top, now))
+    if busy_ms is None:
+        _log(f"profiled sync {window_ms:.1f} ms: the profiler saw no device "
+             f"event (device idle share not measured)")
+    else:
+        _log(f"profiled sync {window_ms:.1f} ms: device busy {busy_ms:.3f} "
+             f"ms ({events} events), B1 {kernel_ms:.3f} ms, idle share "
+             f"{1 - busy_ms / window_ms:.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        db = SQLiteDB(os.path.join(tmp, "light.db"))
+        client, _, _, sqlite_ms = _sync(chain, 1, top, now, db=db)
+        if client.store.heights() != stored:
+            raise AssertionError("the SQLite sync stored other heights")
+        db.close()
+    _log(f"light_sync_1k on SQLiteDB (WAL, a temporary directory): "
+         f"{sqlite_ms:.1f} ms, the same stored heights; card: {card}")
+
+    # -- 10b. light-seq-1k -------------------------------------------------
+    lo, hi = LIGHT_SEQ_ROOT, LIGHT_SEQ_TARGET
+    _phase(f"10b light-seq-1k: sequential {lo} -> {hi}, across the rotation "
+           f"at {LIGHT_EVERY + 1}")
+    _sync(chain, lo, hi, now, mode="sequential")      # signs the heights
+    ek.launches = 0
+    with _launch_log(ek) as buckets:
+        client, primary, _, seq_ms = _sync(chain, lo, hi, now,
+                                           mode="sequential")
+    if client.store.heights() != list(range(lo, hi + 1)) or \
+            ek.launches != hi - lo:
+        raise AssertionError(f"sequential sync stored "
+                             f"{client.store.heights()} with {ek.launches} "
+                             f"launches")
+    launches["light_seq_1k"] = ek.launches
+    _log(f"light_seq_1k ms a height {seq_ms / (hi - lo):.2f} ({seq_ms:.1f} "
+         f"ms for {hi - lo} heights, one 2/3 check each); B1 launches "
+         f"{ek.launches}, buckets {sorted(set(buckets))}; card: {card}")
+
+    # -- 10c. light-hop-10k ------------------------------------------------
+    n10 = vals10k.size()
+    _phase(f"10c light-hop-10k: one non-adjacent hop over {n10} validators, "
+           f"{n10 // HOP10K_REPLACE_EVERY} replaced")
+    seed_of = {pk.address(): _seed(seed, j) for j, pk in enumerate(keys10k)}
+    gone = [pk for j, pk in enumerate(keys10k)
+            if j % HOP10K_REPLACE_EVERY == 0]
+    new_seeds = [_seed(seed + 80, j) for j in range(len(gone))]
+    new_keys = [Ed25519PubKey(p) for p in signer.pubs(new_seeds)]
+    seed_of.update((pk.address(), s) for pk, s in zip(new_keys, new_seeds))
+    target_set = vals10k.copy()
+    target_set.update_with_change_set(
+        [Validator(pk.address(), pk, 0) for pk in gone] +
+        [Validator.new(pk, 10) for pk in new_keys])
+    target_set = target_set.copy_increment_proposer_priority(1)
+    chain10 = _LightChain("light-10k", 11,
+                          lambda h: vals10k if h < 11 else target_set,
+                          seed_of, signer)
+    now10 = Timestamp(LIGHT_T0 + 20, 0)
+    t0 = time.perf_counter()
+    _sync(chain10, 1, 11, now10, witnesses=0)      # signs both heights
+    cold10_ms = (time.perf_counter() - t0) * 1e3
+    ek.launches = 0
+    tracing.clear()
+    with _launch_log(ek) as buckets:
+        client10, _, _, hop10_ms = _sync(chain10, 1, 11, now10, witnesses=0)
+    lanes10 = [ev["attrs"]["batch"] for ev in
+               tracing.snapshot(category=tracing.CRYPTO)
+               if ev["name"] == "batch_verify"]
+    if ek.launches != 2 or client10.store.heights() != [1, 11]:
+        raise AssertionError(f"the 10k hop launched B1 {ek.launches} times "
+                             f"and stored {client10.store.heights()}")
+    launches["light_hop_10k"] = ek.launches
+    os.environ[oe.KERNEL_ENV] = "cuda8"
+    try:
+        ek.launches = ek8.launches = 0
+        client8, _, _, hop10_8_ms = _sync(chain10, 1, 11, now10, witnesses=0)
+        if (ek8.launches, ek.launches) != (2, 0):
+            raise AssertionError(f"cuda8 hop launched B2 {ek8.launches} and "
+                                 f"B1 {ek.launches} times")
+    finally:
+        os.environ.pop(oe.KERNEL_ENV, None)
+    launches8["light_hop_10k_cuda8"] = 2
+
+    def stored_bytes(c):
+        return [encode(pb.LIGHT_BLOCK, c.store.light_block(h).to_proto())
+                for h in c.store.heights()]
+
+    if stored_bytes(client8) != stored_bytes(client10):
+        raise AssertionError("the cuda8 hop stored other bytes")
+    _log(f"light_hop_10k ms {hop10_ms:.1f} (initialize excluded; cold with "
+         f"signing {cold10_ms:.0f} ms); B1 launches "
+         f"{launches['light_hop_10k']} with lanes {lanes10} in buckets "
+         f"{buckets}; under cuda8 "
+         f"{hop10_8_ms:.1f} ms with 2 B2 launches, 0 B1, the same store "
+         f"byte for byte; card: {card}")
+
+    if agg_set is not None:
+        _bls_hop(agg_set, now10, card)
+
+    # -- 10d. light-reject-1k ----------------------------------------------
+    _phase("10d light-reject-1k: a corrupted signature, an expired root, "
+           "clock drift, a lunatic witness, backwards verification")
+    ek.launches = 0
+    target = chain.light_block(50)
+    bad = _corrupted(target.signed_header.commit, [7])
+    primary = _chain_provider(chain, "primary", forks={50: LightBlock(
+        SignedHeader(target.signed_header.header, bad), target.validator_set)})
+    client = _light_client(chain, 1, primary, [], MemDB())
+    asyncio.run(client.initialize(now=now))
+    # the texts the JAX package raises (cometbft_tpu/types/validation.py
+    # "wrong signature (#%d): %X", light/verifier.py:113, :66)
+    text = f"wrong signature (#7): {bad.signatures[7].signature.hex().upper()}"
+    _expect_rejection(lambda: asyncio.run(client.verify_to_height(
+        50, now=now)), verifier.InvalidHeaderError, text)
+    if client.store.heights() != [1] or ek.launches != 1:
+        raise AssertionError(f"corrupted target: stored "
+                             f"{client.store.heights()}, {ek.launches} "
+                             f"launches")
+    _log(f"corrupted #7 at height 50: InvalidHeaderError {text[:34]}...; "
+         f"nothing stored; 1 B1 launch (the trusting batch)")
+    reject_launches = ek.launches
+
+    late = root.signed_header.header.time.add_ns(LIGHT_TRUSTING_PERIOD_NS + 1)
+    client = _light_client(chain, 1, _chain_provider(chain, "primary"), [],
+                           MemDB())
+    asyncio.run(client.initialize(now=now))
+    _expect_rejection(lambda: asyncio.run(client.verify_to_height(
+        41, now=late)), verifier.OldHeaderExpiredError,
+        "trusted header expired")
+    expired_at = root.signed_header.header.time.add_ns(
+        LIGHT_TRUSTING_PERIOD_NS)
+    _expect_rejection(lambda: asyncio.run(client.verify_to_height(
+        2, now=late)), verifier.OldHeaderExpiredError,
+        f"trusted header expired at {expired_at}")
+    early = Timestamp(LIGHT_T0 + 41 - LIGHT_DRIFT_NS // 10**9, 0)
+    _expect_rejection(lambda: asyncio.run(client.verify_to_height(
+        41, now=early)), verifier.InvalidHeaderError,
+        "header time exceeds max clock drift")
+    if client.store.heights() != [1] or ek.launches != reject_launches:
+        raise AssertionError("an expired or drifting header was stored or "
+                             "launched B1")
+    _log(f"expired root (hop and adjacent): OldHeaderExpiredError 'trusted "
+         f"header expired' / 'trusted header expired at {expired_at}'; "
+         f"height 41 at now = its time - {LIGHT_DRIFT_NS // 10**9} s: "
+         f"InvalidHeaderError 'header time exceeds max clock drift'; "
+         f"nothing stored, no launch")
+
+    honest = chain.light_block(FORK_HEIGHT)
+    hdr = honest.signed_header.header
+    fork_header = _light_header(
+        chain.chain_id, FORK_HEIGHT, chain.vals_of(FORK_HEIGHT),
+        chain.vals_of(FORK_HEIGHT + 1), hdr.last_block_id, app=b"lunatic")
+    signers = [i for i in range(n) if i % 10 < FORK_SIGNERS * 10 // n]
+    fork = _signed_light_block(fork_header, chain.vals_of(FORK_HEIGHT),
+                               chain.seed_of, signer, signers=signers)
+    fork.validate_basic(chain.chain_id)
+    primary = _chain_provider(chain, "primary")
+    wits = [_chain_provider(chain, "witness-0"),
+            _chain_provider(chain, "witness-1", forks={FORK_HEIGHT: fork})]
+    client = _light_client(chain, 1, primary, list(wits), MemDB())
+    asyncio.run(client.initialize(now=now))
+    ek.launches = 0
+    _expect_rejection(lambda: asyncio.run(client.verify_to_height(
+        FORK_HEIGHT, now=now)), client_mod.DivergenceError,
+        "witness witness-1 diverges from primary")
+    ev = primary.evidence[0] if len(primary.evidence) == 1 else None
+    want = sorted((chain.vals_of(FORK_HEIGHT).validators[i] for i in signers),
+                  key=lambda v: (-v.voting_power, v.address))
+    if ev is None or wits[1].evidence != [ev] or wits[0].evidence or \
+            client.witnesses != [wits[0]] or \
+            [v.address for v in ev.byzantine_validators] != \
+            [v.address for v in want] or ev.common_height != 1 or \
+            ev.total_voting_power != n * LIGHT_POWER or \
+            client.store.heights() != [1, FORK_HEIGHT] or ek.launches != 2:
+        raise AssertionError("the lunatic witness was not handled as the "
+                             "JAX client handles it")
+    ev.validate_basic()
+    launches["light_fork"] = ek.launches
+    _log(f"lunatic witness at {FORK_HEIGHT} (app_hash differs, signed by "
+         f"{len(signers)} of the common set): DivergenceError; evidence "
+         f"{ev.hash().hex()[:16]} reported to the primary and the witness, "
+         f"common height 1, byzantine validators == the {len(signers)} "
+         f"signers; the witness dropped; {ek.launches} B1 launches")
+
+    client = _light_client(chain, BACKWARDS_ROOT,
+                           _chain_provider(chain, "primary"), [], MemDB())
+    asyncio.run(client.initialize(now=now))
+    ek.launches = 0
+    low = BACKWARDS_ROOT - BACKWARDS_DEPTH
+    t0 = time.perf_counter()
+    lb = asyncio.run(client.verify_light_block_at_height(low, now=now))
+    back_ms = (time.perf_counter() - t0) * 1e3
+    if lb.hash() != chain.headers[low].hash() or ek.launches or \
+            client.store.heights() != list(range(low, BACKWARDS_ROOT + 1)):
+        raise AssertionError("backwards verification went wrong")
+    _log(f"backwards {BACKWARDS_ROOT} -> {low} by hash links: "
+         f"{back_ms:.1f} ms with the providers' signing, 0 launches, "
+         f"{BACKWARDS_DEPTH + 1} heights stored; card: {card}")
+    launches["light_reject"] = reject_launches
+    _log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s, of which "
+         f"{signer.signed} signatures {signer.seconds:.1f} s")
+    return launches, launches8
 
 
 def main() -> int:
@@ -2125,11 +2936,16 @@ def main() -> int:
               f"{rec['per_op_us'] / MB_ROUNDS[op]:.4f}"
               if op in MB_ROUNDS else ""))
 
-    grouped_launches, grouped_b2, mixed_small = _config5_phases(
+    grouped_launches, grouped_b2, mixed_small, agg_set = _config5_phases(
         args.seed, card, make, stamps, block_id)
 
     vote_launches = _vote_phases(args.seed, card, vals, commit, slot,
                                  vote_data, mixed_small)
+
+    # phase 10 signs what its providers serve on first fetch, in a pool
+    with ctx.Pool(os.cpu_count() or 4) as pool:
+        light_launches, light_launches8 = _light_phases(
+            args.seed, card, pool, keys, vals, agg_set)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -2147,7 +2963,8 @@ def main() -> int:
         "launches_by_path": {"commit_10k": main_launches,
                              "config5_grouped": grouped_launches,
                              **{k: v for k, v in vote_launches.items()
-                                if k != "vote_burst_cuda8"}},
+                                if k != "vote_burst_cuda8"},
+                             **light_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -2173,7 +2990,8 @@ def main() -> int:
         "launches_by_path": {"commit_10k_cuda8": main8_launches,
                              "config5_grouped": grouped_b2,
                              "vote_burst_cuda8":
-                                 vote_launches["vote_burst_cuda8"]},
+                                 vote_launches["vote_burst_cuda8"],
+                             **light_launches8},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

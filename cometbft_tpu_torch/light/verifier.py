@@ -1,0 +1,192 @@
+"""Light-client header verification.
+
+Reference: light/verifier.go — VerifyAdjacent (valhash continuity and a
+2/3 commit, :92), VerifyNonAdjacent (1/3 trust on the old set, then 2/3
+on the new, :30) with one SignatureCache across the two checks
+(:55-57), trust-period expiry (:191) and VerifyBackwards, through
+cometbft_tpu/light/verifier.py:27-192, with the same error classes and
+texts.
+
+Both commit checks go through ``verify_commit_light*`` on ``device``
+(``None``: the card): with ed25519 keys each is one batch on B1, one
+launch a tile.  Only ``VerificationError`` (and its
+``NotEnoughVotingPowerError``) becomes a light-client error here; a
+kernel that fails to build or launch raises as itself, and nothing
+falls back to the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from ..types.block import SignedHeader
+from ..types.signature_cache import SignatureCache
+from ..types.timestamp import Timestamp
+from ..types.validation import (
+    Fraction, NotEnoughVotingPowerError, VerificationError,
+    verify_commit_light, verify_commit_light_trusting,
+)
+from ..types.validator_set import ValidatorSet
+
+DEFAULT_TRUST_LEVEL = Fraction(1, 3)
+
+
+class LightClientError(Exception):
+    pass
+
+
+class OldHeaderExpiredError(LightClientError):
+    pass
+
+
+class InvalidHeaderError(LightClientError):
+    pass
+
+
+class NewValSetCantBeTrustedError(LightClientError):
+    pass
+
+
+def validate_trust_level(lvl: Fraction) -> None:
+    """Allowed range [1/3, 1] (reference: ValidateTrustLevel)."""
+    if (lvl.numerator * 3 < lvl.denominator or
+            lvl.numerator > lvl.denominator or lvl.denominator == 0):
+        raise LightClientError(f"trust level must be in [1/3, 1]: {lvl}")
+
+
+def header_expired(h: SignedHeader, trusting_period_ns: int,
+                   now: Timestamp) -> bool:
+    expiration = h.header.time.add_ns(trusting_period_ns)
+    return expiration.unix_ns() <= now.unix_ns()
+
+
+def _verify_new_header_and_vals(
+        untrusted_header: SignedHeader, untrusted_vals: ValidatorSet,
+        trusted_header: SignedHeader, now: Timestamp,
+        max_clock_drift_ns: int) -> None:
+    untrusted_header.validate_basic(trusted_header.header.chain_id)
+    if untrusted_header.height <= trusted_header.height:
+        raise InvalidHeaderError(
+            f"header height not monotonic: got {untrusted_header.height},"
+            f" trusted {trusted_header.height}")
+    if untrusted_header.header.time.unix_ns() <= \
+            trusted_header.header.time.unix_ns():
+        raise InvalidHeaderError("header time not monotonic")
+    if untrusted_header.header.time.unix_ns() >= \
+            now.add_ns(max_clock_drift_ns).unix_ns():
+        raise InvalidHeaderError("header time exceeds max clock drift")
+    if untrusted_header.header.validators_hash != untrusted_vals.hash():
+        raise InvalidHeaderError(
+            "header validators hash does not match given validator set")
+
+
+def verify_adjacent(trusted_header: SignedHeader,
+                    untrusted_header: SignedHeader,
+                    untrusted_vals: ValidatorSet,
+                    trusting_period_ns: int, now: Timestamp,
+                    max_clock_drift_ns: int,
+                    cache: Optional[SignatureCache] = None,
+                    device=None) -> None:
+    """Reference: VerifyAdjacent (:92): one 2/3 check of the new set.
+    A caller's SignatureCache (one a sync, in light/client.py) lets a
+    signature already proved skip the batch."""
+    if untrusted_header.height != trusted_header.height + 1:
+        raise LightClientError("headers must be adjacent in height")
+    if header_expired(trusted_header, trusting_period_ns, now):
+        raise OldHeaderExpiredError(
+            f"trusted header expired at "
+            f"{trusted_header.header.time.add_ns(trusting_period_ns)}")
+    _verify_new_header_and_vals(untrusted_header, untrusted_vals,
+                                trusted_header, now, max_clock_drift_ns)
+    if untrusted_header.header.validators_hash != \
+            trusted_header.header.next_validators_hash:
+        raise InvalidHeaderError(
+            "header validators hash does not match trusted header's "
+            "next validators hash")
+    try:
+        verify_commit_light(
+            trusted_header.header.chain_id, untrusted_vals,
+            untrusted_header.commit.block_id, untrusted_header.height,
+            untrusted_header.commit, cache=cache, device=device)
+    except VerificationError as e:
+        raise InvalidHeaderError(str(e)) from e
+
+
+def verify_non_adjacent(trusted_header: SignedHeader,
+                        trusted_vals: ValidatorSet,
+                        untrusted_header: SignedHeader,
+                        untrusted_vals: ValidatorSet,
+                        trusting_period_ns: int, now: Timestamp,
+                        max_clock_drift_ns: int,
+                        trust_level: Fraction = DEFAULT_TRUST_LEVEL,
+                        cache: Optional[SignatureCache] = None,
+                        device=None) -> None:
+    """Reference: VerifyNonAdjacent (:30).  With no caller cache a
+    fresh one still spans the two checks, as the reference's does
+    (:55-57): the 2/3 check skips what the trusting check proved."""
+    if untrusted_header.height == trusted_header.height + 1:
+        raise LightClientError("headers must be non-adjacent in height")
+    if header_expired(trusted_header, trusting_period_ns, now):
+        raise OldHeaderExpiredError("trusted header expired")
+    _verify_new_header_and_vals(untrusted_header, untrusted_vals,
+                                trusted_header, now, max_clock_drift_ns)
+
+    if cache is None:
+        cache = SignatureCache()
+    # trust_level of the trusted set must have signed the new commit,
+    # looked up by address.  For an aggregate commit the signer bitmap
+    # indexes the NEW set (hash-checked above): it goes as signer_vals.
+    try:
+        verify_commit_light_trusting(
+            trusted_header.header.chain_id, trusted_vals,
+            untrusted_header.commit, trust_level, cache=cache,
+            signer_vals=untrusted_vals, device=device)
+    except NotEnoughVotingPowerError as e:
+        raise NewValSetCantBeTrustedError(str(e)) from e
+    except VerificationError as e:
+        # a wrong signature is an invalid header, not a trust-range
+        # miss: bisecting on it would never converge
+        raise InvalidHeaderError(str(e)) from e
+    # 2/3 of the new set must have signed — the LAST check, because an
+    # untrusted set can be made large to tie the client up
+    try:
+        verify_commit_light(
+            trusted_header.header.chain_id, untrusted_vals,
+            untrusted_header.commit.block_id, untrusted_header.height,
+            untrusted_header.commit, cache=cache, device=device)
+    except VerificationError as e:
+        raise InvalidHeaderError(str(e)) from e
+
+
+def verify(trusted_header: SignedHeader, trusted_vals: ValidatorSet,
+           untrusted_header: SignedHeader,
+           untrusted_vals: ValidatorSet, trusting_period_ns: int,
+           now: Timestamp, max_clock_drift_ns: int,
+           trust_level: Fraction = DEFAULT_TRUST_LEVEL,
+           cache: Optional[SignatureCache] = None, device=None) -> None:
+    """Reference: Verify (:130)."""
+    if untrusted_header.height != trusted_header.height + 1:
+        verify_non_adjacent(trusted_header, trusted_vals,
+                            untrusted_header, untrusted_vals,
+                            trusting_period_ns, now,
+                            max_clock_drift_ns, trust_level,
+                            cache=cache, device=device)
+    else:
+        verify_adjacent(trusted_header, untrusted_header,
+                        untrusted_vals, trusting_period_ns, now,
+                        max_clock_drift_ns, cache=cache, device=device)
+
+
+def verify_backwards(untrusted_header, trusted_header) -> None:
+    """Reference: VerifyBackwards — the untrusted header one height
+    below the trusted one, checked by its hash link alone."""
+    untrusted_header.validate_basic()
+    if untrusted_header.chain_id != trusted_header.chain_id:
+        raise InvalidHeaderError("header belongs to another chain")
+    if untrusted_header.time.unix_ns() >= \
+            trusted_header.time.unix_ns():
+        raise InvalidHeaderError(
+            "expected older header time to be before newer header time")
+    if untrusted_header.hash() != trusted_header.last_block_id.hash:
+        raise InvalidHeaderError(
+            "older header hash does not match trusted header's last "
+            "block id")

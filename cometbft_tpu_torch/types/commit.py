@@ -6,7 +6,8 @@ flag Absent/Commit/Nil), GetVote and VoteSignBytes reconstruction,
 ExtendedCommitSig / ExtendedCommit (the votes' extensions kept beside
 the commit) — through cometbft_tpu/types/commit.py (:111-126, :216-227,
 :375-514), and its :230-360 for AggregateCommit (one BLS signature and a
-signer bitmap).  Hashing and median time are not ported yet.
+signer bitmap).  ``Commit.validate_basic`` is ported for the light
+client's SignedHeader; hashing and median time are not ported yet.
 """
 from __future__ import annotations
 
@@ -143,6 +144,23 @@ class Commit:
                 self.round, cs.block_id(self.block_id))
             tmpls[key] = make
         return make(cs.timestamp)
+
+    def validate_basic(self) -> None:
+        """Reference: block.go Commit.ValidateBasic."""
+        if self.height < 0:
+            raise CommitError("negative Height")
+        if self.round < 0:
+            raise CommitError("negative Round")
+        if self.height >= 1:
+            if self.block_id.is_nil():
+                raise CommitError("commit cannot be for nil block")
+            if not self.signatures:
+                raise CommitError("no signatures in commit")
+            for i, cs in enumerate(self.signatures):
+                try:
+                    cs.validate_basic()
+                except CommitError as e:
+                    raise CommitError(f"wrong CommitSig #{i}: {e}") from e
 
     def to_proto(self) -> dict:
         d: dict = {"block_id": self.block_id.to_proto(),

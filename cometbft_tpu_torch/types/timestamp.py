@@ -8,6 +8,7 @@ vectors.
 """
 from __future__ import annotations
 
+import time as _time
 from typing import NamedTuple
 
 # Go time.Time{} (0001-01-01T00:00:00Z) as Unix seconds.
@@ -26,8 +27,22 @@ class Timestamp(NamedTuple):
         return self.seconds == _GO_ZERO_SECONDS and self.nanos == 0
 
     @classmethod
+    def now(cls) -> "Timestamp":
+        return cls.from_unix_ns(_time.time_ns())
+
+    @classmethod
     def from_unix_ns(cls, ns: int) -> "Timestamp":
         return cls(ns // 1_000_000_000, ns % 1_000_000_000)
+
+    def unix_ns(self) -> int:
+        return self.seconds * 1_000_000_000 + self.nanos
+
+    def add_ns(self, ns: int) -> "Timestamp":
+        return Timestamp.from_unix_ns(self.unix_ns() + ns)
+
+    def sub(self, other: "Timestamp") -> int:
+        """Difference in nanoseconds."""
+        return self.unix_ns() - other.unix_ns()
 
     def to_proto(self) -> dict:
         d: dict = {}

@@ -51,6 +51,14 @@ class Validator:
         return cls(address=pub_key.address(), pub_key=pub_key,
                    voting_power=voting_power, proposer_priority=0)
 
+    def validate_basic(self) -> None:
+        if self.pub_key is None:
+            raise ValidatorError("validator does not have a public key")
+        if self.voting_power < 0:
+            raise ValidatorError("validator has negative voting power")
+        if len(self.address) != 20:
+            raise ValidatorError("wrong validator address size")
+
     def copy(self) -> "Validator":
         return replace(self)
 

@@ -1,5 +1,6 @@
 """Message descriptors for votes and their canonical forms, commits
-(per-signature, aggregate and extended) and validator sets.
+(per-signature, aggregate and extended), validator sets, headers, signed
+headers, light blocks and evidence.
 
 The port's trimmed copy of cometbft_tpu/wire/pb.py (which mirrors the
 reference's proto/cometbft/**/*.proto).  Field numbers, kinds and
@@ -11,6 +12,17 @@ TIMESTAMP = Msg(
     "google.protobuf.Timestamp",
     F(1, "seconds", "int64"),
     F(2, "nanos", "int32"),
+)
+
+# wrapper types used by cdcEncode-style field hashing (gogotypes wrappers)
+INT64_VALUE = Msg("google.protobuf.Int64Value", F(1, "value", "int64"))
+STRING_VALUE = Msg("google.protobuf.StringValue", F(1, "value", "string"))
+BYTES_VALUE = Msg("google.protobuf.BytesValue", F(1, "value", "bytes"))
+
+CONSENSUS_VERSION = Msg(
+    "cometbft.version.v1.Consensus",
+    F(1, "block", "uint64"),
+    F(2, "app", "uint64"),
 )
 
 PUBLIC_KEY = Msg(
@@ -148,4 +160,65 @@ CANONICAL_VOTE_EXTENSION = Msg(
     F(2, "height", "sfixed64"),
     F(3, "round", "sfixed64"),
     F(4, "chain_id", "string"),
+)
+
+HEADER = Msg(
+    "cometbft.types.v2.Header",
+    F(1, "version", "msg", msg=CONSENSUS_VERSION, always=True),
+    F(2, "chain_id", "string"),
+    F(3, "height", "int64"),
+    F(4, "time", "msg", msg=TIMESTAMP, always=True),
+    F(5, "last_block_id", "msg", msg=BLOCK_ID, always=True),
+    F(6, "last_commit_hash", "bytes"),
+    F(7, "data_hash", "bytes"),
+    F(8, "validators_hash", "bytes"),
+    F(9, "next_validators_hash", "bytes"),
+    F(10, "consensus_hash", "bytes"),
+    F(11, "app_hash", "bytes"),
+    F(12, "last_results_hash", "bytes"),
+    F(13, "evidence_hash", "bytes"),
+    F(14, "proposer_address", "bytes"),
+)
+
+SIGNED_HEADER = Msg(
+    "cometbft.types.v2.SignedHeader",
+    F(1, "header", "msg", msg=HEADER),
+    F(2, "commit", "msg", msg=COMMIT),
+    F(3, "aggregate_commit", "msg", msg=AGGREGATE_COMMIT),
+)
+
+LIGHT_BLOCK = Msg(
+    "cometbft.types.v2.LightBlock",
+    F(1, "signed_header", "msg", msg=SIGNED_HEADER),
+    F(2, "validator_set", "msg", msg=VALIDATOR_SET),
+)
+
+DUPLICATE_VOTE_EVIDENCE = Msg(
+    "cometbft.types.v2.DuplicateVoteEvidence",
+    F(1, "vote_a", "msg", msg=VOTE),
+    F(2, "vote_b", "msg", msg=VOTE),
+    F(3, "total_voting_power", "int64"),
+    F(4, "validator_power", "int64"),
+    F(5, "timestamp", "msg", msg=TIMESTAMP, always=True),
+)
+
+LIGHT_CLIENT_ATTACK_EVIDENCE = Msg(
+    "cometbft.types.v2.LightClientAttackEvidence",
+    F(1, "conflicting_block", "msg", msg=LIGHT_BLOCK),
+    F(2, "common_height", "int64"),
+    F(3, "byzantine_validators", "msg", msg=VALIDATOR, repeated=True),
+    F(4, "total_voting_power", "int64"),
+    F(5, "timestamp", "msg", msg=TIMESTAMP, always=True),
+)
+
+EVIDENCE = Msg(
+    "cometbft.types.v2.Evidence",  # oneof sum
+    F(1, "duplicate_vote_evidence", "msg", msg=DUPLICATE_VOTE_EVIDENCE),
+    F(2, "light_client_attack_evidence", "msg",
+      msg=LIGHT_CLIENT_ATTACK_EVIDENCE),
+)
+
+EVIDENCE_LIST = Msg(
+    "cometbft.types.v2.EvidenceList",
+    F(1, "evidence", "msg", msg=EVIDENCE, repeated=True),
 )

@@ -39,6 +39,9 @@ def _port_modules():
 def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
     assert "cometbft_tpu_torch.ops.ed25519_kernel" in mods
+    assert {"cometbft_tpu_torch.light.client", "cometbft_tpu_torch.db.db",
+            "cometbft_tpu_torch.types.evidence",
+            "cometbft_tpu_torch.libs.log"} <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
