@@ -64,8 +64,22 @@ signature, an expired root, clock drift, a lunatic witness with its
 evidence) and backwards verification.  The providers sign a height's
 commit on its first fetch, with a fixed-base table signer held byte for
 byte to the golden model.
-Any failure exits non-zero.  The last three lines are the kernels JSON, the card's name
-and power limit, and {"ok": true, "device": {...}}.  Signatures are made
+Phases 11a-11d drive the chain below consensus (types/block and its part
+sets, params, genesis, the kvstore app over AppConns and its state tree,
+the state and block stores, state/execution's BlockExecutor,
+consensus/replay's Handshaker), every block's LastCommit verified on B1:
+BASELINE.json config 4's 150 validators for 100 heights of 200
+load-generator txs of 256 bytes, with validator updates at heights 25,
+50 and 75, timed a height with its split (validate_block, FinalizeBlock,
+the stores' saves) and traced for the device's busy share; the
+Handshaker's replay of the 100 heights into a fresh app, and 20 heights
+and their replay on SQLiteDB; a block whose LastCommit holds phase 3's
+10,000 precommits, under B1 and under cuda8; and the blocks the executor
+must refuse (a corrupted signature, a wrong app hash, a commit one
+signature short, a proposer outside the set) and a block store that lost
+a height.  Commits are signed with the fixed-base signer in the pool.
+Any failure exits non-zero.  The last three lines are the kernels JSON,
+the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
 """
 from __future__ import annotations
@@ -76,6 +90,7 @@ import collections
 import contextlib
 import hashlib
 import json
+import logging
 import multiprocessing
 import os
 import statistics
@@ -213,6 +228,27 @@ FORK_HEIGHT = 41
 FORK_SIGNERS = 700
 BACKWARDS_ROOT = 151
 BACKWARDS_DEPTH = 50
+
+
+# phase 11: the chain below consensus.  11a is BASELINE.json config 4's
+# set (150 validators) driven through the block executor for 100 heights,
+# each block carrying 200 txs of the load generator's 256-byte form
+EXEC_CHAIN_ID = "exec-chip"
+EXEC_T0 = 1_700_000_000
+EXEC_VALIDATORS = 150
+EXEC_HEIGHTS = 100
+EXEC_TXS = 200
+EXEC_TX_BYTES = 256
+EXEC_POWER = 10
+# the heights whose block carries a val= tx: add, re-power, add
+EXEC_UPDATES = (25, 50, 75)
+# the last heights of 11a run under torch.profiler for the busy share
+EXEC_PROFILED = 20
+# 11b repeats the first heights on SQLiteDB stores
+EXEC_SQLITE_HEIGHTS = 20
+# 11d: the corrupted signature and the height the block store loses
+EXEC_BAD_SIG = 7
+EXEC_MISSING = 3
 
 
 def _mixed_kind(i: int) -> str:
@@ -2363,6 +2399,532 @@ def _light_phases(seed, card, pool, keys10k, vals10k, agg_set=None):
     return launches, launches8
 
 
+# -- phase 11: the chain below consensus --------------------------------------
+
+def _load_tx(seed: int, h: int, j: int, size: int = EXEC_TX_BYTES) -> bytes:
+    """A tx of the JAX load generator's form (tools/loadtime.py
+    payload_bytes): one "a" key whose value is the hex of a JSON payload,
+    padded with hex after a '.' to ``size`` bytes; made from the seed."""
+    body = json.dumps({"id": f"chip-smoke-{seed}",
+                       "time_ns": EXEC_T0 * 10**9 + h * 10**6 + j,
+                       "rate": EXEC_TXS, "connections": 1},
+                      separators=(",", ":")).encode().hex()
+    tx = b"a=" + body.encode()
+    pad = size - len(tx) - 1
+    return tx + b"." + hashlib.shake_128(
+        b"%d/%d/%d" % (seed, h, j)).hexdigest((pad + 1) // 2)[:pad].encode()
+
+
+class _ExecChain:
+    """A chain driven through the port's block executor over a kvstore app
+    on AppConns: genesis, the Handshaker's InitChain, then each height as
+    the JAX package's tests/test_state.py _run_chain builds one —
+    create_proposal_block, the txs spliced in through state.make_block,
+    process_proposal, apply_block (B1 verifies the previous height's
+    commit), save_block with the commit the height's set signs."""
+
+    def __init__(self, chain_id, seeds, signer, pubs=None, power=EXEC_POWER,
+                 dbs=None, device=None, sig_cache=None):
+        from cometbft_tpu_torch.abci.client import AppConns
+        from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+        from cometbft_tpu_torch.consensus.replay import Handshaker
+        from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
+        from cometbft_tpu_torch.db import MemDB
+        from cometbft_tpu_torch.state import make_genesis_state
+        from cometbft_tpu_torch.state.execution import BlockExecutor
+        from cometbft_tpu_torch.state.store import Store
+        from cometbft_tpu_torch.store import BlockStore
+        from cometbft_tpu_torch.types.commit import Commit
+        from cometbft_tpu_torch.types.genesis import (
+            GenesisDoc, GenesisValidator)
+        from cometbft_tpu_torch.types.timestamp import Timestamp
+        self.chain_id, self.signer, self.device = chain_id, signer, device
+        self.sig_cache = {} if sig_cache is None else sig_cache
+        pubs = signer.pubs(seeds) if pubs is None else pubs
+        keys = [Ed25519PubKey(p) for p in pubs]
+        self.seed_of = {pk.address(): s for pk, s in zip(keys, seeds)}
+        self.doc = GenesisDoc(
+            chain_id=chain_id, genesis_time=Timestamp(EXEC_T0, 0),
+            validators=[GenesisValidator(b"", pk, power) for pk in keys])
+        self.dbs = dbs or {"state": MemDB(), "block": MemDB(),
+                           "app": MemDB()}
+        state = make_genesis_state(self.doc)
+        self.app = KVStoreApplication(db=self.dbs["app"])
+        self.conns = AppConns(self.app)
+        self.state_store = Store(self.dbs["state"])
+        self.block_store = BlockStore(self.dbs["block"])
+        self.state_store.save(state)
+        asyncio.run(Handshaker(self.state_store, state, self.block_store,
+                               self.doc, device=device
+                               ).handshake(self.conns))
+        self.state = state
+        self.exec = BlockExecutor(self.state_store, self.conns.consensus,
+                                  block_store=self.block_store, device=device)
+        self.last_commit = Commit()
+        self.applied = {}           # height -> the applied block's hash
+        self.parts = {}             # height -> parts of the block
+
+    def sign_commit(self, vals, h, block_id, skip=()):
+        """The commit for (h, block_id): every validator of vals precommits
+        at EXEC_T0 + h s + (index + 1) ns, but those in ``skip`` (absent)."""
+        from cometbft_tpu_torch.types.canonical import (
+            PRECOMMIT_TYPE, vote_sign_bytes_template)
+        from cometbft_tpu_torch.types.commit import Commit, CommitSig
+        from cometbft_tpu_torch.types.timestamp import Timestamp
+        from cometbft_tpu_torch.types.vote import BLOCK_ID_FLAG_COMMIT
+        make = vote_sign_bytes_template(self.chain_id, PRECOMMIT_TYPE, h, 0,
+                                        block_id)
+        idx = [i for i in range(vals.size()) if i not in skip]
+        stamps = {i: Timestamp(EXEC_T0 + h, i + 1) for i in idx}
+        jobs = [(self.seed_of[vals.validators[i].address], make(stamps[i]))
+                for i in idx]
+        todo = [j for j in jobs if j not in self.sig_cache]
+        self.sig_cache.update(zip(todo, self.signer.sign(todo)))
+        slots = [CommitSig.absent() for _ in range(vals.size())]
+        for i, job in zip(idx, jobs):
+            slots[i] = CommitSig(BLOCK_ID_FLAG_COMMIT,
+                                 vals.validators[i].address, stamps[i],
+                                 self.sig_cache[job])
+        return Commit(h, 0, block_id, slots)
+
+    async def _propose_apply(self, txs):
+        from cometbft_tpu_torch.types.block_id import BlockID
+        state = self.state
+        h = state.last_block_height + 1
+        proposer = state.validators.get_proposer()
+        block = await self.exec.create_proposal_block(
+            h, state, self.last_commit.wrapped_extended_commit(),
+            proposer.address)
+        # the nop mempool reaps nothing: splice the txs in
+        block = state.make_block(h, txs, self.last_commit, [],
+                                 proposer.address,
+                                 block_time=block.header.time)
+        parts = block.make_part_set()
+        block_id = BlockID(block.hash(), parts.header())
+        if not await self.exec.process_proposal(block, state):
+            raise AssertionError(f"the app rejected the proposal at {h}")
+        self.state = await self.exec.apply_block(state, block_id, block)
+        return block, parts, block_id, state.validators
+
+    def step(self, txs):
+        """One height; returns (block, seconds of its host work with the
+        signing of its commit left out)."""
+        t0 = time.perf_counter()
+        block, parts, block_id, signing_set = asyncio.run(
+            self._propose_apply(txs))
+        t1 = time.perf_counter()
+        h = block.header.height
+        commit = self.sign_commit(signing_set, h, block_id)
+        t2 = time.perf_counter()
+        self.block_store.save_block(block, parts, commit)
+        t3 = time.perf_counter()
+        self.last_commit = commit
+        self.applied[h] = block.hash()
+        self.parts[h] = parts.total
+        return block, (t1 - t0) + (t3 - t2)
+
+    def info(self, conns=None):
+        from cometbft_tpu_torch.abci import types as abci
+        return asyncio.run((conns or self.conns).query.info(
+            abci.InfoRequest()))
+
+
+def _exec_txs(seed, h, updates):
+    """Height h's EXEC_TXS txs; a height in ``updates`` carries its val=
+    tx in the last place."""
+    txs = [_load_tx(seed, h, j) for j in range(EXEC_TXS)]
+    if h in updates:
+        txs[-1] = updates[h]
+    return txs
+
+
+def _exec_updates(seed, chain, signer):
+    """The val= txs of EXEC_UPDATES: a new validator, the first genesis
+    validator re-powered to twice its power, another new validator.
+    The new keys' seeds join the chain's signers."""
+    from cometbft_tpu_torch.abci.kvstore import make_val_set_change_tx
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
+    seeds = [_seed(seed + 111, k) for k in range(2)]
+    new = [Ed25519PubKey(p) for p in signer.pubs(seeds)]
+    chain.seed_of.update((pk.address(), s) for pk, s in zip(new, seeds))
+    first = chain.doc.validators[0].pub_key
+    keys = [(new[0], EXEC_POWER), (first, 2 * EXEC_POWER),
+            (new[1], EXEC_POWER)]
+    return {h: make_val_set_change_tx("ed25519", pk.bytes(), power)
+            for h, (pk, power) in zip(EXEC_UPDATES, keys)}
+
+
+@contextlib.contextmanager
+def _exec_split():
+    """The parts of each height while the block runs: the executor's
+    create_proposal_block and process_proposal, validate_block (in
+    apply_block), FinalizeBlock in the app, the state store's save of the
+    FinalizeBlock responses and of the state, the block store's
+    save_block; one entry a call."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.state import execution
+    from cometbft_tpu_torch.state.store import Store
+    from cometbft_tpu_torch.store import BlockStore
+    executor = execution.BlockExecutor
+    with _async_timed(executor, "create_proposal_block") as propose, \
+            _async_timed(executor, "process_proposal") as process, \
+            _timed(execution, "validate_block") as val, \
+            _async_timed(KVStoreApplication, "finalize_block") as fin, \
+            _timed(Store, "save_finalize_block_response") as fbr_save, \
+            _timed(Store, "save") as state_save, \
+            _timed(BlockStore, "save_block") as block_save:
+        yield {"propose": propose, "process_proposal": process,
+               "validate_block": val, "finalize_block": fin,
+               "responses_save": fbr_save, "state_store_save": state_save,
+               "block_store_save": block_save}
+
+
+def _split_ms(split, i, total_s, batch_ns=0):
+    """Height i's split (ms): validate_block as its walk and its
+    batch_verify span, the other parts, and the rest of total_s."""
+    out = {k: v[i] * 1e3 for k, v in split.items()}
+    out["walk"] = out["validate_block"] - batch_ns / 1e6
+    out["batch_verify"] = batch_ns / 1e6
+    out["rest"] = total_s * 1e3 - sum(out[k] for k in split)
+    return out
+
+
+def _split_line(rows) -> str:
+    keys = ("propose", "process_proposal", "walk", "batch_verify",
+            "finalize_block", "responses_save", "state_store_save",
+            "block_store_save", "rest")
+    return "; ".join(f"{k} {_p50_p90([r[k] for r in rows])}" for k in keys)
+
+
+def _exec_chain(seed, card, signer, ek, tracing, device):
+    """11a: the 150-validator chain; returns (chain, B1 launches)."""
+    from cometbft_tpu_torch.crypto.encoding import pub_key_from_type_and_bytes
+    from cometbft_tpu_torch.types.validator import Validator
+    from cometbft_tpu_torch.types.validator_set import ValidatorSet
+    n, top = EXEC_VALIDATORS, EXEC_HEIGHTS
+    _phase(f"11a chain-{n}x{top}: {n} validators, {top} heights of "
+           f"{EXEC_TXS} txs of {EXEC_TX_BYTES} bytes through the block "
+           f"executor and the kvstore app; val= txs at {EXEC_UPDATES}")
+    t0 = time.perf_counter()
+    chain = _ExecChain(EXEC_CHAIN_ID, [_seed(seed + 110, i)
+                                       for i in range(n)], signer,
+                       device=device)
+    chain.updates = updates = _exec_updates(seed, chain, signer)
+    genesis_ms = (time.perf_counter() - t0) * 1e3
+    host_s, lanes_want, profiled = {}, [], []
+
+    def heights(lo, hi):
+        for h in range(lo, hi):
+            if h > 1:
+                lanes_want.append(chain.state.last_validators.size())
+            host_s[h] = chain.step(_exec_txs(seed, h, updates))[1]
+
+    prof_lo = max(top - EXEC_PROFILED + 1, 2)
+    ek.launches = 0
+    tracing.clear()
+    with _exec_split() as split, _launch_log(ek) as buckets, \
+            _gc_pauses() as pauses:
+        heights(1, prof_lo)
+        profiled.append(_device_busy(lambda: heights(prof_lo, top + 1)))
+    launches = ek.launches
+    spans = tracing.snapshot(category=tracing.CRYPTO)
+    batch = [ev for ev in spans if ev["name"] == "batch_verify"]
+    lanes = [ev["attrs"]["batch"] for ev in batch]
+    if launches != top - 1 or lanes != lanes_want:
+        raise AssertionError(f"{top} heights launched B1 {launches} times "
+                             f"with lanes {lanes}, expected {top - 1} "
+                             f"launches with lanes {lanes_want}")
+    rows = [_split_ms(split, h - 1, host_s[h], batch[h - 2]["dur_ns"])
+            for h in range(2, top + 1)]
+    ms = [host_s[h] * 1e3 for h in range(2, top + 1)]
+    # the gates: the stores, the app and the run agree
+    loaded = chain.state_store.load()
+    info = chain.info()
+    fbr = chain.state_store.load_finalize_block_response(top)
+    app_vals = ValidatorSet([
+        Validator.new(pub_key_from_type_and_bytes(u.pub_key_type,
+                                                  u.pub_key_bytes), u.power)
+        for u in chain.app.get_validators()])
+    if loaded.bytes() != chain.state.bytes() or \
+            loaded.last_block_height != top or \
+            not loaded.app_hash or \
+            loaded.app_hash != info.last_block_app_hash or \
+            loaded.app_hash != fbr.app_hash or \
+            info.last_block_height != top or \
+            loaded.validators.hash() != app_vals.hash() or \
+            loaded.validators.size() != n + 2:
+        raise AssertionError("the final state disagrees with the run")
+    for h in range(1, top + 1):
+        if chain.block_store.load_block(h).hash() != chain.applied[h]:
+            raise AssertionError(f"load_block({h}) != the applied block")
+    window_ms, busy_ms, kernel_ms, events = profiled[0]
+    busy = "not measured (no device event)" if busy_ms is None else (
+        f"{busy_ms:.2f} ms busy of {window_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / window_ms:.4f}, kernel {kernel_ms:.2f} ms, "
+        f"{events} device events")
+    _log(f"chain_{n}x{top} ms a height (heights 2-{top}, signing "
+         f"excluded) {_p50_p90(ms)}; heights a second "
+         f"{(top - 1) / (sum(ms) / 1e3):.2f}; genesis and InitChain "
+         f"{genesis_ms:.0f} ms; card: {card}")
+    _log(f"chain_{n}x{top} split ms (p50, p90): {_split_line(rows)}")
+    _log(f"chain_{n}x{top} B1 launches {launches} (one a height from 2), "
+         f"lanes a launch {sorted(set(lanes))} (the commit follows "
+         f"state.last_validators: {lanes_want[0]} -> {lanes_want[-1]}), "
+         f"buckets {sorted(set(buckets))}; parts a block "
+         f"{sorted(set(chain.parts.values()))}; final set "
+         f"{loaded.validators.size()} validators, app hash "
+         f"{loaded.app_hash.hex()[:16]}")
+    _log(f"chain_{n}x{top} device over heights {prof_lo}-{top} "
+         f"(torch.profiler): {busy}; gc in the window: "
+         f"{_gc_line(pauses)}; signing {signer.signed} signatures "
+         f"{signer.seconds:.1f} s, outside the timed work")
+    return chain, launches
+
+
+def _exec_replay(seed, card, signer, chain, ek, device):
+    """11b: the Handshaker replays the chain into a fresh app; then 11a's
+    first heights and their replay on SQLiteDB stores."""
+    import tempfile
+
+    from cometbft_tpu_torch.abci.client import AppConns
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.consensus.replay import Handshaker
+    from cometbft_tpu_torch.db import MemDB, SQLiteDB
+    top = EXEC_HEIGHTS
+    _phase(f"11b replay-{EXEC_VALIDATORS}x{top}: the Handshaker replays "
+           f"heights 1-{top} into a fresh kvstore app")
+
+    def replay(ch, app_db):
+        final = ch.state_store.load()
+        conns = AppConns(KVStoreApplication(db=app_db))
+        hs = Handshaker(ch.state_store, final, ch.block_store, ch.doc,
+                        device=device)
+        ek.launches = 0
+        t0 = time.perf_counter()
+        app_hash = asyncio.run(hs.handshake(conns))
+        ms = (time.perf_counter() - t0) * 1e3
+        info = ch.info(conns)
+        height = final.last_block_height
+        if app_hash != final.app_hash or hs.n_blocks != height or \
+                info.last_block_height != height or \
+                info.last_block_app_hash != final.app_hash or ek.launches:
+            raise AssertionError(f"the replay of {height} heights ended at "
+                                 f"{info.last_block_height} after "
+                                 f"{hs.n_blocks} blocks")
+        synced = Handshaker(ch.state_store, final, ch.block_store, ch.doc,
+                            device=device)
+        if asyncio.run(synced.handshake(conns)) != final.app_hash or \
+                synced.n_blocks:
+            raise AssertionError("the synced app replayed blocks")
+        return ms, hs.n_blocks
+
+    ms, n_blocks = replay(chain, MemDB())
+    _log(f"replay_{EXEC_VALIDATORS}x{top} total ms {ms:.1f}, ms a block "
+         f"{ms / n_blocks:.2f}, n_blocks {n_blocks}; the app hash equals "
+         f"the final state's and Info reports height {top}; the app-synced "
+         f"handshake replays 0 blocks; 0 launches; card: {card}")
+
+    k = EXEC_SQLITE_HEIGHTS
+    with tempfile.TemporaryDirectory() as d:
+        dbs = {name: SQLiteDB(os.path.join(d, f"{name}.db"))
+               for name in ("state", "block", "app", "app2")}
+        try:
+            sql = _ExecChain(EXEC_CHAIN_ID, [_seed(seed + 110, i) for i in
+                                             range(EXEC_VALIDATORS)],
+                             signer, dbs=dbs, device=device,
+                             sig_cache=chain.sig_cache)
+            sql.seed_of.update(chain.seed_of)
+            host = [sql.step(_exec_txs(seed, h, chain.updates))[1] * 1e3
+                    for h in range(1, k + 1)]
+            if any(sql.applied[h] != chain.applied[h]
+                   for h in range(1, k + 1)):
+                raise AssertionError("the SQLite chain made other blocks")
+            sql_ms, sql_blocks = replay(sql, dbs["app2"])
+        finally:
+            for db in dbs.values():
+                db.close()
+    _log(f"sqlite chain ms a height (heights 2-{k}) {_p50_p90(host[1:])}; "
+         f"the same block hashes as on MemDB; replay of {sql_blocks} "
+         f"heights {sql_ms:.1f} ms, {sql_ms / sql_blocks:.2f} ms a block; "
+         f"card: {card}")
+
+
+def _exec_block10k(seed, card, signer, keys10k, ek, ek8, oe, tracing,
+                   device):
+    """11c: a block whose LastCommit holds phase 3's 10,000 precommits,
+    applied under B1 and under cuda8; returns the two kernels' launches."""
+    from cometbft_tpu_torch.crypto.pipeline import DEFAULT_TILE, tile_plan
+    n = len(keys10k)
+    want = len(tile_plan(n, DEFAULT_TILE))
+    name = f"block_{n // 1000}k" if n >= 1000 else f"block_{n}"
+    _phase(f"11c {name}: genesis of phase 3's {n} keys, block 1, "
+           f"then block 2 whose LastCommit holds {n} precommits, under B1 "
+           f"and under {oe.KERNEL_ENV}=cuda8")
+    seeds = [_seed(seed, j) for j in range(n)]
+    pubs = [pk.bytes() for pk in keys10k]
+    cache, out = {}, {}
+    for kernel, mod in (("cuda", ek), ("cuda8", ek8)):
+        t0 = time.perf_counter()
+        chain = _ExecChain("exec-10k", seeds, signer, pubs=pubs,
+                           device=device, sig_cache=cache)
+        chain.step(_exec_txs(seed, 1, {}))
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        if kernel == "cuda8":
+            os.environ[oe.KERNEL_ENV] = "cuda8"
+        ek.launches = ek8.launches = 0
+        tracing.clear()
+        try:
+            with _exec_split() as split, _launch_log(mod) as buckets, \
+                    _gc_pauses() as pauses:
+                block, host_s = chain.step(_exec_txs(seed, 2, {}))
+        finally:
+            os.environ.pop(oe.KERNEL_ENV, None)
+        spans = tracing.snapshot(category=tracing.CRYPTO)
+        batch_ns = sum(ev["dur_ns"] for ev in spans
+                       if ev["name"] == "batch_verify")
+        tiles = [ev["attrs"]["batch"] for ev in spans
+                 if ev["name"] == "kernel_execute"]
+        other = ek.launches if mod is ek8 else ek8.launches
+        if mod.launches != want or other or \
+                block.last_commit.size() != n:
+            raise AssertionError(f"block 2 under {kernel} launched "
+                                 f"{mod.launches} (want {want}), the other "
+                                 f"kernel {other}")
+        row = _split_ms(split, 0, host_s, batch_ns)
+        out[kernel] = (chain.state.bytes(), chain.info().last_block_app_hash,
+                       mod.launches)
+        _log(f"{name}[{kernel}] apply ms {host_s * 1e3:.1f} "
+             f"(block 2, signing excluded): " + "; ".join(
+                 f"{k} {v:.1f}" for k, v in row.items()) +
+             f"; launches {mod.launches}, tiles {tiles} in buckets "
+             f"{buckets}; parts a block {chain.parts[2]}; gc inside: "
+             f"{_gc_line(pauses)}; genesis, InitChain and block 1 "
+             f"{setup_ms:.0f} ms; card: {card}")
+    if out["cuda"][:2] != out["cuda8"][:2]:
+        raise AssertionError("the state after block 2 differs by kernel")
+    _log(f"{name}: both kernels accept; the state after block 2 "
+         f"is equal byte for byte ({len(out['cuda'][0])} bytes of "
+         f"State.bytes())")
+    return out["cuda"][2], out["cuda8"][2]
+
+
+def _exec_reject(seed, card, chain, ek, device):
+    """11d: blocks the executor must refuse on 11a's chain, each with the
+    JAX package's text and nothing stored; then a Handshaker over a block
+    store that lost a height.  Returns B1's launches."""
+    from cometbft_tpu_torch.abci.client import AppConns
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.consensus.replay import Handshaker, ReplayError
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.state.execution import InvalidBlockError
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.store.store import _meta_key
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.commit import Commit, CommitSig
+    n = chain.state.last_validators.size()
+    _phase(f"11d exec-reject-{n}: a corrupted LastCommit signature, a wrong "
+           f"app hash, a LastCommit one signature short, a proposer outside "
+           f"the set, a block store missing a height")
+    state, last = chain.state, chain.last_commit
+    h = state.last_block_height + 1
+    proposer = state.validators.get_proposer().address
+    before = (chain.state_store.load().bytes(), chain.block_store.height,
+              chain.info().last_block_height)
+
+    def corrupt(commit, i):
+        sigs = list(commit.signatures)
+        cs = sigs[i]
+        sigs[i] = CommitSig(cs.block_id_flag, cs.validator_address,
+                            cs.timestamp,
+                            bytes([cs.signature[0] ^ 1]) + cs.signature[1:])
+        return Commit(commit.height, commit.round, commit.block_id, sigs)
+
+    short = Commit(last.height, last.round, last.block_id,
+                   last.signatures[:-1])
+    outsider = hashlib.sha256(b"outsider").digest()[:20]
+    cases = [("corrupted signature", corrupt(last, EXEC_BAD_SIG), {},
+              f"invalid LastCommit: wrong signature (#{EXEC_BAD_SIG})", 1),
+             ("wrong app hash", last, {"app_hash": b"\x99" * 32},
+              "wrong Block.Header.AppHash", 0),
+             ("commit one short", short, {},
+              f"invalid block commit size: want {n}, got {n - 1}", 0),
+             ("proposer outside the set", last,
+              {"proposer_address": outsider},
+              f"block proposer {outsider.hex().upper()} is not a "
+              f"validator", 1)]
+    total = 0
+    for what, commit, fields, text, want in cases:
+        block = state.make_block(h, [_load_tx(seed, h, 0)], commit, [],
+                                 proposer)
+        for k, v in fields.items():
+            setattr(block.header, k, v)
+        parts = block.make_part_set()
+        ek.launches = 0
+        try:
+            asyncio.run(chain.exec.apply_block(
+                state, BlockID(block.hash(), parts.header()), block))
+        except InvalidBlockError as e:
+            got = str(e)
+        else:
+            raise AssertionError(f"{what}: the block was applied")
+        after = (chain.state_store.load().bytes(), chain.block_store.height,
+                 chain.info().last_block_height)
+        if not got.startswith(text) or ek.launches != want or \
+                after != before:
+            raise AssertionError(f"{what}: {got!r} after {ek.launches} "
+                                 f"launches (want {text!r}, {want})")
+        total += ek.launches
+        _log(f"exec_reject {what}: InvalidBlockError {got[:96]!r}; "
+             f"{ek.launches} B1 launches; nothing stored")
+    lost = MemDB()
+    for k, v in chain.dbs["block"].iterator():
+        if k != _meta_key(EXEC_MISSING):
+            lost.set(k, v)
+    hs = Handshaker(chain.state_store, chain.state_store.load(),
+                    BlockStore(lost), chain.doc, device=device)
+    try:
+        asyncio.run(hs.handshake(AppConns(KVStoreApplication(db=MemDB()))))
+    except ReplayError as e:
+        got = str(e)
+    else:
+        raise AssertionError("the Handshaker replayed over a lost height")
+    if got != f"block {EXEC_MISSING} missing from store" or \
+            hs.n_blocks != EXEC_MISSING - 1:
+        raise AssertionError(f"the lost height: {got!r} after "
+                             f"{hs.n_blocks} blocks")
+    _log(f"exec_reject lost height: ReplayError {got!r} after replaying "
+         f"{hs.n_blocks} blocks; card: {card}")
+    return total
+
+
+def _exec_phases(seed, card, pool, keys10k, device=None):
+    """Phases 11a-11d: the chain below consensus (types/block, part sets,
+    params, genesis, the kvstore app over AppConns, the state and block
+    stores, the block executor, the Handshaker), every block's LastCommit
+    on B1.  Returns B1's launches by part and B2's."""
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    t_phase = time.perf_counter()
+    signer = _Signer(pool)
+    # the executor, the app and the Handshaker log every height at info
+    logging.disable(logging.INFO)
+    try:
+        chain, chain_launches = _exec_chain(seed, card, signer, ek, tracing,
+                                            device)
+        _exec_replay(seed, card, signer, chain, ek, device)
+        b1, b2 = _exec_block10k(seed, card, signer, keys10k, ek, ek8, oe,
+                                tracing, device)
+        reject = _exec_reject(seed, card, chain, ek, device)
+    finally:
+        logging.disable(logging.NOTSET)
+    _log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s, of which "
+         f"{signer.signed} signatures {signer.seconds:.1f} s")
+    return ({"chain_150x100": chain_launches, "block_10k": b1,
+             "exec_reject": reject}, {"block_10k_cuda8": b2})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2942,10 +3504,13 @@ def main() -> int:
     vote_launches = _vote_phases(args.seed, card, vals, commit, slot,
                                  vote_data, mixed_small)
 
-    # phase 10 signs what its providers serve on first fetch, in a pool
+    # phases 10 and 11 sign what they need in a pool, outside every
+    # timed window
     with ctx.Pool(os.cpu_count() or 4) as pool:
         light_launches, light_launches8 = _light_phases(
             args.seed, card, pool, keys, vals, agg_set)
+        exec_launches, exec_launches8 = _exec_phases(args.seed, card, pool,
+                                                     keys)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -2964,7 +3529,7 @@ def main() -> int:
                              "config5_grouped": grouped_launches,
                              **{k: v for k, v in vote_launches.items()
                                 if k != "vote_burst_cuda8"},
-                             **light_launches},
+                             **light_launches, **exec_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -2991,7 +3556,7 @@ def main() -> int:
                              "config5_grouped": grouped_b2,
                              "vote_burst_cuda8":
                                  vote_launches["vote_burst_cuda8"],
-                             **light_launches8},
+                             **light_launches8, **exec_launches8},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

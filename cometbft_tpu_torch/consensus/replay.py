@@ -1,0 +1,298 @@
+"""Crash recovery: the ABCI handshake.
+
+Reference: internal/consensus/replay.go — the Handshaker (:214)
+reconciles the app's height with the block and state stores' at boot
+and replays the missing blocks into the application — through
+cometbft_tpu/consensus/replay.py, whose cases and ReplayError texts
+this copy keeps.  The WAL catch-up (catchupReplay) needs the WAL and
+ConsensusState and waits for ROADMAP A.7d-2.
+
+``Handshaker(..., device=None)`` resolves its device at construction,
+as the block executor it hands the last block to does; replayed blocks
+were validated when first applied, so the replay verifies no
+signatures.
+"""
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+from ..abci import types as abci
+from ..crypto import merkle
+from ..device import resolve
+from ..libs.log import Logger, new_logger
+from ..state.execution import (
+    BlockExecutor, build_last_commit_info, validate_validator_updates,
+)
+from ..state.state import State as SMState
+from ..state.store import Store
+from ..types.genesis import GenesisDoc
+from ..types.validator import Validator
+from ..types.validator_set import ValidatorSet
+
+
+class ReplayError(Exception):
+    pass
+
+
+class AppBlockHeightTooLowError(ReplayError):
+    pass
+
+
+class AppBlockHeightTooHighError(ReplayError):
+    pass
+
+
+async def exec_commit_block(proxy_app, block, state_store: Store,
+                            initial_height: int,
+                            syncing_to_height: int,
+                            logger: Logger) -> bytes:
+    """Execute + commit a block against the app WITHOUT mutating
+    consensus state (reference: state/execution.go ExecCommitBlock)."""
+    last_vals = None
+    if block.header.height > initial_height:
+        last_vals = state_store.load_validators(block.header.height - 1)
+    commit_info = abci.CommitInfo()
+    if last_vals is not None:
+        commit_info = build_last_commit_info(block, last_vals,
+                                             initial_height)
+    resp = await proxy_app.finalize_block(abci.FinalizeBlockRequest(
+        hash=block.hash(),
+        next_validators_hash=block.header.next_validators_hash,
+        proposer_address=block.header.proposer_address,
+        height=block.header.height,
+        time=block.header.time,
+        decided_last_commit=commit_info,
+        txs=list(block.data.txs),
+        syncing_to_height=syncing_to_height,
+    ))
+    if len(block.data.txs) != len(resp.tx_results):
+        raise ReplayError(
+            "app returned wrong number of tx results during replay")
+    await proxy_app.commit()
+    return resp.app_hash
+
+
+class _ReplayProxyApp:
+    """Mock consensus connection that serves a saved
+    FinalizeBlockResponse (reference: replay_stubs.go newMockProxyApp)."""
+
+    def __init__(self, saved_response: abci.FinalizeBlockResponse):
+        self._resp = saved_response
+
+    async def finalize_block(self, req) -> abci.FinalizeBlockResponse:
+        return self._resp
+
+    async def commit(self) -> abci.CommitResponse:
+        return abci.CommitResponse()
+
+    async def prepare_proposal(self, req):
+        raise ReplayError("unexpected PrepareProposal during replay")
+
+    async def process_proposal(self, req):
+        raise ReplayError("unexpected ProcessProposal during replay")
+
+
+class Handshaker:
+    """Reconcile app state with store state at boot.
+
+    Reference: replay.go Handshaker (:214) / ReplayBlocks (:284)."""
+
+    def __init__(self, state_store: Store, state: SMState, block_store,
+                 gen_doc: GenesisDoc,
+                 logger: Optional[Logger] = None, device=None):
+        self.device = resolve(device)   # the card unless the caller names one
+        self.state_store = state_store
+        self.initial_state = state
+        self.block_store = block_store
+        self.gen_doc = gen_doc
+        self.logger = logger if logger is not None else \
+            new_logger("handshaker")
+        self.n_blocks = 0
+
+    async def handshake(self, app_conns) -> bytes:
+        """Info → ReplayBlocks; returns the reconciled app hash."""
+        res = await app_conns.query.info(abci.InfoRequest(
+            version="", block_version=0, p2p_version=0))
+        app_height = res.last_block_height
+        app_hash = res.last_block_app_hash
+        if app_height < 0:
+            raise ReplayError(
+                f"got negative last block height {app_height}")
+        self.logger.info("ABCI handshake", app_height=app_height,
+                         app_hash=app_hash.hex().upper()[:12])
+        app_hash = await self.replay_blocks(
+            self.initial_state, app_hash, app_height, app_conns)
+        self.logger.info("Completed ABCI handshake",
+                         app_height=app_height, blocks=self.n_blocks)
+        return app_hash
+
+    async def replay_blocks(self, state: SMState, app_hash: bytes,
+                            app_height: int, app_conns) -> bytes:
+        """Reference: replay.go ReplayBlocks (:284)."""
+        store_base = self.block_store.base
+        store_height = self.block_store.height
+        state_height = state.last_block_height
+        self.logger.info("ABCI replay blocks", app_height=app_height,
+                         store_height=store_height,
+                         state_height=state_height)
+
+        if app_height == 0:
+            # genesis: send InitChain
+            validators = [Validator.new(v.pub_key, v.power)
+                          for v in self.gen_doc.validators]
+            val_set = ValidatorSet(validators) if validators else \
+                ValidatorSet()
+            next_vals = [
+                abci.ValidatorUpdate(power=v.voting_power,
+                                     pub_key_type=v.pub_key.type(),
+                                     pub_key_bytes=v.pub_key.bytes())
+                for v in val_set.validators]
+            app_state_bytes = b""
+            if self.gen_doc.app_state is not None:
+                app_state_bytes = json.dumps(
+                    self.gen_doc.app_state).encode()
+            res = await app_conns.consensus.init_chain(
+                abci.InitChainRequest(
+                    time=self.gen_doc.genesis_time,
+                    chain_id=self.gen_doc.chain_id,
+                    initial_height=self.gen_doc.initial_height,
+                    consensus_params=self.gen_doc.consensus_params,
+                    validators=next_vals,
+                    app_state_bytes=app_state_bytes,
+                ))
+            app_hash = res.app_hash
+            if state_height == 0:
+                if res.app_hash:
+                    state.app_hash = res.app_hash
+                if res.validators:
+                    vals = validate_validator_updates(
+                        res.validators,
+                        state.consensus_params.validator)
+                    state.validators = ValidatorSet(vals)
+                    state.next_validators = ValidatorSet(vals)
+                    state.next_validators \
+                        .increment_proposer_priority(1)
+                elif not self.gen_doc.validators:
+                    raise ReplayError(
+                        "validator set is nil in genesis and still "
+                        "empty after InitChain")
+                if res.consensus_params is not None:
+                    state.consensus_params = state.consensus_params \
+                        .update(res.consensus_params)
+                    state.version.consensus = type(
+                        state.version.consensus)(
+                        block=state.version.consensus.block,
+                        app=state.consensus_params.version.app)
+                state.last_results_hash = \
+                    merkle.hash_from_byte_slices([])
+                self.state_store.save(state)
+
+        # edge cases on store heights
+        if store_height == 0:
+            self._assert_app_hash(app_hash, state)
+            return app_hash
+        if app_height == 0 and state.initial_height < store_base:
+            raise AppBlockHeightTooLowError(
+                f"app height 0, store base {store_base}")
+        if app_height > 0 and app_height < store_base - 1:
+            raise AppBlockHeightTooLowError(
+                f"app height {app_height}, store base {store_base}")
+        if store_height < app_height:
+            raise AppBlockHeightTooHighError(
+                f"store height {store_height} < app height "
+                f"{app_height}")
+        if store_height < state_height:
+            raise ReplayError(
+                f"state height {state_height} > store height "
+                f"{store_height}")
+        if store_height > state_height + 1:
+            raise ReplayError(
+                f"store height {store_height} > state height + 1 "
+                f"{state_height + 1}")
+
+        if store_height == state_height:
+            if app_height < store_height:
+                return await self._replay_range(
+                    state, app_conns, app_height, store_height,
+                    mutate_state=False)
+            # all synced up
+            self._assert_app_hash(app_hash, state)
+            return app_hash
+
+        # store_height == state_height + 1: block saved, state not updated
+        if app_height < state_height:
+            return await self._replay_range(
+                state, app_conns, app_height, store_height,
+                mutate_state=True)
+        if app_height == state_height:
+            # app and state are one behind: replay last block w/ real app
+            self.logger.info("Replay last block using real app")
+            state = await self._replay_block(state, store_height,
+                                             app_conns.consensus)
+            return state.app_hash
+        if app_height == store_height:
+            # app committed but state wasn't saved: mock replay
+            saved = self.state_store.load_finalize_block_response(
+                store_height)
+            if saved is None:
+                raise ReplayError(
+                    f"no finalize block response for {store_height}")
+            if not saved.app_hash:
+                saved.app_hash = app_hash
+            self.logger.info("Replay last block using mock app")
+            state = await self._replay_block(
+                state, store_height, _ReplayProxyApp(saved))
+            return state.app_hash
+        raise ReplayError(
+            f"uncovered case: app {app_height}, store {store_height}, "
+            f"state {state_height}")
+
+    async def _replay_range(self, state: SMState, app_conns,
+                            app_height: int, store_height: int,
+                            mutate_state: bool) -> bytes:
+        final_block = store_height - 1 if mutate_state else store_height
+        first_block = app_height + 1
+        if first_block == 1:
+            first_block = state.initial_height
+        app_hash = b""
+        for h in range(first_block, final_block + 1):
+            self.logger.info("Applying block", height=h)
+            block = self.block_store.load_block(h)
+            if block is None:
+                raise ReplayError(f"block {h} missing from store")
+            if app_hash and block.header.app_hash != app_hash:
+                raise ReplayError(
+                    f"app hash mismatch replaying height {h}")
+            app_hash = await exec_commit_block(
+                app_conns.consensus, block, self.state_store,
+                self.gen_doc.initial_height, store_height, self.logger)
+            self.n_blocks += 1
+        if mutate_state:
+            state = await self._replay_block(state, store_height,
+                                             app_conns.consensus)
+            app_hash = state.app_hash
+        self._assert_app_hash(app_hash, state)
+        return app_hash
+
+    async def _replay_block(self, state: SMState, height: int,
+                            proxy_consensus) -> SMState:
+        """ApplyBlock through a fresh executor for the final block
+        (reference: replay.go replayBlock)."""
+        block = self.block_store.load_block(height)
+        meta = self.block_store.load_block_meta(height)
+        if block is None or meta is None:
+            raise ReplayError(f"block {height} missing from store")
+        block_exec = BlockExecutor(self.state_store, proxy_consensus,
+                                   block_store=self.block_store,
+                                   logger=self.logger, device=self.device)
+        state = await block_exec.apply_verified_block(
+            state, meta.block_id, block, height)
+        self.n_blocks += 1
+        return state
+
+    def _assert_app_hash(self, app_hash: bytes, state: SMState) -> None:
+        if state.app_hash and app_hash != state.app_hash:
+            raise ReplayError(
+                f"app hash {app_hash.hex()} does not match state app "
+                f"hash {state.app_hash.hex()}")

@@ -2,8 +2,9 @@
 
 Reference: crypto/encoding/codec.go — oneof sum keyed by key type
 (proto/cometbft/crypto/v1/keys.proto: ed25519=1, secp256k1=2, bls12381=3,
-secp256k1eth=4) — through cometbft_tpu/crypto/encoding.py.  The key-type
-registry (key generation by name, private keys) is not ported yet.
+secp256k1eth=4) — through cometbft_tpu/crypto/encoding.py, with the
+amino JSON names genesis files use.  The key-type registry (key
+generation by name, private keys) is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +17,16 @@ _FIELD_BY_TYPE = {
     "secp256k1": "secp256k1",
     "bls12_381": "bls12381",
     "secp256k1eth": "secp256k1eth",
+}
+
+
+# amino-compatible JSON type tags (genesis files, reference:
+# crypto/ed25519 PubKeyName and friends)
+AMINO_PUBKEY_NAMES = {
+    "ed25519": "tendermint/PubKeyEd25519",
+    "secp256k1": "tendermint/PubKeySecp256k1",
+    "bls12_381": "cometbft/PubKeyBls12_381",
+    "secp256k1eth": "cometbft/PubKeySecp256k1eth",
 }
 
 

@@ -1,5 +1,6 @@
 """DB interface, MemDB, SQLiteDB and PrefixDB: the ordered key-value
-store under the light client's trusted store.
+store under the light client's trusted store, the state and block
+stores and the kvstore app's state tree.
 
 The port's copy of cometbft_tpu/db/db.py.  Reference: db/db.go (the
 interface), db/pebbledb.go (the persistent engine), db/prefixdb.go (the
@@ -51,6 +52,14 @@ class Batch:
         self._db._apply_batch(self._ops)
         self._written = True
 
+    def write_sync(self) -> None:
+        """Write, then make the write durable (SQLite: a full WAL
+        checkpoint)."""
+        if self._written:
+            raise DBError("batch already written")
+        self._db._apply_batch(self._ops, sync=True)
+        self._written = True
+
 
 
 class DB(abc.ABC):
@@ -62,6 +71,9 @@ class DB(abc.ABC):
 
     @abc.abstractmethod
     def set(self, key: bytes, value: bytes) -> None: ...
+
+    def set_sync(self, key: bytes, value: bytes) -> None:
+        self.set(key, value)
 
     @abc.abstractmethod
     def delete(self, key: bytes) -> None: ...
@@ -82,7 +94,7 @@ class DB(abc.ABC):
         return Batch(self)
 
     @abc.abstractmethod
-    def _apply_batch(self, ops) -> None: ...
+    def _apply_batch(self, ops, sync: bool = False) -> None: ...
 
     def close(self) -> None:
         pass
@@ -146,7 +158,7 @@ class MemDB(DB):
             if v is not None:
                 yield k, v
 
-    def _apply_batch(self, ops) -> None:
+    def _apply_batch(self, ops, sync: bool = False) -> None:
         with self._lock:
             for op, k, v in ops:
                 if op == "set":
@@ -188,6 +200,11 @@ class SQLiteDB(DB):
                 (bytes(key), bytes(value)))
             self._conn.commit()
 
+    def set_sync(self, key: bytes, value: bytes) -> None:
+        self.set(key, value)
+        with self._lock:
+            self._conn.execute("PRAGMA wal_checkpoint(FULL)")
+
     def delete(self, key: bytes) -> None:
         MemDB._check_key(key)
         with self._lock:
@@ -215,7 +232,7 @@ class SQLiteDB(DB):
         rows = list(self.iterator(start, end))
         yield from reversed(rows)
 
-    def _apply_batch(self, ops) -> None:
+    def _apply_batch(self, ops, sync: bool = False) -> None:
         with self._lock:
             cur = self._conn.cursor()
             for op, k, v in ops:
@@ -227,6 +244,8 @@ class SQLiteDB(DB):
                 else:
                     cur.execute("DELETE FROM kv WHERE k = ?", (k,))
             self._conn.commit()
+            if sync:
+                self._conn.execute("PRAGMA wal_checkpoint(FULL)")
 
     def close(self) -> None:
         with self._lock:
@@ -249,6 +268,9 @@ class PrefixDB(DB):
     def set(self, key: bytes, value: bytes) -> None:
         self._db.set(self._k(key), value)
 
+    def set_sync(self, key: bytes, value: bytes) -> None:
+        self._db.set_sync(self._k(key), value)
+
     def delete(self, key: bytes) -> None:
         self._db.delete(self._k(key))
 
@@ -266,8 +288,9 @@ class PrefixDB(DB):
         for k, v in self._db.reverse_iterator(s, e):
             yield k[len(p):], v
 
-    def _apply_batch(self, ops) -> None:
-        self._db._apply_batch([(op, self._k(k), v) for op, k, v in ops])
+    def _apply_batch(self, ops, sync: bool = False) -> None:
+        self._db._apply_batch([(op, self._k(k), v) for op, k, v in ops],
+                              sync)
 
 
 def _prefix_end(prefix: bytes) -> Optional[bytes]:

@@ -1,15 +1,13 @@
-"""Header, SignedHeader and LightBlock: what a light client verifies.
+"""Header, Data, Block, BlockMeta, SignedHeader and LightBlock.
 
 Reference: types/block.go — Header.Hash is a merkle root over the 14
-field encodings (:446), SignedHeader and LightBlock with their
-ValidateBasic, through cometbft_tpu/types/block.py:26-396.  The hash
+field encodings (:446), Block.Hash = Header.Hash, the block's part set
+for gossip and storage, SignedHeader and LightBlock with their
+ValidateBasic, through cometbft_tpu/types/block.py:26-434.  The hash
 must equal the reference's byte for byte: the string, int64 and bytes
 fields are wrapped as gogotypes values (cdcEncode, empty input -> empty
 leaf), the version, time and last block id encode as messages (a zero
 BlockID and Go's zero time included).
-
-``Data``, ``Block``, ``BlockMeta`` and ``make_block`` wait for the
-consensus state machine (ROADMAP A.7d).
 """
 from __future__ import annotations
 
@@ -18,10 +16,12 @@ from typing import Optional
 
 from .. import version as _version
 from ..crypto import merkle, tmhash
-from ..wire import encode, pb
+from ..wire import decode, encode, pb
 from .block_id import BlockID
-from .commit import AggregateCommit, Commit
+from .commit import AggregateCommit, Commit, CommitError
+from .part_set import BLOCK_PART_SIZE, PartSet, PartSetHeader
 from .timestamp import Timestamp
+from .tx import txs_hash
 from .validator_set import ValidatorSet
 
 MAX_CHAIN_ID_LEN = 50
@@ -166,6 +166,123 @@ class Header:
 
 
 @dataclass
+class Data:
+    txs: list[bytes] = field(default_factory=list)
+    _hash: Optional[bytes] = field(default=None, repr=False, compare=False)
+
+    def hash(self) -> bytes:
+        if self._hash is None:
+            self._hash = txs_hash(self.txs)
+        return self._hash
+
+    def to_proto(self) -> dict:
+        return {"txs": list(self.txs)} if self.txs else {}
+
+    @classmethod
+    def from_proto(cls, d: dict) -> "Data":
+        return cls(txs=list(d.get("txs", [])))
+
+
+@dataclass
+class Block:
+    header: Header = field(default_factory=Header)
+    data: Data = field(default_factory=Data)
+    evidence: list = field(default_factory=list)  # list[Evidence]
+    # a per-signature Commit, or an AggregateCommit past the aggregate-
+    # commit enable height
+    last_commit: Commit | AggregateCommit | None = None
+
+    def hash(self) -> bytes:
+        return self.header.hash()
+
+    def block_id(self, part_set_header: PartSetHeader) -> BlockID:
+        return BlockID(hash=self.hash(), part_set_header=part_set_header)
+
+    def make_part_set(self, part_size: int | None = None) -> PartSet:
+        raw = encode(pb.BLOCK, self.to_proto())
+        return PartSet.from_data(raw, part_size or BLOCK_PART_SIZE)
+
+    def evidence_hash(self) -> bytes:
+        return merkle.hash_from_byte_slices(
+            [ev.bytes() for ev in self.evidence])
+
+    def fill_header(self) -> None:
+        """Derive LastCommitHash, DataHash and EvidenceHash (reference:
+        block.go fillHeader)."""
+        if not self.header.last_commit_hash and self.last_commit:
+            self.header.last_commit_hash = self.last_commit.hash()
+        if not self.header.data_hash:
+            self.header.data_hash = self.data.hash()
+        if not self.header.evidence_hash:
+            self.header.evidence_hash = self.evidence_hash()
+
+    def validate_basic(self) -> None:
+        """Reference: block.go Block.ValidateBasic."""
+        self.header.validate_basic()
+        if self.last_commit is None:
+            if self.header.height != 1:
+                raise BlockError("nil LastCommit")
+        else:
+            try:
+                self.last_commit.validate_basic()
+            except CommitError as e:
+                raise BlockError(f"wrong LastCommit: {e}") from e
+            if self.header.last_commit_hash != self.last_commit.hash():
+                raise BlockError("wrong LastCommitHash")
+        if self.header.data_hash != self.data.hash():
+            raise BlockError("wrong DataHash")
+        if self.header.evidence_hash != self.evidence_hash():
+            raise BlockError("wrong EvidenceHash")
+
+    def to_proto(self) -> dict:
+        d: dict = {
+            "header": self.header.to_proto(),
+            "data": self.data.to_proto(),
+            "evidence": {"evidence": [ev.to_proto_wrapped()
+                                      for ev in self.evidence]}
+            if self.evidence else {},
+        }
+        if isinstance(self.last_commit, AggregateCommit):
+            d["last_aggregate_commit"] = self.last_commit.to_proto()
+        elif self.last_commit is not None:
+            d["last_commit"] = self.last_commit.to_proto()
+        return d
+
+    @classmethod
+    def from_proto(cls, d: dict) -> "Block":
+        # evidence.py imports LightBlock from here
+        from .evidence import evidence_from_proto_wrapped
+        lc = d.get("last_commit")
+        lac = d.get("last_aggregate_commit")
+        if lc is not None and lac is not None:
+            raise BlockError(
+                "block carries both per-signature and aggregate "
+                "LastCommit")
+        last_commit: Commit | AggregateCommit | None = None
+        if lc is not None:
+            last_commit = Commit.from_proto(lc)
+        elif lac is not None:
+            last_commit = AggregateCommit.from_proto(lac)
+        return cls(
+            header=Header.from_proto(d.get("header") or {}),
+            data=Data.from_proto(d.get("data") or {}),
+            evidence=[evidence_from_proto_wrapped(e)
+                      for e in (d.get("evidence") or {}).get("evidence",
+                                                             [])],
+            last_commit=last_commit,
+        )
+
+    @classmethod
+    def from_parts(cls, ps: PartSet) -> "Block":
+        return cls.from_proto(decode(pb.BLOCK, ps.assemble()))
+
+    def __str__(self) -> str:
+        return (f"Block{{H:{self.header.height} "
+                f"#{self.hash().hex().upper()[:12]} "
+                f"txs:{len(self.data.txs)}}}")
+
+
+@dataclass
 class SignedHeader:
     header: Optional[Header] = None
     # a per-signature Commit or an AggregateCommit
@@ -261,3 +378,42 @@ class LightBlock:
             validator_set=ValidatorSet.from_proto(vs)
             if vs is not None else None,
         )
+
+
+@dataclass
+class BlockMeta:
+    block_id: BlockID = field(default_factory=BlockID)
+    block_size: int = 0
+    header: Header = field(default_factory=Header)
+    num_txs: int = 0
+
+    def to_proto(self) -> dict:
+        d: dict = {"block_id": self.block_id.to_proto(),
+                   "header": self.header.to_proto()}
+        if self.block_size:
+            d["block_size"] = self.block_size
+        if self.num_txs:
+            d["num_txs"] = self.num_txs
+        return d
+
+    @classmethod
+    def from_proto(cls, d: dict) -> "BlockMeta":
+        return cls(
+            block_id=BlockID.from_proto(d.get("block_id") or {}),
+            block_size=d.get("block_size", 0),
+            header=Header.from_proto(d.get("header") or {}),
+            num_txs=d.get("num_txs", 0),
+        )
+
+
+def make_block(height: int, txs: list[bytes], last_commit: Commit,
+               evidence: list) -> Block:
+    """Reference: block.go MakeBlock."""
+    b = Block(
+        header=Header(height=height),
+        data=Data(txs=txs),
+        evidence=list(evidence),
+        last_commit=last_commit,
+    )
+    b.fill_header()
+    return b

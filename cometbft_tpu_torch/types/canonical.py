@@ -16,6 +16,7 @@ from .timestamp import Timestamp
 UNKNOWN_TYPE = 0
 PREVOTE_TYPE = 1
 PRECOMMIT_TYPE = 2
+PROPOSAL_TYPE = 32
 
 
 def is_vote_type_valid(t: int) -> bool:
@@ -115,3 +116,22 @@ def vote_extension_sign_bytes(chain_id: str, height: int, round_: int,
     if chain_id:
         d["chain_id"] = chain_id
     return marshal_delimited(pb.CANONICAL_VOTE_EXTENSION, d)
+
+
+def proposal_sign_bytes(chain_id: str, height: int, round_: int,
+                        pol_round: int, bid: BlockID,
+                        ts: Timestamp) -> bytes:
+    """Reference: types/proposal.go ProposalSignBytes."""
+    d: dict = {"type": PROPOSAL_TYPE, "timestamp": ts.to_proto()}
+    if height:
+        d["height"] = height
+    if round_:
+        d["round"] = round_
+    if pol_round:
+        d["pol_round"] = pol_round
+    cbid = canonicalize_block_id(bid)
+    if cbid is not None:
+        d["block_id"] = cbid
+    if chain_id:
+        d["chain_id"] = chain_id
+    return marshal_delimited(pb.CANONICAL_PROPOSAL, d)

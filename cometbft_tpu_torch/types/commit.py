@@ -7,13 +7,16 @@ ExtendedCommitSig / ExtendedCommit (the votes' extensions kept beside
 the commit) — through cometbft_tpu/types/commit.py (:111-126, :216-227,
 :375-514), and its :230-360 for AggregateCommit (one BLS signature and a
 signer bitmap).  ``Commit.validate_basic`` is ported for the light
-client's SignedHeader; hashing and median time are not ported yet.
+client's SignedHeader; ``hash`` (the header's LastCommitHash, :988) and
+``median_time`` (BFT time, :968) for blocks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from ..crypto import merkle
 from ..libs.bits import BitArray
+from ..wire import encode, pb
 from .block_id import BlockID
 from .timestamp import Timestamp
 from .vote import (
@@ -103,6 +106,7 @@ class Commit:
     round: int = 0
     block_id: BlockID = field(default_factory=BlockID)
     signatures: list[CommitSig] = field(default_factory=list)
+    _hash: bytes | None = field(default=None, repr=False, compare=False)
 
     def size(self) -> int:
         return len(self.signatures)
@@ -162,6 +166,35 @@ class Commit:
                 except CommitError as e:
                     raise CommitError(f"wrong CommitSig #{i}: {e}") from e
 
+    def hash(self) -> bytes:
+        """Merkle root over the CommitSig protos (reference: :988)."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices(
+                [encode(pb.COMMIT_SIG, cs.to_proto())
+                 for cs in self.signatures])
+        return self._hash
+
+    def median_time(self, validators) -> Timestamp:
+        """Voting-power-weighted median of the commit's vote timestamps
+        (BFT time; reference: block.go MedianTime :968, types/time
+        WeightedMedian)."""
+        weighted: list[tuple[Timestamp, int]] = []
+        total_power = 0
+        for cs in self.signatures:
+            if cs.absent_flag():
+                continue
+            _, val = validators.get_by_address(cs.validator_address)
+            if val is not None:
+                total_power += val.voting_power
+                weighted.append((cs.timestamp, val.voting_power))
+        median = total_power // 2
+        weighted.sort(key=lambda wt: wt[0].unix_ns())
+        for ts, w in weighted:
+            if median < w:
+                return ts
+            median -= w
+        return Timestamp(0, 0)
+
     def to_proto(self) -> dict:
         d: dict = {"block_id": self.block_id.to_proto(),
                    "signatures": [cs.to_proto() for cs in self.signatures]}
@@ -210,6 +243,7 @@ class AggregateCommit:
     block_id: BlockID = field(default_factory=BlockID)
     signers: BitArray = field(default_factory=lambda: BitArray(0))
     signature: bytes = b""
+    _hash: bytes | None = field(default=None, repr=False, compare=False)
 
     BLS_SIGNATURE_SIZE = 96
 
@@ -252,6 +286,21 @@ class AggregateCommit:
                     f"aggregate signature must be "
                     f"{self.BLS_SIGNATURE_SIZE} bytes, "
                     f"got {len(self.signature)}")
+
+    def hash(self) -> bytes:
+        """Merkle root over the one proto (the aggregate analogue of
+        Commit.hash)."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices(
+                [encode(pb.AGGREGATE_COMMIT, self.to_proto())])
+        return self._hash
+
+    def median_time(self, validators) -> Timestamp:
+        """Aggregate commits carry no per-vote timestamps; BFT time is
+        never computed for them (params validation requires PBTS)."""
+        raise CommitError(
+            "aggregate commit has no per-vote timestamps (BFT time "
+            "requires per-signature commits; enable PBTS)")
 
     def to_proto(self) -> dict:
         d: dict = {"block_id": self.block_id.to_proto()}

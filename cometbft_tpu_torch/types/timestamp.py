@@ -9,6 +9,7 @@ vectors.
 from __future__ import annotations
 
 import time as _time
+from datetime import datetime, timezone
 from typing import NamedTuple
 
 # Go time.Time{} (0001-01-01T00:00:00Z) as Unix seconds.
@@ -55,3 +56,30 @@ class Timestamp(NamedTuple):
     @classmethod
     def from_proto(cls, d: dict) -> "Timestamp":
         return cls(d.get("seconds", 0), d.get("nanos", 0))
+
+    def rfc3339(self) -> str:
+        dt = datetime.fromtimestamp(self.seconds, tz=timezone.utc)
+        # not strftime: glibc renders year 1 (Go's zero time) as "1"
+        base = (f"{dt.year:04d}-{dt.month:02d}-{dt.day:02d}"
+                f"T{dt.hour:02d}:{dt.minute:02d}:{dt.second:02d}")
+        if self.nanos:
+            frac = f"{self.nanos:09d}".rstrip("0")
+            return f"{base}.{frac}Z"
+        return base + "Z"
+
+    @classmethod
+    def from_rfc3339(cls, s: str) -> "Timestamp":
+        s = s.strip()
+        if s.endswith("Z"):
+            s = s[:-1] + "+00:00"
+        frac_ns = 0
+        if "." in s:
+            head, rest = s.split(".", 1)
+            i = 0
+            while i < len(rest) and rest[i].isdigit():
+                i += 1
+            frac = rest[:i]
+            frac_ns = int(frac.ljust(9, "0")[:9]) if frac else 0
+            s = head + rest[i:]
+        dt = datetime.fromisoformat(s)
+        return cls(int(dt.timestamp()), frac_ns)

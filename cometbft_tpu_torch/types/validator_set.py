@@ -154,6 +154,13 @@ class ValidatorSet:
         cp.increment_proposer_priority(times)
         return cp
 
+    def advance_proposer_priority_step(self) -> None:
+        """One raw increment step without the rescale+shift prologue:
+        the k-th loop iteration of increment_proposer_priority(k).  The
+        state store's roll-forward cache uses it to stay bit-equal to
+        the cold LoadValidators path."""
+        self.proposer = self._increment_proposer_priority()
+
     def _increment_proposer_priority(self) -> Validator:
         for v in self.validators:
             v.proposer_priority = safe_add_clip(

@@ -1,8 +1,13 @@
 """Protocol versions (the port's copy of cometbft_tpu/version.py).
 
 Reference: version/version.go:21 — block protocol 11, which every
-Header carries and Header.validate_basic checks.
+Header carries and Header.validate_basic checks; the software version a
+State records (it is part of State.bytes()) and the ABCI semver the
+kvstore app reports.
 """
+
+CMT_SEM_VER = "1.0.0-tpu"
+ABCI_SEM_VER = "2.2.0"
 
 # uint64 protocol version
 BLOCK_PROTOCOL = 11

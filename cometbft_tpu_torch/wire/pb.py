@@ -1,6 +1,7 @@
-"""Message descriptors for votes and their canonical forms, commits
-(per-signature, aggregate and extended), validator sets, headers, signed
-headers, light blocks and evidence.
+"""Message descriptors for votes and proposals and their canonical
+forms, commits (per-signature, aggregate and extended), validator sets,
+headers, signed headers, light blocks, evidence, blocks and their data,
+parts and metas, and consensus params.
 
 The port's trimmed copy of cometbft_tpu/wire/pb.py (which mirrors the
 reference's proto/cometbft/**/*.proto).  Field numbers, kinds and
@@ -10,6 +11,12 @@ from .proto import F, Msg
 
 TIMESTAMP = Msg(
     "google.protobuf.Timestamp",
+    F(1, "seconds", "int64"),
+    F(2, "nanos", "int32"),
+)
+
+DURATION = Msg(
+    "google.protobuf.Duration",
     F(1, "seconds", "int64"),
     F(2, "nanos", "int32"),
 )
@@ -33,16 +40,36 @@ PUBLIC_KEY = Msg(
     F(4, "secp256k1eth", "bytes"),
 )
 
+PROOF = Msg(
+    "cometbft.crypto.v1.Proof",
+    F(1, "total", "int64"),
+    F(2, "index", "int64"),
+    F(3, "leaf_hash", "bytes"),
+    F(4, "aunts", "bytes", repeated=True),
+)
+
 PART_SET_HEADER = Msg(
     "cometbft.types.v2.PartSetHeader",
     F(1, "total", "uint32"),
     F(2, "hash", "bytes"),
 )
 
+PART = Msg(
+    "cometbft.types.v2.Part",
+    F(1, "index", "uint32"),
+    F(2, "bytes", "bytes"),
+    F(3, "proof", "msg", msg=PROOF, always=True),
+)
+
 BLOCK_ID = Msg(
     "cometbft.types.v2.BlockID",
     F(1, "hash", "bytes"),
     F(2, "part_set_header", "msg", msg=PART_SET_HEADER, always=True),
+)
+
+DATA = Msg(
+    "cometbft.types.v2.Data",
+    F(1, "txs", "bytes", repeated=True),
 )
 
 VOTE = Msg(
@@ -108,6 +135,17 @@ EXTENDED_COMMIT = Msg(
       repeated=True),
 )
 
+PROPOSAL = Msg(
+    "cometbft.types.v2.Proposal",
+    F(1, "type", "enum"),
+    F(2, "height", "int64"),
+    F(3, "round", "int32"),
+    F(4, "pol_round", "int32"),
+    F(5, "block_id", "msg", msg=BLOCK_ID, always=True),
+    F(6, "timestamp", "msg", msg=TIMESTAMP, always=True),
+    F(7, "signature", "bytes"),
+)
+
 VALIDATOR = Msg(
     "cometbft.types.v2.Validator",
     F(1, "address", "bytes"),
@@ -142,6 +180,17 @@ CANONICAL_BLOCK_ID = Msg(
     F(1, "hash", "bytes"),
     F(2, "part_set_header", "msg", msg=CANONICAL_PART_SET_HEADER,
       always=True),
+)
+
+CANONICAL_PROPOSAL = Msg(
+    "cometbft.types.v2.CanonicalProposal",
+    F(1, "type", "enum"),
+    F(2, "height", "sfixed64"),
+    F(3, "round", "sfixed64"),
+    F(4, "pol_round", "int64"),
+    F(5, "block_id", "msg", msg=CANONICAL_BLOCK_ID),  # nullable
+    F(6, "timestamp", "msg", msg=TIMESTAMP, always=True),
+    F(7, "chain_id", "string"),
 )
 
 CANONICAL_VOTE = Msg(
@@ -221,4 +270,75 @@ EVIDENCE = Msg(
 EVIDENCE_LIST = Msg(
     "cometbft.types.v2.EvidenceList",
     F(1, "evidence", "msg", msg=EVIDENCE, repeated=True),
+)
+
+BLOCK = Msg(
+    "cometbft.types.v2.Block",
+    F(1, "header", "msg", msg=HEADER, always=True),
+    F(2, "data", "msg", msg=DATA, always=True),
+    F(3, "evidence", "msg", msg=EVIDENCE_LIST, always=True),
+    F(4, "last_commit", "msg", msg=COMMIT),
+    F(5, "last_aggregate_commit", "msg", msg=AGGREGATE_COMMIT),
+)
+
+BLOCK_META = Msg(
+    "cometbft.types.v2.BlockMeta",
+    F(1, "block_id", "msg", msg=BLOCK_ID, always=True),
+    F(2, "block_size", "int64"),
+    F(3, "header", "msg", msg=HEADER, always=True),
+    F(4, "num_txs", "int64"),
+)
+
+# consensus params (params.proto)
+
+BLOCK_PARAMS = Msg(
+    "cometbft.types.v2.BlockParams",
+    F(1, "max_bytes", "int64"),
+    F(2, "max_gas", "int64"),
+)
+
+EVIDENCE_PARAMS = Msg(
+    "cometbft.types.v2.EvidenceParams",
+    F(1, "max_age_num_blocks", "int64"),
+    F(2, "max_age_duration", "msg", msg=DURATION, always=True),
+    F(3, "max_bytes", "int64"),
+)
+
+VALIDATOR_PARAMS = Msg(
+    "cometbft.types.v2.ValidatorParams",
+    F(1, "pub_key_types", "string", repeated=True),
+)
+
+VERSION_PARAMS = Msg(
+    "cometbft.types.v2.VersionParams",
+    F(1, "app", "uint64"),
+)
+
+SYNCHRONY_PARAMS = Msg(
+    "cometbft.types.v2.SynchronyParams",
+    F(1, "precision", "msg", msg=DURATION),
+    F(2, "message_delay", "msg", msg=DURATION),
+)
+
+FEATURE_PARAMS = Msg(
+    "cometbft.types.v2.FeatureParams",
+    F(1, "vote_extensions_enable_height", "msg", msg=INT64_VALUE),
+    F(2, "pbts_enable_height", "msg", msg=INT64_VALUE),
+    F(3, "aggregate_commit_enable_height", "msg", msg=INT64_VALUE),
+)
+
+CONSENSUS_PARAMS = Msg(
+    "cometbft.types.v2.ConsensusParams",
+    F(1, "block", "msg", msg=BLOCK_PARAMS),
+    F(2, "evidence", "msg", msg=EVIDENCE_PARAMS),
+    F(3, "validator", "msg", msg=VALIDATOR_PARAMS),
+    F(4, "version", "msg", msg=VERSION_PARAMS),
+    F(6, "synchrony", "msg", msg=SYNCHRONY_PARAMS),
+    F(7, "feature", "msg", msg=FEATURE_PARAMS),
+)
+
+HASHED_PARAMS = Msg(
+    "cometbft.types.v2.HashedParams",
+    F(1, "block_max_bytes", "int64"),
+    F(2, "block_max_gas", "int64"),
 )

@@ -1,7 +1,9 @@
 """The port stands alone and runs on the card by default.
 
   * importing every module of cometbft_tpu_torch (in a fresh
-    interpreter) loads neither jax nor anything of cometbft_tpu;
+    interpreter; the chain below consensus included: the block executor,
+    the stores, the kvstore app, the state tree, the Handshaker) loads
+    neither jax nor anything of cometbft_tpu;
   * the entry points resolve ``device=None`` to CUDA and raise where
     CUDA is absent — no silent CPU fallback;
   * the kernel wrapper rejects wrong dtypes, shapes, devices and
@@ -41,7 +43,17 @@ def test_port_imports_no_jax_and_no_reference():
     assert "cometbft_tpu_torch.ops.ed25519_kernel" in mods
     assert {"cometbft_tpu_torch.light.client", "cometbft_tpu_torch.db.db",
             "cometbft_tpu_torch.types.evidence",
-            "cometbft_tpu_torch.libs.log"} <= set(mods)
+            "cometbft_tpu_torch.libs.log",
+            "cometbft_tpu_torch.state.execution",
+            "cometbft_tpu_torch.state.validation",
+            "cometbft_tpu_torch.state.store",
+            "cometbft_tpu_torch.store.store",
+            "cometbft_tpu_torch.abci.kvstore",
+            "cometbft_tpu_torch.abci.client",
+            "cometbft_tpu_torch.statetree.tree",
+            "cometbft_tpu_torch.consensus.replay",
+            "cometbft_tpu_torch.types.genesis",
+            "cometbft_tpu_torch.types.params"} <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
