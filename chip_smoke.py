@@ -4,8 +4,9 @@
 
 Builds the CUDA kernels from the sources in this checkout (one library:
 ed25519_verify.cu, ed25519_verify8.cu, microbench.cu), the host prep
-(ed25519_prep.cpp, g++, a library of its own) and the host BLS12-381
-library (bls_native.cpp, g++, self-tested at load), prints what ptxas says of
+(ed25519_prep.cpp, g++, a library of its own), the host BLS12-381
+library (bls_native.cpp, g++, self-tested at load) and the host ed25519
+(ed25519_host.cpp, g++, self-tested at load), prints what ptxas says of
 the two verifiers and of B3's four point-op kernels, holds the C prep
 byte for byte to its plain version (numpy and hashlib) on edge-case
 items, block-crossing message lengths and the commit's own entries, and
@@ -78,6 +79,29 @@ and their replay on SQLiteDB; a block whose LastCommit holds phase 3's
 must refuse (a corrupted signature, a wrong app hash, a commit one
 signature short, a proposer outside the set) and a block store that lost
 a height.  Commits are signed with the fixed-base signer in the pool.
+Phases 12a-12e drive the consensus state machine (consensus/state.py's
+ConsensusState with its round state, ticker, timeouts and supervisor,
+every consensus message through the wire codec, the EventBus, the WAL
+and catchup_replay, the host ed25519): a full node fed 11a's chain, built
+again by a twin executor, as each height's signed proposal, parts, 150
+prevotes and 150 precommits in wire bytes, a height after the node's
+NewBlock for the last, with the default timeouts, timed a height with its
+split (decode, the burst pre-verification on B1, the tally, the WAL,
+validate_block, the pipelined apply), the loop's longest stall, WAL bytes,
+rounds and timeouts, traced for 20 heights, its stores held byte for byte
+to the twin's; a crash at height 101 after its proposal and 80% of its
+prevotes, restarts on the same stores under cuda8 and from a repaired
+torn copy of the WAL (replayed only) and the real restart, which
+catchup-replays to the same round state and commits the twin's block;
+BASELINE.json config 1, four validators full-mesh through the wire codec
+with the JAX package's test timeouts for 50 heights, their stores equal
+and every commit verified; the host ed25519 held byte for byte to the
+golden model on 1,000 seeded inputs and the ZIP-215 edge items, its
+timings, the serial tally of a VoteBatchMessage; and what the state
+machine must refuse (a non-proposer's proposal, a bad-proof part, a
+conflicting vote, two WALs catchup_replay refuses) and a stand-in kernel
+that raises in the receive routine, which must stop consensus without a
+restart.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -249,6 +273,18 @@ EXEC_SQLITE_HEIGHTS = 20
 # 11d: the corrupted signature and the height the block store loses
 EXEC_BAD_SIG = 7
 EXEC_MISSING = 3
+
+# phase 12: the consensus state machine.  12a and 12b feed a full node
+# 11a's chain (config 4: EXEC_VALIDATORS validators, EXEC_TXS txs a
+# height) from a twin executor; 12c is config 1 (4 validators)
+CS_HEIGHTS = 100          # 12a's heights; 12b crashes at CS_HEIGHTS + 1
+CS_CRASH_SHARE = 0.8      # 12b: the share of prevotes sent before the crash
+CS_TRACED = 20            # 12a's heights under torch.profiler
+CS_PEER = "twin"          # the peer id the harness's messages carry
+NET_VALIDATORS = 4        # 12c
+NET_HEIGHTS = 50
+HOST_INPUTS = 1000        # 12d: seeded keys, signatures and verdicts
+HOST_TIMED = 200          # 12d: timed sign and verify calls
 
 
 def _mixed_kind(i: int) -> str:
@@ -2925,6 +2961,817 @@ def _exec_phases(seed, card, pool, keys10k, device=None):
              "exec_reject": reject}, {"block_10k_cuda8": b2})
 
 
+# -- phase 12: the consensus state machine ------------------------------------
+
+def _golden_verify_job(item) -> bool:
+    """Worker: the golden model's verdict on (pub, msg, sig)."""
+    from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    return ref.verify(*item)
+
+
+def _cs_twin(seed, signer, top, device):
+    """11a's chain built again by a twin block executor to height ``top``
+    (the same seeds, txs and validator updates): the blocks the harness
+    proposes to the node.  Returns (chain, {h: the twin's State bytes
+    after height h})."""
+    chain = _ExecChain(EXEC_CHAIN_ID, [_seed(seed + 110, i)
+                                       for i in range(EXEC_VALIDATORS)],
+                       signer, device=device)
+    chain.updates = updates = _exec_updates(seed, chain, signer)
+    states = {}
+    for h in range(1, top + 1):
+        chain.step(_exec_txs(seed, h, updates))
+        states[h] = chain.state.bytes()
+    return chain, states
+
+
+def _cs_feed(chain, heights, signer):
+    """Each height of the twin as the messages its proposer and
+    validators gossip: the proposal signed by the height's proposer, the
+    block's parts, every validator's prevote (stamped EXEC_T0 + h s +
+    500,000 + index ns) and the precommits of the stored commit, in that
+    order.  Returns {h: [message]}; the signatures are made in one call
+    of the signer."""
+    from cometbft_tpu_torch.consensus.messages import (
+        BlockPartMessage, ProposalMessage, VoteMessage)
+    from cometbft_tpu_torch.types.canonical import (
+        PREVOTE_TYPE, vote_sign_bytes_template)
+    from cometbft_tpu_torch.types.proposal import Proposal
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import Vote
+    plan, jobs = {}, []
+    for h in heights:
+        block = chain.block_store.load_block(h)
+        block_id = chain.block_store.load_block_meta(h).block_id
+        parts = block.make_part_set()
+        if parts.header() != block_id.part_set_header:
+            raise AssertionError(f"height {h}: the stored block does not "
+                                 f"re-encode to its part set")
+        vals = chain.state_store.load_validators(h)
+        proposal = Proposal(height=h, round=0, pol_round=-1,
+                            block_id=block_id, timestamp=block.header.time)
+        make = vote_sign_bytes_template(chain.chain_id, PREVOTE_TYPE, h, 0,
+                                        block_id)
+        stamps = [Timestamp(EXEC_T0 + h, 500_000 + i)
+                  for i in range(vals.size())]
+        plan[h] = (len(jobs), proposal, parts, block_id, vals, stamps)
+        jobs.append((chain.seed_of[block.header.proposer_address],
+                     proposal.sign_bytes(chain.chain_id)))
+        jobs += [(chain.seed_of[v.address], make(stamps[i]))
+                 for i, v in enumerate(vals.validators)]
+    sigs = signer.sign(jobs)
+    feed = {}
+    for h, (first, proposal, parts, block_id, vals, stamps) in plan.items():
+        proposal.signature = sigs[first]
+        prevotes = [Vote(type=PREVOTE_TYPE, height=h, round=0,
+                         block_id=block_id, timestamp=stamps[i],
+                         validator_address=v.address, validator_index=i,
+                         signature=sigs[first + 1 + i])
+                    for i, v in enumerate(vals.validators)]
+        commit = chain.block_store.load_seen_commit(h)
+        precommits = [commit.get_vote(i)
+                      for i, sig in enumerate(commit.signatures)
+                      if not sig.absent_flag()]
+        feed[h] = ([ProposalMessage(proposal)] +
+                   [BlockPartMessage(height=h, round=0,
+                                     part=parts.get_part(i))
+                    for i in range(parts.total)] +
+                   [VoteMessage(v) for v in prevotes + precommits])
+    return feed
+
+
+class _CsNode:
+    """A port ConsensusState over a kvstore app on AppConns, a Store and a
+    BlockStore (MemDB unless ``dbs`` names them), a BlockExecutor that
+    publishes to the node's EventBus, and a WAL at ``wal_path`` (none:
+    the NilWAL).  Build it with ``await _CsNode.make(...)``: the
+    Handshaker runs InitChain on a fresh app, or replays the stores into
+    a fresh app on an app db that is behind."""
+
+    @classmethod
+    async def make(cls, doc, device, dbs=None, wal_path=None, config=None,
+                   pv=None):
+        from cometbft_tpu_torch.abci.client import AppConns
+        from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+        from cometbft_tpu_torch.config import ConsensusConfig
+        from cometbft_tpu_torch.consensus.replay import Handshaker
+        from cometbft_tpu_torch.consensus.state import ConsensusState
+        from cometbft_tpu_torch.consensus.wal import WAL
+        from cometbft_tpu_torch.db import MemDB
+        from cometbft_tpu_torch.state import make_genesis_state
+        from cometbft_tpu_torch.state.execution import BlockExecutor
+        from cometbft_tpu_torch.state.store import Store
+        from cometbft_tpu_torch.store import BlockStore
+        from cometbft_tpu_torch.types.events import EventBus
+        self = cls()
+        self.dbs = dbs or {"state": MemDB(), "block": MemDB(),
+                           "app": MemDB()}
+        self.state_store = Store(self.dbs["state"])
+        self.block_store = BlockStore(self.dbs["block"])
+        state = self.state_store.load()
+        if state is None:
+            state = make_genesis_state(doc)
+            self.state_store.save(state)
+        self.app = KVStoreApplication(db=self.dbs["app"])
+        self.conns = AppConns(self.app)
+        await Handshaker(self.state_store, state, self.block_store, doc,
+                         device=device).handshake(self.conns)
+        self.bus = EventBus()
+        self.exec = BlockExecutor(self.state_store, self.conns.consensus,
+                                  event_bus=self.bus,
+                                  block_store=self.block_store,
+                                  device=device)
+        self.wal_path = wal_path
+        self.cs = ConsensusState(
+            config or ConsensusConfig(), self.state_store.load(), self.exec,
+            self.block_store, priv_validator=pv, event_bus=self.bus,
+            wal=WAL(wal_path) if wal_path else None, device=device)
+        return self
+
+    def round_state(self):
+        """(height, round, step, prevotes of the round) of the node."""
+        rs = self.cs.rs
+        pv = rs.votes.prevotes(rs.round) if rs.votes is not None else None
+        return (rs.height, rs.round, rs.step_name(),
+                len(pv.list()) if pv is not None else 0)
+
+    def wal_size(self) -> int:
+        from cometbft_tpu_torch.consensus.wal import WAL
+        return sum(os.path.getsize(f)
+                   for f in WAL.group_files(self.wal_path))
+
+
+async def _cs_new_block(node, sub, h, timeout_s=120.0):
+    """Wait for the node's NewBlock of height h; raise the node's fatal
+    error as soon as it has one."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        node.cs.raise_if_failed()
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"no NewBlock for height {h} in "
+                                 f"{timeout_s} s (at {node.round_state()})")
+        try:
+            msg = await asyncio.wait_for(sub.next(), 0.25)
+        except asyncio.TimeoutError:
+            continue
+        if msg.data.payload["block"].header.height == h:
+            return
+
+
+async def _cs_until(node, pred, what, timeout_s=60.0):
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        node.cs.raise_if_failed()
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what}: not reached in {timeout_s} s "
+                                 f"(at {node.round_state()})")
+        await asyncio.sleep(0.001)
+
+
+class _LoopGap:
+    """The event loop's longest tick gap (1 ms ticks) since ``take``."""
+
+    def __init__(self):
+        self.worst = 0.0
+        self.stop = False
+
+    async def run(self):
+        last = time.perf_counter()
+        while not self.stop:
+            await asyncio.sleep(0.001)
+            now = time.perf_counter()
+            self.worst = max(self.worst, now - last)
+            last = now
+
+    def take(self) -> float:
+        worst, self.worst = self.worst, 0.0
+        return worst
+
+
+@contextlib.contextmanager
+def _cs_split():
+    """What the state machine spends, one list of seconds a part: the
+    burst pre-verification (B1), the serial tally (VoteSet.add_vote, the
+    serial host verifies inside it included), the WAL's writes and
+    fsyncs, validate_block (B1 on the LastCommit), the pipelined apply
+    (in the background) and the host ed25519's serial verifies."""
+    from cometbft_tpu_torch.consensus import state as cs_state
+    from cometbft_tpu_torch.consensus.wal import WAL
+    from cometbft_tpu_torch.ops import ed25519_host as host
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.types.vote_set import VoteSet
+    with _async_timed(cs_state, "preverify_burst") as pre, \
+            _timed(VoteSet, "add_vote") as tally, \
+            _timed(WAL, "write") as wal_w, \
+            _timed(WAL, "flush_and_sync") as wal_f, \
+            _timed(BlockExecutor, "validate_block") as val, \
+            _async_timed(BlockExecutor, "apply_verified_block") as apply, \
+            _timed(host, "verify") as serial:
+        yield {"preverify": pre, "tally": tally, "wal_write": wal_w,
+               "wal_fsync": wal_f, "validate_block": val, "apply": apply,
+               "serial_verify": serial}
+
+
+_CS_SPLIT_KEYS = ("decode", "preverify", "tally", "wal_write", "wal_fsync",
+                  "validate_block", "rest")
+
+
+def _cs_live(seed, card, signer, ek, tracing, device, loop, wal_dir):
+    """12a: a full node fed the twin's 150-validator chain as wire bytes,
+    a height at a time; returns (twin, feed, node, B1 launches)."""
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.consensus.messages import decode_p2p, encode_p2p
+    from cometbft_tpu_torch.consensus.round_state import STEP_NAMES
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    from cometbft_tpu_torch.wire import encode, pb
+    n, top = EXEC_VALIDATORS, CS_HEIGHTS
+    _phase(f"12a consensus-{n}x{top}: a full node's ConsensusState (WAL on "
+           f"disk, kvstore app, MemDB stores) fed {n} validators' proposal, "
+           f"parts, prevotes and precommits as wire bytes for {top} heights")
+    t0 = time.perf_counter()
+    chain, twin_states = _cs_twin(seed, signer, top + 1, device)
+    twin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feed = _cs_feed(chain, range(1, top + 2), signer)
+    raw = {h: [encode_p2p(m) for m in msgs] for h, msgs in feed.items()}
+    feed_s = time.perf_counter() - t0
+    node = loop.run_until_complete(_CsNode.make(
+        chain.doc, device, wal_path=os.path.join(wal_dir, "wal")))
+    sub = node.bus.subscribe("chip-smoke", EVENT_QUERY_NEW_BLOCK,
+                             out_capacity=1000)
+    fired = collections.Counter()
+    real_fire = node.cs.ticker._on_timeout
+
+    def fire(ti):
+        fired[STEP_NAMES.get(ti.step)] += 1
+        real_fire(ti)
+
+    node.cs.ticker._on_timeout = fire
+    gap = _LoopGap()
+
+    async def start():
+        await node.cs.start()
+        gap.task = asyncio.ensure_future(gap.run())
+
+    loop.run_until_complete(start())
+    rows, per_launch, serial_n = {}, {}, {}
+
+    async def drive(h):
+        wal0, t0, dec = node.wal_size(), time.perf_counter(), 0.0
+        gap.take()
+        for msg_raw in raw[h]:
+            t = time.perf_counter()
+            msg = decode_p2p(msg_raw)
+            dec += time.perf_counter() - t
+            node.cs.send_peer(msg, CS_PEER)
+        await _cs_new_block(node, sub, h)
+        return (time.perf_counter() - t0, dec, node.wal_size() - wal0,
+                gap.take())
+
+    def heights(lo, hi):
+        for h in range(lo, hi):
+            before = {k: sum(v) for k, v in split.items()}
+            l0, s0 = ek.launches, len(split["serial_verify"])
+            total, dec, wal_bytes, worst = loop.run_until_complete(drive(h))
+            row = {k: (sum(v) - before[k]) * 1e3 for k, v in split.items()}
+            row.update(total=total * 1e3, decode=dec * 1e3,
+                       wal_bytes=wal_bytes, gap=worst * 1e3)
+            row["rest"] = row["total"] - sum(
+                row[k] for k in _CS_SPLIT_KEYS[:-1])
+            rows[h], per_launch[h] = row, ek.launches - l0
+            serial_n[h] = len(split["serial_verify"]) - s0
+
+    prof_lo = max(top - CS_TRACED + 1, 2)
+    ek.launches = 0
+    tracing.clear()
+    with _cs_split() as split, _launch_log(ek) as buckets, \
+            _gc_pauses() as pauses:
+        heights(1, prof_lo)
+        profiled = _device_busy(lambda: heights(prof_lo, top + 1))
+    launches = ek.launches
+    lanes = [ev["attrs"]["batch"]
+             for ev in tracing.snapshot(category=tracing.CRYPTO)
+             if ev["name"] == "batch_verify"]
+    # the gates: the node stores the twin's chain, byte for byte
+    for h in range(1, top + 1):
+        mine, twin = node.block_store.load_block(h), \
+            chain.block_store.load_block(h)
+        if encode(pb.BLOCK, mine.to_proto()) != \
+                encode(pb.BLOCK, twin.to_proto()) or \
+                node.block_store.load_block_meta(h).block_id != \
+                chain.block_store.load_block_meta(h).block_id:
+            raise AssertionError(f"12a: the node's block {h} != the twin's")
+    state = node.state_store.load()
+    info = loop.run_until_complete(node.conns.query.info(abci.InfoRequest()))
+    if state.bytes() != twin_states[top] or \
+            state.last_block_height != top or \
+            info.last_block_height != top or \
+            info.last_block_app_hash != state.app_hash:
+        raise AssertionError("12a: the node's state or app != the twin's")
+    hs = range(2, top + 1)
+    rounds = sum(1 for h in range(1, top + 1)
+                 if node.block_store.load_seen_commit(h).round > 0)
+    window_ms, busy_ms, kernel_ms, events = profiled
+    busy = "not measured (no device event)" if busy_ms is None else (
+        f"{busy_ms:.2f} ms busy of {window_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / window_ms:.4f}, kernel {kernel_ms:.2f} ms, "
+        f"{events} device events")
+    ms = [rows[h]["total"] for h in hs]
+    _log(f"cs_{n}x{top} ms a height (first message to NewBlock, heights "
+         f"2-{top}, signing excluded) {_p50_p90(ms)}; heights a second "
+         f"{len(ms) / (sum(ms) / 1e3):.2f}; twin chain {twin_s:.1f} s and "
+         f"feed {feed_s:.1f} s outside the window; card: {card}")
+    _log(f"cs_{n}x{top} split ms (p50, p90): " + "; ".join(
+        f"{k} {_p50_p90([rows[h][k] for h in hs])}"
+        for k in _CS_SPLIT_KEYS) + f"; apply (background, overlaps) "
+        f"{_p50_p90([rows[h]['apply'] for h in hs])}; serial host verifies "
+        f"a height {_p50_p90([serial_n[h] for h in hs])} taking "
+        f"{_p50_p90([rows[h]['serial_verify'] for h in hs])} ms")
+    _log(f"cs_{n}x{top} B1 launches {launches} "
+         f"({_p50_p90([per_launch[h] for h in hs])} a height), lanes a "
+         f"launch {sorted(collections.Counter(lanes).items())}, buckets "
+         f"{sorted(set(buckets))}; loop's longest stall a height ms "
+         f"{_p50_p90([rows[h]['gap'] for h in hs])}, max "
+         f"{max(rows[h]['gap'] for h in hs):.2f}; WAL bytes a height "
+         f"{_p50_p90([rows[h]['wal_bytes'] for h in hs])}; rounds above 0: "
+         f"{rounds}; timeouts fired {dict(fired)}")
+    _log(f"cs_{n}x{top} device over heights {prof_lo}-{top} "
+         f"(torch.profiler): {busy}; gc in the window: {_gc_line(pauses)}")
+    node.gap = gap
+    return chain, feed, raw, node, launches
+
+
+def _cs_crash(seed, card, chain, feed, raw, node, ek, ek8, oe, device, loop):
+    """12b: height top + 1's proposal, parts and 80% of its prevotes, a
+    crash, and restarts on the same stores: under cuda8 and from a
+    repaired torn copy of the WAL (both replayed only), then the real
+    restart, which commits the twin's block.  Returns (B1 launches, B2
+    launches)."""
+    import shutil
+
+    from cometbft_tpu_torch.consensus.replay import catchup_replay
+    from cometbft_tpu_torch.consensus.wal import WAL, repair_wal_file
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    from cometbft_tpu_torch.wire import encode, pb
+    from cometbft_tpu_torch.consensus.messages import (
+        BlockPartMessage, decode_p2p)
+    h = CS_HEIGHTS + 1
+    nv = chain.state_store.load_validators(h).size()
+    n_parts = sum(isinstance(m, BlockPartMessage) for m in feed[h])
+    first = 1 + n_parts + int(CS_CRASH_SHARE * nv)
+    _phase(f"12b wal-replay-{nv}: height {h}'s proposal, parts and "
+           f"{first - 1 - n_parts} of {nv} prevotes, a crash "
+           f"(stop(drain_pipeline=False)), restarts on the same stores")
+    for msg_raw in raw[h][:first]:
+        node.cs.send_peer(decode_p2p(msg_raw), CS_PEER)
+    want = first - 1 - n_parts
+    loop.run_until_complete(_cs_until(
+        node, lambda: node.round_state()[0] == h and
+        node.round_state()[3] == want, f"{want} prevotes at {h}"))
+    before = node.round_state()
+    node.gap.stop = True
+    loop.run_until_complete(node.cs.stop(drain_pipeline=False))
+    wal_path = node.wal_path
+    wal_bytes = node.wal_size()
+
+    def copy_group(dst):
+        """The WAL's group (rotated files and head) under another name."""
+        for f in WAL.group_files(wal_path):
+            shutil.copy(f, dst + f[len(wal_path):])
+        return dst
+
+    torn = copy_group(os.path.join(os.path.dirname(wal_path), "torn"))
+    with open(torn, "ab") as f:
+        f.write(b"\x00\x00\x00\x07\x00\x00\x01\x00{\"type\"")  # half a frame
+    copy8 = copy_group(os.path.join(os.path.dirname(wal_path), "cuda8"))
+
+    async def replay_only(path):
+        restarted = await _CsNode.make(chain.doc, device, dbs=node.dbs)
+        n = await catchup_replay(restarted.cs, path)
+        restarted.cs.ticker.stop()
+        return restarted.round_state(), n
+
+    # cuda8: the restore and the replay on B2
+    _clear_memos()
+    os.environ[oe.KERNEL_ENV] = "cuda8"
+    ek8.launches = 0
+    l1 = ek.launches
+    try:
+        got8, n8 = loop.run_until_complete(replay_only(copy8))
+    finally:
+        del os.environ[oe.KERNEL_ENV]
+    b2 = ek8.launches
+    if got8 != before or ek.launches != l1 or b2 < 1:
+        raise AssertionError(f"12b cuda8 restart: {got8} != {before}, or "
+                             f"B1 {ek.launches - l1} / B2 {b2} launches")
+    # the torn tail, repaired, replays the same
+    _clear_memos()
+    dropped = repair_wal_file(torn)
+    got_torn, n_torn = loop.run_until_complete(replay_only(torn))
+    if got_torn != before or n_torn != n8 or dropped != 15:
+        raise AssertionError(f"12b torn WAL: {got_torn} after {n_torn} "
+                             f"messages, {dropped} bytes dropped")
+    # the real restart
+    from cometbft_tpu_torch.libs import tracing
+    _clear_memos()
+    ek.launches = 0
+    tracing.clear()
+    t0 = time.perf_counter()
+    node2 = loop.run_until_complete(_CsNode.make(
+        chain.doc, device, dbs=node.dbs, wal_path=wal_path))
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    restore_launches = ek.launches
+    t0 = time.perf_counter()
+    n = loop.run_until_complete(catchup_replay(node2.cs, wal_path))
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    launches = ek.launches
+    lanes = [ev["attrs"]["batch"]
+             for ev in tracing.snapshot(category=tracing.CRYPTO)
+             if ev["name"] == "batch_verify"]
+    after = node2.round_state()
+    if after != before:
+        raise AssertionError(f"12b: restored {after} != {before} at the "
+                             f"crash")
+    sub = node2.bus.subscribe("chip-smoke-12b", EVENT_QUERY_NEW_BLOCK)
+
+    async def resume():
+        await node2.cs.start()
+        for msg_raw in raw[h][first:]:
+            node2.cs.send_peer(decode_p2p(msg_raw), CS_PEER)
+        await _cs_new_block(node2, sub, h)
+        await node2.cs.stop()
+
+    t0 = time.perf_counter()
+    loop.run_until_complete(resume())
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    if encode(pb.BLOCK, node2.block_store.load_block(h).to_proto()) != \
+            encode(pb.BLOCK, chain.block_store.load_block(h).to_proto()):
+        raise AssertionError(f"12b: the resumed node's block {h} != the "
+                             f"twin's")
+    _log(f"wal_replay_{nv} crash at {before}; WAL {wal_bytes} bytes; "
+         f"restart: stores and last-commit restore {restore_ms:.1f} ms "
+         f"({restore_launches} B1 launches), catchup_replay {replay_ms:.1f} "
+         f"ms for {n} messages ({launches - restore_launches} B1 launches; "
+         f"lanes in order {lanes}); restored {after}; the rest of height "
+         f"{h} to NewBlock {resume_ms:.1f} ms; the twin's block {h} "
+         f"stored; card: {card}")
+    _log(f"wal_replay_{nv} cuda8 restart replayed {n8} messages to {got8} "
+         f"with {b2} B2 launches and no B1; a torn copy lost {dropped} bytes "
+         f"to repair_wal_file and replayed {n_torn} messages to the same "
+         f"round state")
+    return launches, b2, node2
+
+
+async def _net_run(doc, pvs, device, heights, timeout_s=120.0):
+    """Four validators wired full-mesh in process, every message through
+    encode_p2p / decode_p2p; returns (nodes, NewBlock seconds of node 0)."""
+    from cometbft_tpu_torch.config import test_config
+    from cometbft_tpu_torch.consensus.messages import (
+        BlockPartMessage, ProposalMessage, VoteMessage, decode_p2p,
+        encode_p2p)
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    nodes = [await _CsNode.make(doc, device, pv=pv,
+                                config=test_config().consensus)
+             for pv in pvs]
+    for i, node in enumerate(nodes):
+        def hook(msg, i=i):
+            if isinstance(msg, (ProposalMessage, BlockPartMessage,
+                                VoteMessage)):
+                msg_raw = encode_p2p(msg)
+                for j, other in enumerate(nodes):
+                    if j != i:
+                        other.cs.send_peer(decode_p2p(msg_raw), f"node{i}")
+        node.cs.broadcast_hooks.append(hook)
+    sub = nodes[0].bus.subscribe("chip-smoke-net", EVENT_QUERY_NEW_BLOCK,
+                                 out_capacity=1000)
+    stamps = [time.perf_counter()]
+    for node in nodes:
+        await node.cs.start()
+    try:
+        for h in range(1, heights + 1):
+            await _cs_new_block(nodes[0], sub, h, timeout_s)
+            stamps.append(time.perf_counter())
+        await _cs_until(nodes[0], lambda: all(
+            n.block_store.height >= heights for n in nodes),
+            "every node at the last height")
+    finally:
+        for node in nodes:
+            await node.cs.stop()
+    return nodes, stamps
+
+
+def _cs_net(seed, card, ek, device, loop):
+    """12c: BASELINE.json config 1, four validators with the kvstore app
+    and the JAX package's test_config timeouts; returns B1 launches."""
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from cometbft_tpu_torch.ops import ed25519_host as host
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.priv_validator import MockPV
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.wire import encode, pb
+    n, top = NET_VALIDATORS, NET_HEIGHTS
+    _phase(f"12c net-{n}x{top}: {n} validators, full mesh through the wire "
+           f"codec, kvstore app, test_config timeouts, {top} heights")
+    pvs = [MockPV(Ed25519PrivKey(_seed(seed + 120, i))) for i in range(n)]
+    doc = GenesisDoc(chain_id="net-chip", genesis_time=Timestamp(EXEC_T0, 0),
+                     validators=[GenesisValidator(b"", pv.get_pub_key(), 10)
+                                 for pv in pvs])
+    _clear_memos()
+    ek.launches = 0
+    with _timed(host, "sign") as signs, _timed(host, "verify") as verifies, \
+            _gc_pauses() as pauses:
+        nodes, stamps = loop.run_until_complete(_net_run(doc, pvs, device,
+                                                         top))
+    launches = ek.launches
+    ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    total_s = stamps[-1] - stamps[1]
+    # the gates: the four stores agree, and every commit verifies
+    for h in range(1, top + 1):
+        blocks = {encode(pb.BLOCK, node.block_store.load_block(h).to_proto())
+                  for node in nodes}
+        if len(blocks) != 1:
+            raise AssertionError(f"12c: the nodes' blocks at {h} differ")
+    store = nodes[0].block_store
+    rounds = 0
+    for h in range(1, top + 1):
+        commit = store.load_block(h + 1).last_commit if h < top else \
+            store.load_seen_commit(h)
+        rounds += commit.round > 0
+        validation.verify_commit(
+            doc.chain_id, nodes[0].state_store.load_validators(h),
+            store.load_block_meta(h).block_id, h, commit, device=device)
+    _log(f"net_{n}x{top} heights a second {(top - 1) / total_s:.2f}; ms a "
+         f"height (NewBlock to NewBlock on node 0, heights 2-{top}) "
+         f"{_p50_p90(ms)}; B1 launches {launches} ({launches / top:.1f} a "
+         f"height); native signs {len(signs)} ({len(signs) / top:.1f} a "
+         f"height, {_p50_p90([s * 1e6 for s in signs])} us each); serial "
+         f"native verifies {len(verifies)} ({len(verifies) / top:.1f} a "
+         f"height, {_p50_p90([s * 1e6 for s in verifies])} us each); "
+         f"rounds above 0: {rounds}; gc in the run: {_gc_line(pauses)}; "
+         f"four stores agree at every height, every commit verifies; "
+         f"card: {card}")
+    return launches
+
+
+def _cs_host(seed, card, pool, chain, feed):
+    """12d: the host ed25519 held byte for byte to the golden model, its
+    timings, and the tally's serial cost on a VoteBatchMessage."""
+    import numpy as np
+
+    from cometbft_tpu_torch.consensus.messages import (
+        VoteBatchMessage, decode_p2p, encode_p2p)
+    from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    from cometbft_tpu_torch.ops import ed25519_host as host
+    from cometbft_tpu_torch.types.canonical import PREVOTE_TYPE
+    from cometbft_tpu_torch.types.vote_set import VoteSet
+    _phase(f"12d ed25519-host: {HOST_INPUTS} seeded signatures and the "
+           f"ZIP-215 edge items against the golden model")
+    rng = np.random.default_rng(seed + 130)
+    jobs = [(_seed(seed + 130, i), rng.bytes(int(rng.integers(0, 300))))
+            for i in range(HOST_INPUTS)]
+    golden = pool.map(_sign_job, jobs, chunksize=32)
+    for (s, m), (pub, sig) in zip(jobs, golden):
+        if host.public_key(s) != pub or host.sign(s, pub, m) != sig or \
+                not host.verify(pub, m, sig):
+            raise AssertionError("12d: the host ed25519 != the golden model "
+                                 f"on seed {s.hex()}")
+    items = _edge_items(seed + 131, pool)
+    want = pool.map(_golden_verify_job, items, chunksize=32)
+    got = [host.verify(*it) for it in items]
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"12d: host verify != golden on edge items "
+                             f"{bad[:8]}")
+    (s, m), (pub, sig) = jobs[0], golden[0]
+    sign_us, verify_us = [], []
+    for _ in range(HOST_TIMED):
+        t = time.perf_counter()
+        host.sign(s, pub, m)
+        sign_us.append((time.perf_counter() - t) * 1e6)
+        t = time.perf_counter()
+        host.verify(pub, m, sig)
+        verify_us.append((time.perf_counter() - t) * 1e6)
+    gold_sign, gold_verify = [], []
+    for _ in range(5):
+        t = time.perf_counter()
+        ref.sign(s, m)
+        gold_sign.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        ref.verify(pub, m, sig)
+        gold_verify.append((time.perf_counter() - t) * 1e3)
+    # the tally's serial cost: a VoteBatchMessage is not pre-verified
+    h = max(feed)
+    prevotes = [msg.vote for msg in feed[h]
+                if getattr(msg, "vote", None) is not None and
+                msg.vote.type == PREVOTE_TYPE]
+    batch = decode_p2p(encode_p2p(VoteBatchMessage(prevotes)))
+    _clear_memos()
+    vote_us = []
+    vs = VoteSet(chain.chain_id, h, 0, PREVOTE_TYPE,
+                 chain.state_store.load_validators(h))
+    for v in batch.votes:
+        t = time.perf_counter()
+        if not vs.add_vote(v):
+            raise AssertionError("12d: a batch vote was not added")
+        vote_us.append((time.perf_counter() - t) * 1e6)
+    _log(f"ed25519_host {HOST_INPUTS} seeded keys, signatures and verdicts "
+         f"and {len(items)} edge items == golden model; sign us "
+         f"{_p50_p90(sign_us)}, verify us {_p50_p90(verify_us)} "
+         f"({HOST_TIMED} calls, one thread); golden model sign ms "
+         f"{_p50_p90(gold_sign)}, verify ms {_p50_p90(gold_verify)}; card's "
+         f"host: {card}")
+    _log(f"tally_serial a VoteBatchMessage of {len(vote_us)} prevotes into "
+         f"a VoteSet, memos cleared: us a vote {_p50_p90(vote_us)}, "
+         f"{sum(vote_us) / 1e3:.2f} ms in all")
+
+
+def _cs_reject(seed, card, chain, feed, node2, signer, ek, device, loop,
+               wal_dir):
+    """12e: what the state machine must refuse, each with the JAX
+    package's text or outcome, and a kernel that raises inside the
+    receive routine, which must stop consensus and not be restarted."""
+    import dataclasses
+
+    from cometbft_tpu_torch.consensus.messages import (
+        BlockPartMessage, ProposalMessage)
+    from cometbft_tpu_torch.consensus.replay import (
+        ReplayError, catchup_replay)
+    from cometbft_tpu_torch.consensus.state import ConsensusError
+    from cometbft_tpu_torch.consensus.wal import WAL
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.canonical import PREVOTE_TYPE
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    _phase("12e cs-reject: a proposal from a non-proposer, a part with a "
+           "bad proof, a conflicting vote, two WALs catchup_replay refuses, "
+           "a kernel that raises in the receive routine")
+    out = []
+    node = loop.run_until_complete(_CsNode.make(chain.doc, device))
+    cs = node.cs
+    proposal = feed[1][0].proposal
+    vals = chain.state_store.load_validators(1)
+    other = next(v for v in vals.validators
+                 if v.address != vals.get_proposer().address)
+    forged = dataclasses.replace(proposal)
+    forged.signature = signer.sign([(chain.seed_of[other.address],
+                                     forged.sign_bytes(chain.chain_id))])[0]
+    try:
+        cs._set_proposal(forged, Timestamp.now())
+        raise AssertionError("12e: a non-proposer's proposal was accepted")
+    except ConsensusError as e:
+        if str(e) != "invalid proposal signature":
+            raise
+        out.append(f"non-proposer proposal: ConsensusError {str(e)!r}")
+    cs._set_proposal(proposal, Timestamp.now())
+    part = feed[1][1].part
+    bad = dataclasses.replace(part, bytes_=bytes([part.bytes_[0] ^ 1]) +
+                              part.bytes_[1:])
+    added = loop.run_until_complete(cs._add_proposal_block_part(
+        BlockPartMessage(height=1, round=0, part=bad), "peer"))
+    dropped = cs.metrics.block_gossip_parts_received.with_labels(
+        "false").value
+    if added or dropped != 1 or cs.rs.proposal_block_parts.count != 0:
+        raise AssertionError("12e: a part with a bad proof was not dropped")
+    out.append("bad-proof part: dropped (added False, "
+               "block_gossip_parts_received{matches_current=false} 1)")
+    v0 = next(m.vote for m in feed[1] if getattr(m, "vote", None) is not None
+              and m.vote.type == PREVOTE_TYPE)
+    twin_vote = dataclasses.replace(v0, block_id=BlockID())
+    twin_vote.signature = signer.sign([(
+        chain.seed_of[v0.validator_address],
+        twin_vote.sign_bytes(chain.chain_id))])[0]
+    first = loop.run_until_complete(cs._try_add_vote(v0, "peer"))
+    second = loop.run_until_complete(cs._try_add_vote(twin_vote, "peer"))
+    kept = cs.rs.votes.prevotes(0).get_by_index(v0.validator_index)
+    if not first or second or kept.block_id != v0.block_id:
+        raise AssertionError("12e: a conflicting vote was not refused")
+    out.append("conflicting prevote: refused (tryAddVote False, the first "
+               "vote kept)")
+    cs.ticker.stop()
+    # the two WALs catchup_replay refuses
+    bad_end = os.path.join(wal_dir, "wal-end-current")
+    w = WAL(bad_end)
+    w.write_end_height(1)
+    w.close()
+    try:
+        loop.run_until_complete(catchup_replay(cs, bad_end))
+        raise AssertionError("12e: a WAL ending the current height replayed")
+    except ReplayError as e:
+        if str(e) != "WAL should not contain end-height for 1":
+            raise
+        out.append(f"WAL with end-height 1 at height 1: ReplayError "
+                   f"{str(e)!r}")
+    fresh = loop.run_until_complete(_CsNode.make(chain.doc, device,
+                                                 dbs=node2.dbs))
+    h = fresh.cs.rs.height
+    no_end = os.path.join(wal_dir, "wal-no-end")
+    w = WAL(no_end)
+    w.write_end_height(h - 2)
+    w.write(feed[1][0].to_wal())
+    w.close()
+    try:
+        loop.run_until_complete(catchup_replay(fresh.cs, no_end))
+        raise AssertionError("12e: a WAL without the end-height replayed")
+    except ReplayError as e:
+        if str(e) != (f"cannot replay height {h}: WAL has no end-height "
+                      f"marker for {h - 1}"):
+            raise
+        out.append(f"WAL without end-height {h - 1} at height {h}: "
+                   f"ReplayError {str(e)!r}")
+    # a kernel that raises inside the receive routine: the stand-in is
+    # not a launch, so it adds nothing to the counts
+    launches = ek.launches
+    real = ek.verify_cols
+
+    def raising(*a, **kw):
+        raise RuntimeError("stand-in kernel failure (12e)")
+
+    ek.verify_cols = raising
+    _clear_memos()
+    try:
+        victim = loop.run_until_complete(_CsNode.make(chain.doc, device))
+
+        async def run():
+            from cometbft_tpu_torch.consensus.messages import VoteMessage
+            await victim.cs.start()
+            for msg in feed[1]:
+                if isinstance(msg, (ProposalMessage, BlockPartMessage,
+                                    VoteMessage)):
+                    victim.cs.send_peer(msg, CS_PEER)
+            deadline = time.perf_counter() + 30
+            while victim.cs.failure is None and \
+                    time.perf_counter() < deadline:
+                await asyncio.sleep(0.01)
+            try:
+                await victim.cs.stop()
+            except RuntimeError as e:
+                return e
+            return None
+
+        err = loop.run_until_complete(run())
+    finally:
+        ek.verify_cols = real
+    task = victim.cs._task
+    if err is None or "stand-in kernel failure" not in str(err) or \
+            task.restarts != 0 or not task.gave_up or \
+            victim.block_store.height != 0:
+        raise AssertionError(f"12e: the raising kernel was hidden: {err!r}, "
+                             f"{task.restarts} restarts")
+    out.append(f"raising kernel in the receive routine: consensus stopped, "
+               f"0 restarts, stop() raised RuntimeError {str(err)!r}")
+    for line in out:
+        _log(f"cs_reject {line}")
+    _log(f"cs_reject all {len(out)} cases as the JAX package decides them; "
+         f"card: {card}")
+    return ek.launches - launches
+
+
+def _cs_phases(seed, card, pool, device=None):
+    """Phases 12a-12e: the consensus state machine (ConsensusState with
+    its round state, ticker, timeouts and supervisor, every consensus
+    message, EventBus, the WAL and catch-up, the host ed25519).  Returns
+    B1's launches by part and B2's."""
+    import shutil
+    import tempfile
+
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_host as host
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    t_phase = time.perf_counter()
+    signer = _Signer(pool)
+    from cometbft_tpu_torch.ops import _build
+    host.load()
+    info = _build.ed25519_host_build_info
+    _log(f"ed25519_host library {info['path']} (g++ {info['seconds']:.3f} "
+         f"s, cached={info['cached']}); self-test passed in "
+         f"{info['selftest_seconds'] * 1e3:.1f} ms")
+    wal_dir = tempfile.mkdtemp(prefix="chip-smoke-wal-")
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    try:
+        chain, feed, raw, node, live = _cs_live(
+            seed, card, signer, ek, tracing, device, loop, wal_dir)
+        crash, crash8, node2 = _cs_crash(seed, card, chain, feed, raw, node,
+                                         ek, ek8, oe, device, loop)
+        net = _cs_net(seed, card, ek, device, loop)
+        _cs_host(seed, card, pool, chain, feed)
+        reject = _cs_reject(seed, card, chain, feed, node2, signer, ek,
+                            device, loop, wal_dir)
+    finally:
+        logging.disable(logging.NOTSET)
+        loop.close()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    _log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s, of which "
+         f"{signer.signed} signatures {signer.seconds:.1f} s")
+    return ({f"cs_{EXEC_VALIDATORS}x{CS_HEIGHTS}": live,
+             f"wal_replay_{EXEC_VALIDATORS}": crash,
+             f"net_{NET_VALIDATORS}x{NET_HEIGHTS}": net,
+             "cs_reject": reject},
+            {f"wal_replay_{EXEC_VALIDATORS}_cuda8": crash8})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3511,6 +4358,7 @@ def main() -> int:
             args.seed, card, pool, keys, vals, agg_set)
         exec_launches, exec_launches8 = _exec_phases(args.seed, card, pool,
                                                      keys)
+        cs_launches, cs_launches8 = _cs_phases(args.seed, card, pool)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -3529,7 +4377,8 @@ def main() -> int:
                              "config5_grouped": grouped_launches,
                              **{k: v for k, v in vote_launches.items()
                                 if k != "vote_burst_cuda8"},
-                             **light_launches, **exec_launches},
+                             **light_launches, **exec_launches,
+                             **cs_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -3556,7 +4405,8 @@ def main() -> int:
                              "config5_grouped": grouped_b2,
                              "vote_burst_cuda8":
                                  vote_launches["vote_burst_cuda8"],
-                             **light_launches8, **exec_launches8},
+                             **light_launches8, **exec_launches8,
+                             **cs_launches8},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

@@ -2,10 +2,10 @@
 
 Reference: internal/consensus/replay.go — the Handshaker (:214)
 reconciles the app's height with the block and state stores' at boot
-and replays the missing blocks into the application — through
-cometbft_tpu/consensus/replay.py, whose cases and ReplayError texts
-this copy keeps.  The WAL catch-up (catchupReplay) needs the WAL and
-ConsensusState and waits for ROADMAP A.7d-2.
+and replays the missing blocks into the application, and catchupReplay
+(:97) re-feeds the WAL's messages for the height in flight into a fresh
+ConsensusState — through cometbft_tpu/consensus/replay.py, whose cases
+and ReplayError texts this copy keeps.
 
 ``Handshaker(..., device=None)`` resolves its device at construction,
 as the block executor it hands the last block to does; replayed blocks
@@ -29,6 +29,9 @@ from ..state.store import Store
 from ..types.genesis import GenesisDoc
 from ..types.validator import Validator
 from ..types.validator_set import ValidatorSet
+from .messages import message_from_wal
+from .round_state import TimeoutInfo
+from .wal import WAL
 
 
 class ReplayError(Exception):
@@ -296,3 +299,55 @@ class Handshaker:
             raise ReplayError(
                 f"app hash {app_hash.hex()} does not match state app "
                 f"hash {state.app_hash.hex()}")
+
+
+async def catchup_replay(cs, wal_path: str) -> int:
+    """Re-feed WAL messages for the in-flight height into a fresh
+    ConsensusState (reference: replay.go catchupReplay :97).
+
+    Returns the number of messages replayed.
+    """
+    height = cs.rs.height
+    # ensure no end-height record exists for the CURRENT height (that
+    # would mean the block was finalized but the state not yet advanced —
+    # the handshake already handled it)
+    after_current = WAL.search_for_end_height(wal_path, height)
+    if after_current is not None:
+        raise ReplayError(
+            f"WAL should not contain end-height for {height}")
+    tail = WAL.search_for_end_height(wal_path, height - 1)
+    if tail is None:
+        if height > cs.sm_state.initial_height:
+            raise ReplayError(
+                f"cannot replay height {height}: WAL has no end-height "
+                f"marker for {height - 1}")
+        # fresh chain: replay everything in the WAL
+        try:
+            tail = list(WAL.iter_group(wal_path))
+        except FileNotFoundError:
+            return 0
+    n = 0
+    cs.replay_mode = True
+    try:
+        for record in tail:
+            t = record.get("type")
+            if t in ("round_state", "end_height"):
+                continue
+            if t == "timeout":
+                # replay timeout-driven step transitions too (reference
+                # replay.go:142 dispatches timeoutInfo to handleTimeout) —
+                # otherwise a node that crashed right after e.g. a
+                # precommit-wait round advance restarts a round behind
+                await cs._handle_timeout(TimeoutInfo(
+                    duration_ns=0,
+                    height=record.get("height", 0),
+                    round=record.get("round", 0),
+                    step=record.get("step", 0)))
+                n += 1
+                continue
+            msg = message_from_wal(record)
+            await cs._handle_msg(msg, "", internal=False)
+            n += 1
+    finally:
+        cs.replay_mode = False
+    return n

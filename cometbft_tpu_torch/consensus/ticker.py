@@ -1,0 +1,49 @@
+"""TimeoutTicker: schedulable per-step consensus timeouts.
+
+Reference: internal/consensus/ticker.go — one active timer; scheduling a
+new timeout for a later (h, r, s) replaces the pending one, stale fires
+are dropped by comparing (height, round, step).  The port's copy of
+cometbft_tpu/consensus/ticker.py.
+"""
+from __future__ import annotations
+
+import asyncio
+from typing import Callable, Optional
+
+from .round_state import TimeoutInfo
+
+
+class TimeoutTicker:
+    def __init__(self, on_timeout: Callable[[TimeoutInfo], None]):
+        self._on_timeout = on_timeout
+        self._task: Optional[asyncio.Task] = None
+        self._current: Optional[TimeoutInfo] = None
+
+    def schedule_timeout(self, ti: TimeoutInfo) -> None:
+        """Replace the pending timeout (reference: timeoutRoutine —
+        newer (h,r,s) always wins; the old timer is stopped)."""
+        cur = self._current
+        if cur is not None and self._task is not None and \
+                not self._task.done():
+            # ignore a schedule that is older than the pending one
+            if (ti.height, ti.round, ti.step) < \
+                    (cur.height, cur.round, cur.step):
+                return
+            self._task.cancel()
+        self._current = ti
+        self._task = asyncio.get_running_loop().create_task(
+            self._fire(ti))
+
+    async def _fire(self, ti: TimeoutInfo) -> None:
+        try:
+            await asyncio.sleep(ti.duration_ns / 1e9)
+        except asyncio.CancelledError:
+            return
+        if self._current is ti:
+            self._current = None
+        self._on_timeout(ti)
+
+    def stop(self) -> None:
+        if self._task is not None and not self._task.done():
+            self._task.cancel()
+        self._current = None

@@ -1,0 +1,279 @@
+"""Write-ahead log of consensus messages.
+
+Reference: internal/consensus/wal.go — CRC32C + length framed records via
+internal/autofile; WriteSync fsync barrier before height end;
+SearchForEndHeight for replay.  Record payloads here are canonical JSON
+(bytes hex-encoded) — WAL bytes are node-local, only durability and
+replayability matter.
+
+The port's copy of cometbft_tpu/consensus/wal.py: the framing (CRC32 +
+length + canonical JSON) is the JAX package's, so a WAL written by
+either package replays in the other.
+"""
+from __future__ import annotations
+
+import json
+import os
+import struct
+import zlib
+from typing import Iterator, Optional
+
+MAX_MSG_SIZE_BYTES = 1024 * 1024 * 2  # reference: wal.go maxMsgSizeBytes
+
+
+class WALError(Exception):
+    pass
+
+
+class CorruptWALError(WALError):
+    pass
+
+
+def _frame(payload: bytes) -> bytes:
+    crc = zlib.crc32(payload) & 0xFFFFFFFF
+    return struct.pack(">II", crc, len(payload)) + payload
+
+
+class WAL:
+    """Append-only message log with explicit fsync barriers and file
+    rotation.
+
+    Rotation mirrors the reference's autofile group (internal/autofile
+    group.go): when the head file exceeds head_size_limit the head is
+    renamed to `<path>.NNN` and a fresh head opened; when the group
+    exceeds total_size_limit the oldest rotated files are deleted.
+    Replay iterates rotated files oldest-first, then the head."""
+
+    def __init__(self, path: str,
+                 head_size_limit: int = 4 * 1024 * 1024,
+                 total_size_limit: int = 128 * 1024 * 1024):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._path = path
+        self._head_size_limit = head_size_limit
+        self._total_size_limit = total_size_limit
+        self._f = self._open_head()
+
+    def _open_head(self):
+        """Open the head for append, truncating any torn tail first.
+        A crash mid-write leaves a partial frame at EOF; appending
+        after it would make every later (valid) frame unreachable to
+        replay, which stops at the first bad frame."""
+        if os.path.exists(self._path):
+            with open(self._path, "rb") as f:
+                data = f.read()
+            good = _scan_valid_prefix(data)
+            if good < len(data):
+                # keep a forensics copy of the cut bytes (mirrors
+                # repair_wal_file's .corrupted stash)
+                with open(self._path + ".corrupted", "ab") as f:
+                    f.write(data[good:])
+                with open(self._path, "r+b") as f:
+                    f.truncate(good)
+        return open(self._path, "ab")
+
+    @property
+    def path(self) -> str:
+        return self._path
+
+    def reopen(self) -> None:
+        """Re-acquire the head-file handle.  Required after
+        repair_wal_file: repair may rename the head to .corrupted and
+        recreate it, and an already-open append handle would keep
+        writing to the renamed inode."""
+        try:
+            self._f.close()
+        except OSError:
+            pass
+        self._f = self._open_head()
+
+    def write(self, msg: dict) -> None:
+        """Buffered append (reference: WAL.Write for peer messages)."""
+        payload = json.dumps(msg, separators=(",", ":"),
+                             sort_keys=True).encode()
+        if len(payload) > MAX_MSG_SIZE_BYTES:
+            raise WALError(f"msg is too big: {len(payload)} bytes")
+        self._f.write(_frame(payload))
+        if self._f.tell() > self._head_size_limit:
+            self._rotate()
+
+    def _rotate(self) -> None:
+        """Head -> numbered group file; enforce the total size cap."""
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+        existing = WAL.group_files(self._path)[:-1]   # without head
+        nxt = 0
+        if existing:
+            nxt = int(existing[-1].rsplit(".", 1)[1]) + 1
+        os.replace(self._path, f"{self._path}.{nxt:03d}")
+        self._f = open(self._path, "ab")
+        # prune oldest rotated files beyond the total limit
+        files = WAL.group_files(self._path)[:-1]
+        total = sum(os.path.getsize(f) for f in files)
+        for f in files:
+            if total <= self._total_size_limit:
+                break
+            total -= os.path.getsize(f)
+            os.remove(f)
+
+    def write_sync(self, msg: dict) -> None:
+        """Append + flush + fsync (reference: WAL.WriteSync — used before
+        signing our own messages and at height boundaries)."""
+        self.write(msg)
+        self.flush_and_sync()
+
+    def flush_and_sync(self) -> None:
+        self._f.flush()
+        os.fsync(self._f.fileno())
+
+    def write_end_height(self, height: int) -> None:
+        """The fsync'd end-of-height barrier (reference:
+        EndHeightMessage, state.go:1901-1911)."""
+        self.write_sync({"type": "end_height", "height": height})
+
+    def close(self) -> None:
+        try:
+            self.flush_and_sync()
+        except ValueError:
+            pass
+        self._f.close()
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def group_files(path: str) -> list[str]:
+        """Rotated files (oldest first) + the head file, existing only."""
+        d = os.path.dirname(path) or "."
+        base = os.path.basename(path)
+        rotated = []
+        if os.path.isdir(d):
+            for name in os.listdir(d):
+                if name.startswith(base + "."):
+                    suffix = name[len(base) + 1:]
+                    if suffix.isdigit():
+                        rotated.append(os.path.join(d, name))
+        rotated.sort(key=lambda f: int(f.rsplit(".", 1)[1]))
+        out = rotated
+        if os.path.exists(path):
+            out = rotated + [path]
+        return out
+
+    @staticmethod
+    def iter_group(path: str, strict: bool = False) -> Iterator[dict]:
+        """All messages across the rotated group, oldest first."""
+        for f in WAL.group_files(path):
+            yield from WAL.iter_messages(f, strict=strict)
+
+    @staticmethod
+    def iter_messages(path: str, strict: bool = False) -> Iterator[dict]:
+        """Decode records; on a torn tail (crash mid-write) stop unless
+        strict."""
+        with open(path, "rb") as f:
+            data = f.read()
+        good = _scan_valid_prefix(data)
+        pos = 0
+        while pos < good:
+            crc, length = struct.unpack(">II", data[pos:pos + 8])
+            yield json.loads(data[pos + 8:pos + 8 + length])
+            pos += 8 + length
+        if good < len(data):
+            # distinguish a torn tail (clean-stop unless strict) from
+            # mid-file corruption (always an error)
+            tail = len(data) - good
+            if tail >= 8:
+                crc, length = struct.unpack(">II",
+                                            data[good:good + 8])
+                if length <= MAX_MSG_SIZE_BYTES and \
+                        len(data) - good - 8 >= length:
+                    raise CorruptWALError(
+                        f"crc mismatch at offset {good}")
+                if length > MAX_MSG_SIZE_BYTES:
+                    raise CorruptWALError(
+                        f"frame too large: {length}")
+            if strict:
+                raise CorruptWALError("truncated frame")
+
+    @staticmethod
+    def search_for_end_height(path: str, height: int
+                              ) -> Optional[list[dict]]:
+        """Messages AFTER the end-height marker for `height`, or None if
+        the marker is absent (reference: SearchForEndHeight)."""
+        if not WAL.group_files(path):
+            return None
+        found = False
+        out: list[dict] = []
+        for msg in WAL.iter_group(path):
+            if found:
+                out.append(msg)
+            elif msg.get("type") == "end_height" and \
+                    msg.get("height") == height:
+                found = True
+        return out if found else None
+
+
+def _scan_valid_prefix(data: bytes) -> int:
+    """Byte offset of the first invalid frame (== len(data) when all
+    frames are intact).  THE corruption rule — iter_messages and repair
+    share it so replay and repair always agree on the cut point."""
+    pos = 0
+    n = len(data)
+    while pos < n:
+        if n - pos < 8:
+            return pos
+        crc, length = struct.unpack(">II", data[pos:pos + 8])
+        if length > MAX_MSG_SIZE_BYTES or n - pos - 8 < length:
+            return pos
+        payload = data[pos + 8:pos + 8 + length]
+        if zlib.crc32(payload) & 0xFFFFFFFF != crc:
+            return pos
+        pos += 8 + length
+    return pos
+
+
+def repair_wal_file(path: str) -> int:
+    """Repair the WAL GROUP: truncate the first file containing a
+    corrupt frame and drop every later file — nothing after a corrupt
+    frame can be trusted as a contiguous record (reference:
+    consensus/wal.go repair driven by state.go OnStart's corruption
+    retry).  Corrupt content is stashed in .corrupted files.  Returns
+    bytes dropped."""
+    import shutil
+    dropped = 0
+    cut = False
+    for f_path in WAL.group_files(path):
+        if cut:
+            dropped += os.path.getsize(f_path)
+            shutil.move(f_path, f_path + ".corrupted")
+            continue
+        with open(f_path, "rb") as f:
+            data = f.read()
+        good = _scan_valid_prefix(data)
+        if good < len(data):
+            cut = True
+            dropped += len(data) - good
+            shutil.copy(f_path, f_path + ".corrupted")
+            with open(f_path, "r+b") as f:
+                f.truncate(good)
+    # the head file must exist for reopen even if it was dropped
+    if not os.path.exists(path):
+        open(path, "ab").close()
+    return dropped
+
+
+class NilWAL:
+    """No-op WAL (reference: nilWAL)."""
+    path = ""
+
+    def write(self, msg: dict) -> None:
+        pass
+
+    def write_sync(self, msg: dict) -> None:
+        pass
+
+    def flush_and_sync(self) -> None:
+        pass
+
+    def write_end_height(self, height: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

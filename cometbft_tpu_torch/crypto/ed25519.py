@@ -1,14 +1,20 @@
 """ed25519 keys — the default validator key type.
 
 Reference: crypto/ed25519/ed25519.go — ZIP-215 verification semantics
-(:36-44).  Signing and single-signature verification go through the
-pure-Python golden model (crypto/_ed25519_ref.py), so this module needs
-no OpenSSL bindings.  Batches go through crypto/batch.py and the CUDA
-kernel.
+(:36-44) — through cometbft_tpu/crypto/ed25519.py.  Signing and
+single-signature verification run the host library
+(ops/ed25519_host.py, g++-built and self-tested at load; the JAX package
+uses OpenSSL for both), which raises rather than falls back when it
+cannot build.  The pure-Python golden model (crypto/_ed25519_ref.py) is
+its plain version and is on no path.  Batches go through crypto/batch.py
+and the CUDA kernel.
 """
 from __future__ import annotations
 
-from . import _ed25519_ref as ref
+import hashlib
+import secrets
+
+from ..ops import ed25519_host as host
 from .keys import PrivKey, PubKey, address_hash
 
 KEY_TYPE = "ed25519"
@@ -40,7 +46,7 @@ class Ed25519PubKey(PubKey):
     def verify_signature(self, msg: bytes, sig: bytes) -> bool:
         if len(sig) != SIGNATURE_SIZE:
             return False
-        return ref.verify(self._raw, msg, sig)
+        return host.verify(self._raw, msg, sig)
 
 
 class Ed25519PrivKey(PrivKey):
@@ -53,13 +59,13 @@ class Ed25519PrivKey(PrivKey):
         if len(raw) != 32:
             raise ValueError("ed25519 privkey must be 32-byte seed or 64 bytes")
         self._seed = bytes(raw)
-        self._pub = ref.public_key(self._seed)
+        self._pub = host.public_key(self._seed)
 
     def bytes(self) -> bytes:
         return self._seed + self._pub  # 64-byte reference layout
 
     def sign(self, msg: bytes) -> bytes:
-        return ref.sign(self._seed, msg)
+        return host.sign(self._seed, self._pub, msg)
 
     def pub_key(self) -> Ed25519PubKey:
         return Ed25519PubKey(self._pub)
@@ -67,3 +73,13 @@ class Ed25519PrivKey(PrivKey):
     def type(self) -> str:
         return KEY_TYPE
 
+
+
+def gen_priv_key() -> Ed25519PrivKey:
+    return Ed25519PrivKey(secrets.token_bytes(32))
+
+
+def gen_priv_key_from_secret(secret: bytes) -> Ed25519PrivKey:
+    """Deterministic key from a secret (reference: GenPrivKeyFromSecret —
+    seed = SHA-256(secret))."""
+    return Ed25519PrivKey(hashlib.sha256(secret).digest())

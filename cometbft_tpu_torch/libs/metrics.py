@@ -103,6 +103,8 @@ class Counter(_Metric):
             raise ValueError("counters only go up")
         self._value += v
 
+    inc = add
+
     @property
     def value(self) -> float:
         return self._value
@@ -124,6 +126,12 @@ class Gauge(_Metric):
 
     def set(self, v: float) -> None:
         self._value = float(v)
+
+    def add(self, v: float = 1.0) -> None:
+        self._value += v
+
+    def sub(self, v: float = 1.0) -> None:
+        self._value -= v
 
     @property
     def value(self) -> float:

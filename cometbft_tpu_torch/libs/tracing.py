@@ -3,9 +3,10 @@
 Reference: cometbft_tpu/libs/tracing.py (:56-391), trimmed to what the
 port records: monotonic-clock spans on a ``deque(maxlen=size)`` per
 category, read back as one timeline.  ``span()`` of a disabled recorder
-or category returns a shared inert context manager.  Not kept: instant
-events, the consensus height stamp, clock anchors and crash dumps (the
-port has no node yet).
+or category returns a shared inert context manager.  Instant events are
+spans of zero duration.  Not kept: the consensus height stamp (the
+spans carry their height as an attribute), clock anchors and crash
+dumps (the port has no node yet).
 
 Events are tuples ``(ts_ns, dur_ns, name, attrs)``; ``time.monotonic_ns``
 is the only clock.
@@ -144,6 +145,19 @@ def record_span(category: str, name: str, start_ns: int,
         return
     r.record(category, name, start_ns,
              end_ns if end_ns is not None else now_ns(), attrs or None)
+
+
+def instant(category: str, name: str, **attrs) -> None:
+    """Record a zero-duration point event."""
+    r = _R
+    if not r.enabled_for(category):
+        return
+    t = now_ns()
+    r.record(category, name, t, t, attrs or None)
+
+
+def enabled(category: str = "") -> bool:
+    return _R.enabled_for(category) if category else _R.enabled
 
 
 def snapshot(category: Optional[str] = None, limit: int = 0) -> list[dict]:

@@ -1,16 +1,17 @@
-"""Build and load the port's three native libraries, each with a plain C
+"""Build and load the port's native libraries, each with a plain C
 interface, loaded through ctypes.
 
   * the CUDA kernels: nvcc by hand into one shared library.  Each source
     compiles in its own nvcc process, all started together, and one
     more nvcc links the objects into the library;
-  * the host prep (``ed25519_prep.cpp``) and the host BLS12-381
-    arithmetic (``bls_native.cpp``): g++, each into a library of its
-    own, so they build and run where there is no nvcc.  No
-    ``-march=native``: the multi-buffer SHA-512 and SHA-NI paths carry
-    their own ``target(...)`` attributes and check the CPU at run time.
-    The BLS library runs its self-test once a load and raises if it
-    fails.
+  * the host prep (``ed25519_prep.cpp``), the host BLS12-381
+    arithmetic (``bls_native.cpp``) and the host ed25519 sign and single
+    verify (``ed25519_host.cpp``): g++, each into a library of its own,
+    so they build and run where there is no nvcc.  No ``-march=native``:
+    the multi-buffer SHA-512 and SHA-NI paths carry their own
+    ``target(...)`` attributes and check the CPU at run time.  The BLS
+    and ed25519 libraries run their self-tests once a load and raise if
+    one fails.
 
 Each library is built at first use into ``build/`` at the repository
 root, named by a hash of its sources, its headers and the flags, so an
@@ -37,20 +38,24 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
 HOST_SOURCE = "ed25519_prep.cpp"
 BLS_SOURCE = "bls_native.cpp"
+ED25519_HOST_SOURCE = "ed25519_host.cpp"
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _host_lock = threading.Lock()
 _bls_lock = threading.Lock()
+_ed25519_host_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _host_lib: ctypes.CDLL | None = None
 _bls_lib: ctypes.CDLL | None = None
+_ed25519_host_lib: ctypes.CDLL | None = None
 # what the last build or load reported: path, seconds (wall, the
 # compiles and the link), ptxas output
 build_info: dict = {}
 # the same for the host libraries: path, seconds (g++ wall), cached
 host_build_info: dict = {}
 bls_build_info: dict = {}
+ed25519_host_build_info: dict = {}
 
 
 def nvcc_path() -> str:
@@ -174,6 +179,12 @@ def build_bls() -> Path:
     return _build_host_library(BLS_SOURCE, "cometbft_bls", bls_build_info)
 
 
+def build_ed25519_host() -> Path:
+    """The host ed25519 library, built at first use."""
+    return _build_host_library(ED25519_HOST_SOURCE, "cometbft_ed25519",
+                               ed25519_host_build_info)
+
+
 def load_host() -> ctypes.CDLL:
     """The built host library with its C signatures declared."""
     global _host_lib
@@ -225,3 +236,32 @@ def load_bls() -> ctypes.CDLL:
             bls_build_info["selftest_seconds"] = time.perf_counter() - t0
             _bls_lib = lib
         return _bls_lib
+
+
+def load_ed25519_host() -> ctypes.CDLL:
+    """The built host ed25519 library with its C signatures declared,
+    after its self-test passed (once a load); a failed build or
+    self-test raises."""
+    global _ed25519_host_lib
+    with _ed25519_host_lock:
+        if _ed25519_host_lib is None:
+            lib = ctypes.CDLL(str(build_ed25519_host()))
+            ptr, i64 = ctypes.c_char_p, ctypes.c_int64
+            buf = ctypes.c_void_p
+            for name, args in (
+                    ("ed25519_host_selftest", []),
+                    ("ed25519_host_public_key", [ptr, buf]),
+                    ("ed25519_host_sign", [ptr, ptr, ptr, i64, buf]),
+                    ("ed25519_host_verify", [ptr, ptr, i64, ptr])):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            t0 = time.perf_counter()
+            if lib.ed25519_host_selftest() != 1:
+                raise RuntimeError(
+                    f"the host ed25519 library failed its self-test: "
+                    f"{ed25519_host_build_info.get('path')}")
+            ed25519_host_build_info["selftest_seconds"] = \
+                time.perf_counter() - t0
+            _ed25519_host_lib = lib
+        return _ed25519_host_lib

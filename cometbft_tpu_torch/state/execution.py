@@ -9,9 +9,10 @@ cometbft_tpu/state/execution.py, whose error texts this copy keeps.
 ``BlockExecutor(..., device=None)`` resolves its device at construction
 (the card; it raises where CUDA is absent) and validates every block on
 it: ``apply_block`` verifies the block's LastCommit on B1 before the app
-sees the block.  The mempool and the evidence pool are the no-op ones;
-the aggregate-commit proposer path (BLS aggregation of the extended
-commit) is not ported.
+sees the block.  The mempool and the evidence pool are the no-op ones
+(the mempool until ROADMAP.md A.7e-3: it reaps nothing and resolves no
+tx hash).  On an aggregate-commit chain the proposer aggregates the
+last commit as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -206,6 +207,12 @@ class _NopMempool:
                                ) -> list[bytes]:
         return []
 
+    def size(self) -> int:
+        return 0
+
+    def get_tx_by_hash(self, tx_hash: bytes):
+        return None
+
     async def update(self, height, txs, tx_results, pre_check=None,
                      post_check=None):
         pass
@@ -242,7 +249,10 @@ class BlockExecutor:
         """Reference: execution.go CreateProposalBlock (:113).
 
         On an aggregate-commit chain the block embeds the aggregate
-        form, which the caller passes as ``last_aggregate_commit``."""
+        form: normally aggregated here from the extended commit's
+        per-vote signatures; a node restored from an aggregate seen
+        commit passes the stored aggregate as
+        ``last_aggregate_commit``."""
         max_bytes = state.consensus_params.block.max_bytes
         empty_max_bytes = max_bytes == -1
         if empty_max_bytes:
@@ -259,11 +269,9 @@ class BlockExecutor:
         if height != state.initial_height and \
                 state.consensus_params.feature \
                 .aggregate_commits_enabled(height - 1):
-            if last_aggregate_commit is None:
-                raise ExecutionError(
-                    "aggregating a commit on the proposer is not "
-                    "ported; pass last_aggregate_commit")
-            commit = last_aggregate_commit
+            commit = last_aggregate_commit \
+                if last_aggregate_commit is not None \
+                else AggregateCommit.from_commit(commit)
         block = state.make_block(height, txs, commit, evidence,
                                  proposer_addr)
         rpp = await self.proxy_app.prepare_proposal(

@@ -5,8 +5,8 @@ Reference: types/block.go:634-1300 — CommitSig (one slot per validator,
 flag Absent/Commit/Nil), GetVote and VoteSignBytes reconstruction,
 ExtendedCommitSig / ExtendedCommit (the votes' extensions kept beside
 the commit) — through cometbft_tpu/types/commit.py (:111-126, :216-227,
-:375-514), and its :230-360 for AggregateCommit (one BLS signature and a
-signer bitmap).  ``Commit.validate_basic`` is ported for the light
+:375-514), and its :230-372 for AggregateCommit (one BLS signature and a
+signer bitmap, and ``from_commit``, the proposer's aggregation).  ``Commit.validate_basic`` is ported for the light
 client's SignedHeader; ``hash`` (the header's LastCommitHash, :988) and
 ``median_time`` (BFT time, :968) for blocks.
 """
@@ -331,6 +331,34 @@ class AggregateCommit:
             signers=ba,
             signature=d.get("signature", b""),
         )
+
+    @classmethod
+    def from_commit(cls, commit: Commit) -> "AggregateCommit":
+        """Aggregate a per-signature commit's FOR-block signatures
+        (the proposer path: the precommit vote set is materialized as
+        a Commit first, then aggregated — O(n) G2 adds in the host BLS
+        library).  All COMMIT-flag signatures must be BLS; nil/absent
+        slots stay unset."""
+        from ..crypto import bls12381
+        ba = BitArray(len(commit.signatures))
+        sigs = []
+        for i, cs in enumerate(commit.signatures):
+            if cs.block_id_flag != BLOCK_ID_FLAG_COMMIT:
+                continue
+            if len(cs.signature) != cls.BLS_SIGNATURE_SIZE:
+                raise CommitError(
+                    f"commit sig #{i} is not a BLS signature "
+                    f"({len(cs.signature)} bytes)")
+            ba.set_index(i, True)
+            sigs.append(cs.signature)
+        if not sigs:
+            raise CommitError("no FOR-block signatures to aggregate")
+        try:
+            agg = bls12381.aggregate(sigs)
+        except ValueError as e:
+            raise CommitError(f"cannot aggregate commit: {e}") from e
+        return cls(height=commit.height, round=commit.round,
+                   block_id=commit.block_id, signers=ba, signature=agg)
 
 
 @dataclass

@@ -3,8 +3,9 @@
 Reference: types/priv_validator.go — SignVote / SignProposal /
 SignBytes(raw) over a PrivKey; MockPV for tests — through
 cometbft_tpu/types/priv_validator.py.  MockPV takes its key from the
-caller, so a test can make it from a seed; the file-backed signer with
-double-sign protection is not ported.
+caller, so a test can make it from a seed; ``new_mock_pv`` makes one on
+a fresh random ed25519 key.  The file-backed signer with double-sign
+protection is not ported.
 """
 from __future__ import annotations
 
@@ -72,3 +73,8 @@ class MockPV(PrivValidator):
 
     def sign_bytes(self, msg: bytes) -> bytes:
         return self.priv_key.sign(msg)
+
+
+def new_mock_pv() -> MockPV:
+    from ..crypto import ed25519
+    return MockPV(ed25519.gen_priv_key())

@@ -15,6 +15,12 @@ def tx_hash(tx: bytes) -> bytes:
     return tmhash.sum(tx)
 
 
+def tx_key(tx: bytes) -> bytes:
+    """Map key for mempool dedup and compact blocks (reference:
+    types/tx.go TxKey — the sha256 of the tx)."""
+    return tmhash.sum(tx)
+
+
 def hash_each(txs: Sequence[bytes]) -> list[bytes]:
     """Per-tx sha256 digests (reference: Txs.Hash's TxID loop)."""
     return [tmhash.sum(tx) for tx in txs]

@@ -2,8 +2,10 @@
 
   * importing every module of cometbft_tpu_torch (in a fresh
     interpreter; the chain below consensus included: the block executor,
-    the stores, the kvstore app, the state tree, the Handshaker) loads
-    neither jax nor anything of cometbft_tpu;
+    the stores, the kvstore app, the state tree, the Handshaker; and the
+    consensus state machine: ConsensusState, the WAL, the round state,
+    the ticker, adaptive timeouts, pubsub, the supervisor, the config,
+    the host ed25519) loads neither jax nor anything of cometbft_tpu;
   * the entry points resolve ``device=None`` to CUDA and raise where
     CUDA is absent — no silent CPU fallback;
   * the kernel wrapper rejects wrong dtypes, shapes, devices and
@@ -54,6 +56,20 @@ def test_port_imports_no_jax_and_no_reference():
             "cometbft_tpu_torch.consensus.replay",
             "cometbft_tpu_torch.types.genesis",
             "cometbft_tpu_torch.types.params"} <= set(mods)
+    assert {"cometbft_tpu_torch.consensus.state",
+            "cometbft_tpu_torch.consensus.wal",
+            "cometbft_tpu_torch.consensus.round_state",
+            "cometbft_tpu_torch.consensus.ticker",
+            "cometbft_tpu_torch.consensus.adaptive",
+            "cometbft_tpu_torch.consensus.metrics",
+            "cometbft_tpu_torch.consensus.messages",
+            "cometbft_tpu_torch.libs.pubsub",
+            "cometbft_tpu_torch.libs.supervisor",
+            "cometbft_tpu_torch.config",
+            "cometbft_tpu_torch.types.events",
+            "cometbft_tpu_torch.wire.consensus_pb",
+            "cometbft_tpu_torch.crypto.benchmarking",
+            "cometbft_tpu_torch.ops.ed25519_host"} <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -98,6 +114,36 @@ def test_entry_points_raise_without_cuda():
                     signatures=[CommitSig.absent()])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pv.verify_commit("c", vals, BlockID(b"h" * 32), 1, commit)
+
+
+def test_consensus_state_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cometbft_tpu_torch.abci.client import AppConns
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.config import ConsensusConfig
+    from cometbft_tpu_torch.consensus.state import ConsensusState
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.state import make_genesis_state
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.store import Store
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    priv = p_ed.Ed25519PrivKey(bytes(range(32)))
+    doc = GenesisDoc(chain_id="c", validators=[
+        GenesisValidator(b"", priv.pub_key(), 10)])
+    state = make_genesis_state(doc)
+    store, blocks = Store(MemDB()), BlockStore(MemDB())
+    conns = AppConns(KVStoreApplication())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BlockExecutor(store, conns.consensus, block_store=blocks)
+    exec_ = BlockExecutor(store, conns.consensus, block_store=blocks,
+                          device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ConsensusState(ConsensusConfig(), state, exec_, blocks)
+    cs = ConsensusState(ConsensusConfig(), state, exec_, blocks,
+                        device="cpu")
+    assert cs.device == torch.device("cpu")
 
 
 def _cols(n=4, dtype=torch.int32):

@@ -419,12 +419,18 @@ def test_p2p_messages_same_bytes_and_cross_decode():
 
 
 def test_other_message_kinds_raise_naming_the_queue_item():
+    """Since the consensus slice (ROADMAP.md A.7d-2) every kind decodes
+    as the JAX package's does; only what neither package encodes still
+    raises, with the JAX package's text."""
     raw = r_msgs.encode_p2p(r_msgs.HasVoteMessage(height=3, round=1,
                                                   type=1, index=2))
-    with pytest.raises(ValueError, match="A.7d"):
-        p_msgs.decode_p2p(raw)
-    with pytest.raises(ValueError, match="A.7d"):
+    back = p_msgs.decode_p2p(raw)
+    assert type(back).__name__ == "HasVoteMessage"
+    assert p_msgs.encode_p2p(back) == raw
+    with pytest.raises(ValueError, match="cannot encode message"):
         p_msgs.encode_p2p(object())
+    with pytest.raises(ValueError, match="unknown consensus message"):
+        p_msgs.decode_p2p(b"")
 
 
 # -- the memo -------------------------------------------------------------------
