@@ -5,8 +5,10 @@
 Builds the CUDA kernels from the sources in this checkout (one library:
 ed25519_verify.cu, ed25519_verify8.cu, microbench.cu), the host prep
 (ed25519_prep.cpp, g++, a library of its own), the host BLS12-381
-library (bls_native.cpp, g++, self-tested at load) and the host ed25519
-(ed25519_host.cpp, g++, self-tested at load), prints what ptxas says of
+library (bls_native.cpp, g++, self-tested at load), the host ed25519
+(ed25519_host.cpp, g++, self-tested at load) and the secret connection's
+ChaCha20-Poly1305 (chacha20poly1305.cpp, g++, self-tested at load on the
+RFC 8439 vector), prints what ptxas says of
 the two verifiers and of B3's four point-op kernels, holds the C prep
 byte for byte to its plain version (numpy and hashlib) on edge-case
 items, block-crossing message lengths and the commit's own entries, and
@@ -102,6 +104,25 @@ machine must refuse (a non-proposer's proposal, a bad-proof part, a
 conflicting vote, two WALs catchup_replay refuses) and a stand-in kernel
 that raises in the receive routine, which must stop consensus without a
 restart.
+Phases 13a-13c drive p2p and the consensus reactor (p2p/'s secret
+connection on the host AEAD, MConnection with its rate limiters, Switch,
+and consensus/reactor.py's ConsensusReactor with its gossip routines):
+BASELINE.json config 1 over sockets, four validators on 127.0.0.1 each
+with a Switch, a ConsensusReactor and a ConsensusState, dialed full mesh
+through the secret connection, the JAX package's test timeouts, 50
+heights, timed a height beside 12c's in-process figure, with B1's
+launches, serial host verifies, wire bytes by channel, the handshake and
+the seal and open of a frame, the four stores equal and every commit
+verified on B1; a full node restarted with a Switch and a reactor over
+the stores phase 12 leaves (the twin's 150-validator chain) and a fresh
+joiner from genesis that dials it and catches up the first 50 of its
+100 heights by the reactor's gossip alone, its rows, State.bytes() and app hash held to the
+twin's at every height; and the AEAD library against its plain version
+on 1,000 seeded inputs, a tampered frame, a low-order X25519 key,
+another network and a self-dial refused with the JAX texts, and a
+stand-in kernel that raises in one socket node's receive routine, which
+must stop that node's consensus without a restart while the other three
+go on.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -285,6 +306,16 @@ NET_VALIDATORS = 4        # 12c
 NET_HEIGHTS = 50
 HOST_INPUTS = 1000        # 12d: seeded keys, signatures and verdicts
 HOST_TIMED = 200          # 12d: timed sign and verify calls
+# phase 13: p2p and the consensus reactor.  13a is BASELINE.json config 1
+# over sockets; 13b catches a joiner up on phase 12's 150-validator chain
+SOCK_VALIDATORS = 4       # 13a
+SOCK_HEIGHTS = 50
+# 13b: the joiner's depth, cut from the chain's 100 heights to keep phase 13
+# inside its 60 s budget (at 100, phase 13 took 58-85 s on an NVIDIA H100
+# 80GB HBM3 at 700 W, with the spread of the card's host)
+CATCHUP_HEIGHTS = 50
+AEAD_INPUTS = 1000        # 13c: seeded (key, nonce, aad, message) inputs
+AEAD_LENS = (0, 3, 1023, 1024, 1028)   # 13c: message lengths among them
 
 
 def _mixed_kind(i: int) -> str:
@@ -3190,6 +3221,7 @@ def _cs_live(seed, card, signer, ek, tracing, device, loop, wal_dir):
            f"parts, prevotes and precommits as wire bytes for {top} heights")
     t0 = time.perf_counter()
     chain, twin_states = _cs_twin(seed, signer, top + 1, device)
+    chain.states = twin_states
     twin_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     feed = _cs_feed(chain, range(1, top + 2), signer)
@@ -3422,6 +3454,20 @@ def _cs_crash(seed, card, chain, feed, raw, node, ek, ek8, oe, device, loop):
     return launches, b2, node2
 
 
+def _net_doc(seed, n, chain_id):
+    """A genesis of n equal-power validators whose keys come from seed,
+    and their MockPVs."""
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.priv_validator import MockPV
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    pvs = [MockPV(Ed25519PrivKey(_seed(seed, i))) for i in range(n)]
+    doc = GenesisDoc(chain_id=chain_id, genesis_time=Timestamp(EXEC_T0, 0),
+                     validators=[GenesisValidator(b"", pv.get_pub_key(), 10)
+                                 for pv in pvs])
+    return doc, pvs
+
+
 async def _net_run(doc, pvs, device, heights, timeout_s=120.0):
     """Four validators wired full-mesh in process, every message through
     encode_p2p / decode_p2p; returns (nodes, NewBlock seconds of node 0)."""
@@ -3462,21 +3508,15 @@ async def _net_run(doc, pvs, device, heights, timeout_s=120.0):
 
 def _cs_net(seed, card, ek, device, loop):
     """12c: BASELINE.json config 1, four validators with the kvstore app
-    and the JAX package's test_config timeouts; returns B1 launches."""
-    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    and the JAX package's test_config timeouts; returns (B1 launches, ms
+    a height)."""
     from cometbft_tpu_torch.ops import ed25519_host as host
     from cometbft_tpu_torch.types import validation
-    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
-    from cometbft_tpu_torch.types.priv_validator import MockPV
-    from cometbft_tpu_torch.types.timestamp import Timestamp
     from cometbft_tpu_torch.wire import encode, pb
     n, top = NET_VALIDATORS, NET_HEIGHTS
     _phase(f"12c net-{n}x{top}: {n} validators, full mesh through the wire "
            f"codec, kvstore app, test_config timeouts, {top} heights")
-    pvs = [MockPV(Ed25519PrivKey(_seed(seed + 120, i))) for i in range(n)]
-    doc = GenesisDoc(chain_id="net-chip", genesis_time=Timestamp(EXEC_T0, 0),
-                     validators=[GenesisValidator(b"", pv.get_pub_key(), 10)
-                                 for pv in pvs])
+    doc, pvs = _net_doc(seed + 120, n, "net-chip")
     _clear_memos()
     ek.launches = 0
     with _timed(host, "sign") as signs, _timed(host, "verify") as verifies, \
@@ -3511,7 +3551,7 @@ def _cs_net(seed, card, ek, device, loop):
          f"rounds above 0: {rounds}; gc in the run: {_gc_line(pauses)}; "
          f"four stores agree at every height, every commit verifies; "
          f"card: {card}")
-    return launches
+    return launches, ms
 
 
 def _cs_host(seed, card, pool, chain, feed):
@@ -3726,11 +3766,13 @@ def _cs_reject(seed, card, chain, feed, node2, signer, ek, device, loop,
     return ek.launches - launches
 
 
-def _cs_phases(seed, card, pool, device=None):
+def _cs_phases(seed, card, pool, device=None, keep=None):
     """Phases 12a-12e: the consensus state machine (ConsensusState with
     its round state, ticker, timeouts and supervisor, every consensus
     message, EventBus, the WAL and catch-up, the host ed25519).  Returns
-    B1's launches by part and B2's."""
+    B1's launches by part and B2's; fills ``keep`` with what phase 13
+    reads: the twin chain (its states at ``chain.states``), the stores
+    12b's resumed node leaves and 12c's ms a height."""
     import shutil
     import tempfile
 
@@ -3755,10 +3797,12 @@ def _cs_phases(seed, card, pool, device=None):
             seed, card, signer, ek, tracing, device, loop, wal_dir)
         crash, crash8, node2 = _cs_crash(seed, card, chain, feed, raw, node,
                                          ek, ek8, oe, device, loop)
-        net = _cs_net(seed, card, ek, device, loop)
+        net, net_ms = _cs_net(seed, card, ek, device, loop)
         _cs_host(seed, card, pool, chain, feed)
         reject = _cs_reject(seed, card, chain, feed, node2, signer, ek,
                             device, loop, wal_dir)
+        if keep is not None:
+            keep.update(chain=chain, dbs=node2.dbs, net_ms=net_ms)
     finally:
         logging.disable(logging.NOTSET)
         loop.close()
@@ -3770,6 +3814,540 @@ def _cs_phases(seed, card, pool, device=None):
              f"net_{NET_VALIDATORS}x{NET_HEIGHTS}": net,
              "cs_reject": reject},
             {f"wal_replay_{EXEC_VALIDATORS}_cuda8": crash8})
+
+
+# -- phase 13: p2p and the consensus reactor ----------------------------------
+
+def _p2p_metrics_bytes(switches, family):
+    """{channel: bytes} summed over the switches' p2p metrics."""
+    out = collections.Counter()
+    for sw in switches:
+        fam = getattr(sw.metrics, family)
+        for ch in ("0x20", "0x21", "0x22", "0x23"):
+            out[ch] += fam.with_labels(ch).value
+    return out
+
+
+async def _sock_node(doc, device, key_seed, pv=None, config=None, dbs=None):
+    """A _CsNode with a Switch on 127.0.0.1 (port 0), a ConsensusReactor
+    and a node key made from ``key_seed``."""
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
+    from cometbft_tpu_torch.p2p import NodeKey, Switch
+    node = await _CsNode.make(doc, device, dbs=dbs, config=config, pv=pv)
+    node.switch = Switch(NodeKey(Ed25519PrivKey(key_seed)), doc.chain_id,
+                         listen_addr="127.0.0.1:0")
+    node.reactor = ConsensusReactor(node.cs)
+    node.switch.add_reactor(node.reactor)
+    await node.switch.start()
+    return node
+
+
+async def _sock_mesh(nodes, timeout_s=30.0):
+    """Dial every pair once (the lower index dials) and wait until each
+    node has every other as a peer."""
+    for i, node in enumerate(nodes):
+        for other in nodes[i + 1:]:
+            await asyncio.wait_for(
+                node.switch.dial_peer(other.switch.listen_addr), timeout_s)
+
+    async def meshed():
+        while not all(n.switch.num_peers() == len(nodes) - 1
+                      for n in nodes):
+            await asyncio.sleep(0.005)
+    await asyncio.wait_for(meshed(), timeout_s)
+
+
+async def _sock_stop(nodes):
+    """Stop every node's consensus, then its switch; the first consensus
+    failure is re-raised after all are stopped."""
+    failure = None
+    for node in nodes:
+        try:
+            await node.cs.stop()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            failure = failure or e
+        await node.switch.stop()
+    if failure is not None:
+        raise failure
+
+
+def _sock_net(seed, card, ek, tracing, device, loop, net_ms):
+    """13a: BASELINE.json config 1 over sockets — four validators, each
+    with a Switch, a ConsensusReactor and a ConsensusState over the
+    kvstore app, full mesh through the secret connection, test_config
+    timeouts.  Returns B1 launches."""
+    from cometbft_tpu_torch.config import test_config
+    from cometbft_tpu_torch.ops import aead_host
+    from cometbft_tpu_torch.ops import ed25519_host as host
+    from cometbft_tpu_torch.p2p.secret_connection import SecretConnection
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    from cometbft_tpu_torch.wire import encode, pb
+    n, top = SOCK_VALIDATORS, SOCK_HEIGHTS
+    _phase(f"13a sock-{n}x{top}: {n} validators on 127.0.0.1, each a "
+           f"Switch + ConsensusReactor + ConsensusState over the kvstore "
+           f"app, full mesh through the secret connection, test_config "
+           f"timeouts, {top} heights")
+    doc, pvs = _net_doc(seed + 130, n, "sock-chip")
+    _clear_memos()
+    ek.launches = 0
+    tracing.clear()
+
+    async def run():
+        nodes = [await _sock_node(doc, device, _seed(seed + 131, i), pv=pv,
+                                  config=test_config().consensus)
+                 for i, pv in enumerate(pvs)]
+        try:
+            with _async_timed(SecretConnection, "make") as hs:
+                t0 = time.perf_counter()
+                await _sock_mesh(nodes)
+                mesh_s = time.perf_counter() - t0
+            sub = nodes[0].bus.subscribe("chip-smoke-sock",
+                                         EVENT_QUERY_NEW_BLOCK,
+                                         out_capacity=1000)
+            stamps = [time.perf_counter()]
+            for node in nodes:
+                await node.cs.start()
+            for h in range(1, top + 1):
+                for node in nodes:
+                    node.cs.raise_if_failed()
+                await _cs_new_block(nodes[0], sub, h)
+                stamps.append(time.perf_counter())
+            await _cs_until(nodes[0], lambda: all(
+                nd.block_store.height >= top for nd in nodes),
+                "every node at the last height")
+        finally:
+            await _sock_stop(nodes)
+        return nodes, stamps, hs, mesh_s
+
+    with _timed(aead_host.ChaCha20Poly1305, "encrypt") as seals, \
+            _timed(aead_host.ChaCha20Poly1305, "decrypt") as opens, \
+            _timed(host, "verify") as verifies, _gc_pauses() as pauses:
+        nodes, stamps, hs, mesh_s = loop.run_until_complete(run())
+    launches = ek.launches
+    lanes = [ev["attrs"]["batch"]
+             for ev in tracing.snapshot(category=tracing.CRYPTO)
+             if ev["name"] == "batch_verify"]
+    ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    total_s = stamps[-1] - stamps[1]
+    # the gates: the four stores agree, and every commit verifies
+    for h in range(1, top + 1):
+        blocks = {encode(pb.BLOCK, node.block_store.load_block(h).to_proto())
+                  for node in nodes}
+        if len(blocks) != 1:
+            raise AssertionError(f"13a: the nodes' blocks at {h} differ")
+    store, rounds = nodes[0].block_store, 0
+    l0 = ek.launches
+    for h in range(1, top + 1):
+        commit = store.load_block(h + 1).last_commit if h < top else \
+            store.load_seen_commit(h)
+        rounds += commit.round > 0
+        validation.verify_commit(
+            doc.chain_id, nodes[0].state_store.load_validators(h),
+            store.load_block_meta(h).block_id, h, commit, device=device)
+    if ek.launches - l0 < top:
+        raise AssertionError("13a: a commit did not verify on B1")
+    sent = _p2p_metrics_bytes([nd.switch for nd in nodes],
+                              "message_send_bytes_total")
+    useful = _p2p_metrics_bytes([nd.switch for nd in nodes],
+                                "message_useful_bytes_total")
+    _log(f"sock_{n}x{top} ms a height (NewBlock to NewBlock on node 0, "
+         f"heights 2-{top}) {_p50_p90(ms)} against net_{n}x{top}'s "
+         f"in-process {_p50_p90(net_ms)} in this call; heights a second "
+         f"{(top - 1) / total_s:.2f}; B1 launches {launches} "
+         f"({launches / top:.2f} a height), lanes a launch "
+         f"{sorted(collections.Counter(lanes).items())}; serial host "
+         f"verifies {len(verifies)} ({len(verifies) / top:.1f} a height); "
+         f"rounds above 0: {rounds}; card: {card}")
+    _log(f"sock_{n}x{top} wire bytes a height sent by the four nodes, by "
+         f"channel: " + ", ".join(f"{ch} {sent[ch] / top:.0f}"
+                                  for ch in sorted(sent)) +
+         f" (total {sum(sent.values()) / top:.0f}); useful bytes "
+         f"received a height: " + ", ".join(
+             f"{ch} {useful[ch] / top:.0f}" for ch in sorted(useful)))
+    _log(f"sock_{n}x{top} handshake (SecretConnection.make, both sides of "
+         f"{n * (n - 1) // 2} links) ms {_p50_p90([s * 1e3 for s in hs])}, "
+         f"mesh up in {mesh_s * 1e3:.1f} ms; seal {len(seals)} frames "
+         f"{_p50_p90([s * 1e6 for s in seals])} us each, open {len(opens)} "
+         f"{_p50_p90([s * 1e6 for s in opens])} us each (ctypes call "
+         f"included); gc in the run: {_gc_line(pauses)}; four stores agree "
+         f"at every height, every commit verifies on B1")
+    return launches
+
+
+def _sock_catchup(seed, card, ek, tracing, device, loop, keep):
+    """13b: a port full node restarted with a Switch and a
+    ConsensusReactor over the stores phase 12 leaves (the twin's
+    150-validator chain, 12b's resumed height on top), and a fresh joiner
+    from genesis with the default ConsensusConfig that dials it and
+    catches up by the reactor's gossip alone.  Returns B1 launches."""
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.ops import ed25519_host as host
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    from cometbft_tpu_torch.wire import encode, pb
+    chain, top = keep["chain"], CATCHUP_HEIGHTS
+    n = EXEC_VALIDATORS
+    _phase(f"13b catchup-{n}x{top}: a full node with Switch and "
+           f"ConsensusReactor over phase 12's stores; a fresh joiner "
+           f"(default ConsensusConfig) dials it and catches up {top} "
+           f"heights by gossip (depth cut from the chain's "
+           f"{CS_HEIGHTS} to keep phase 13 inside its 60 s budget)")
+    _clear_memos()
+    ek.launches = 0
+    tracing.clear()
+    gap = _LoopGap()
+
+    async def run():
+        server = await _sock_node(chain.doc, device, _seed(seed + 132, 0),
+                                  dbs=keep["dbs"])
+        joiner = await _sock_node(chain.doc, device, _seed(seed + 132, 1))
+        states = {}
+        real_save = joiner.state_store.save
+
+        def save(state):
+            states[state.last_block_height] = state.bytes()
+            real_save(state)
+
+        joiner.state_store.save = save
+        sub = joiner.bus.subscribe("chip-smoke-catchup",
+                                   EVENT_QUERY_NEW_BLOCK, out_capacity=1000)
+        gap_task = asyncio.ensure_future(gap.run())
+        try:
+            await server.cs.start()
+            await joiner.cs.start()
+            l0 = ek.launches
+            t0 = time.perf_counter()
+            await asyncio.wait_for(
+                joiner.switch.dial_peer(server.switch.listen_addr), 30)
+            gap.take()
+            stamps, worst, per_launch = [t0], [], []
+            for h in range(1, top + 1):
+                server.cs.raise_if_failed()
+                l1 = ek.launches
+                await _cs_new_block(joiner, sub, h)
+                stamps.append(time.perf_counter())
+                worst.append(gap.take())
+                per_launch.append(ek.launches - l1)
+        finally:
+            gap.stop = True
+            await gap_task
+            await _sock_stop([joiner, server])
+        return (server, joiner, states, stamps, worst, per_launch,
+                ek.launches - l0)
+
+    with _timed(host, "verify") as verifies, _gc_pauses() as pauses, \
+            _timed(BlockStore, "load_block_commit") as commit_loads, \
+            _timed(BlockStore, "load_block_part") as part_loads:
+        server, joiner, states, stamps, worst, per_launch, launches = \
+            loop.run_until_complete(run())
+    lanes = [ev["attrs"]["batch"]
+             for ev in tracing.snapshot(category=tracing.CRYPTO)
+             if ev["name"] == "batch_verify"]
+    # the gates: the joiner stores the twin's rows, states and app hash
+    for h in range(1, top + 1):
+        mine, twin = joiner.block_store.load_block(h), \
+            chain.block_store.load_block(h)
+        if encode(pb.BLOCK, mine.to_proto()) != \
+                encode(pb.BLOCK, twin.to_proto()) or \
+                joiner.block_store.load_block_meta(h).block_id != \
+                chain.block_store.load_block_meta(h).block_id:
+            raise AssertionError(f"13b: the joiner's block {h} != the "
+                                 f"twin's")
+        if states.get(h) != chain.states[h]:
+            raise AssertionError(f"13b: the joiner's State at {h} != the "
+                                 f"twin's")
+    final = joiner.state_store.load()
+    info = loop.run_until_complete(joiner.conns.query.info(
+        abci.InfoRequest()))
+    if final.bytes() != chain.states[final.last_block_height] or \
+            info.last_block_height != final.last_block_height or \
+            info.last_block_app_hash != final.app_hash:
+        raise AssertionError("13b: the joiner's app hash != the twin's")
+    ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    sent = _p2p_metrics_bytes([server.switch], "message_send_bytes_total")
+    _log(f"catchup_{n}x{top} {top} heights in {stamps[-1] - stamps[0]:.2f} "
+         f"s from the dial ({top / (stamps[-1] - stamps[0]):.2f} heights a "
+         f"second); ms a height (the joiner's NewBlock to NewBlock, heights "
+         f"2-{top}) {_p50_p90(ms)}; B1 launches {launches} "
+         f"({_p50_p90(per_launch)} a height), lanes a launch "
+         f"{sorted(collections.Counter(lanes).items())}; serial host "
+         f"verifies {len(verifies)} ({len(verifies) / top:.1f} a height); "
+         f"card: {card}")
+    _log(f"catchup_{n}x{top} wire bytes a height sent by the server, by "
+         f"channel: " + ", ".join(f"{ch} {sent[ch] / top:.0f}"
+                                  for ch in sorted(sent)) +
+         f" (total {sum(sent.values()) / top:.0f}); the loop's longest "
+         f"stall a height ms {_p50_p90([w * 1e3 for w in worst])}, max "
+         f"{max(worst) * 1e3:.2f}; gc in the run: {_gc_line(pauses)}; the "
+         f"server's store reads a height: load_block_commit "
+         f"{len(commit_loads) / top:.1f} taking "
+         f"{sum(commit_loads) * 1e3 / top:.1f} ms, load_block_part "
+         f"{len(part_loads) / top:.1f} taking "
+         f"{sum(part_loads) * 1e3 / top:.1f} ms; the joiner's rows, "
+         f"State.bytes() and app hash equal the twin's at every height")
+    return launches
+
+
+def _aead_vs_plain(seed):
+    """The AEAD library against its plain version on AEAD_INPUTS seeded
+    (key, nonce, aad, message) inputs: seals byte-equal, opens back, a
+    flipped tag bit refused by both.  Returns the number of inputs."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import _aead_ref
+    from cometbft_tpu_torch.ops import aead_host
+    rng = np.random.default_rng(seed)
+    lens = list(AEAD_LENS) + [int(x) for x in rng.integers(
+        0, 2100, AEAD_INPUTS - len(AEAD_LENS))]
+    for i, length in enumerate(lens):
+        key, nonce = rng.bytes(32), rng.bytes(12)
+        aad, msg = rng.bytes(i % 24), rng.bytes(length)
+        lib, plain = aead_host.ChaCha20Poly1305(key), \
+            _aead_ref.ChaCha20Poly1305(key)
+        sealed = lib.encrypt(nonce, msg, aad)
+        if sealed != plain.encrypt(nonce, msg, aad):
+            raise AssertionError(f"13c: the AEAD library's seal != its "
+                                 f"plain version's (input {i}, {length} "
+                                 f"bytes)")
+        if lib.decrypt(nonce, sealed, aad) != msg:
+            raise AssertionError(f"13c: the AEAD library did not open its "
+                                 f"own seal (input {i})")
+        bad = bytearray(sealed)
+        bad[length + i % 16] ^= 1 << (i % 8)
+        for aead, exc in ((lib, aead_host.AEADInvalidTag),
+                          (plain, _aead_ref.AEADInvalidTag)):
+            try:
+                aead.decrypt(nonce, bytes(bad), aad)
+            except exc:
+                continue
+            raise AssertionError(f"13c: a flipped tag bit was opened "
+                                 f"(input {i})")
+    return len(lens)
+
+
+async def _expect_refusal(coro, exc_type, text, what):
+    try:
+        await asyncio.wait_for(coro, 30)
+    except exc_type as e:
+        if str(e) != text:
+            raise AssertionError(f"13c {what}: {type(e).__name__} "
+                                 f"{str(e)!r} != {text!r}")
+        return f"{what}: {type(e).__name__} {str(e)!r}"
+    raise AssertionError(f"13c {what}: accepted")
+
+
+def _p2p_reject(seed, card, ek, device, loop):
+    """13c: the AEAD library against its plain version; a tampered frame,
+    a low-order X25519 key, another network and a self-dial refused with
+    the JAX texts; a stand-in kernel that raises in one node's receive
+    routine stops that node's consensus, surfaces and is not restarted.
+    Returns B1 launches (of the three nodes that go on)."""
+    import threading
+
+    from cometbft_tpu_torch.config import test_config
+    from cometbft_tpu_torch.crypto import ed25519 as p_ed
+    from cometbft_tpu_torch.crypto import pipeline
+    from cometbft_tpu_torch.ops import _build, aead_host
+    from cometbft_tpu_torch.p2p import NodeKey, Switch
+    from cometbft_tpu_torch.p2p.secret_connection import (
+        SecretConnection, SecretConnectionError)
+    from cometbft_tpu_torch.p2p.switch import Reactor, SwitchError
+    from cometbft_tpu_torch.p2p.conn import ChannelDescriptor
+    from cometbft_tpu_torch.types import vote as vote_mod
+    _phase("13c p2p-reject: the AEAD library vs its plain version, a "
+           "tampered frame, a low-order X25519 key, another network, a "
+           "self-dial, a kernel that raises in one node's receive routine")
+    out = []
+    t0 = time.perf_counter()
+    n_aead = _aead_vs_plain(seed + 133)
+    out.append(f"AEAD library == plain version on {n_aead} seeded inputs "
+               f"(lengths {', '.join(map(str, AEAD_LENS))} among them; "
+               f"seal byte-equal, open back, a flipped tag bit refused by "
+               f"both) in {time.perf_counter() - t0:.2f} s; library "
+               f"{_build.aead_build_info['path']}")
+
+    class _Echo(Reactor):
+        def get_channels(self):
+            return [ChannelDescriptor(id=0x77)]
+
+    async def pipe():
+        got = asyncio.Queue()
+
+        async def on_conn(r, w):
+            await got.put((r, w))
+
+        server = await asyncio.start_server(on_conn, "127.0.0.1", 0)
+        cr, cw = await asyncio.open_connection(
+            "127.0.0.1", server.sockets[0].getsockname()[1])
+        sr, sw = await asyncio.wait_for(got.get(), 10)
+        return (cr, cw), (sr, sw), server
+
+    async def cases():
+        (cr, cw), (sr, sw), server = await pipe()
+        k1, k2 = p_ed.Ed25519PrivKey(_seed(seed + 134, 0)), \
+            p_ed.Ed25519PrivKey(_seed(seed + 134, 1))
+        sc1, sc2 = await asyncio.wait_for(asyncio.gather(
+            SecretConnection.make(cr, cw, k1),
+            SecretConnection.make(sr, sw, k2)), 30)
+        frame = sc2._seal_chunk(b"a frame")
+        sw.write(frame[:100] + bytes([frame[100] ^ 4]) + frame[101:])
+        await sw.drain()
+        res = [await _expect_refusal(sc1.read_msg(),
+                                     aead_host.AEADInvalidTag,
+                                     "authentication failed",
+                                     "tampered frame")]
+        sc1.close()
+        sc2.close()
+        server.close()
+        (cr, cw), (sr, sw), server = await pipe()
+        sw.write(bytes(32))               # u = 0: a low-order point
+        await sw.drain()
+        res.append(await _expect_refusal(
+            SecretConnection.make(cr, cw, k1), SecretConnectionError,
+            "x25519: low-order peer public key", "low-order X25519 key"))
+        cw.close()
+        sw.close()
+        server.close()
+        a = Switch(NodeKey(k1), "chain-a", listen_addr="127.0.0.1:0")
+        b = Switch(NodeKey(k2), "chain-b", listen_addr="127.0.0.1:0")
+        for sw_ in (a, b):
+            sw_.add_reactor(_Echo("echo"))
+            await sw_.start()
+        try:
+            res.append(await _expect_refusal(
+                b.dial_peer(a.listen_addr), SwitchError,
+                "incompatible peer: peer network 'chain-a' != 'chain-b'",
+                "another network"))
+            res.append(await _expect_refusal(
+                a.dial_peer(a.listen_addr), SwitchError, "connected to self",
+                "self-dial"))
+            await asyncio.sleep(0.05)
+            if a.num_peers() or b.num_peers():
+                raise AssertionError("13c: a refused peer was added")
+        finally:
+            await a.stop()
+            await b.stop()
+        return res
+
+    out += loop.run_until_complete(cases())
+
+    # a kernel that raises, on one node of a 13a-shaped net: the victim's
+    # bursts reach the stand-in (its receive routine's task is the one that
+    # submits them); the other three nodes keep the real kernel
+    doc, pvs = _net_doc(seed + 135, SOCK_VALIDATORS, "sock-reject")
+    flag = threading.local()
+    victim_task = [None]
+    real_kernel = ek.verify_cols
+    real_async = vote_mod.preverify_signatures_async
+
+    def raising(*a, **kw):
+        if getattr(flag, "raise_now", False):
+            raise RuntimeError("stand-in kernel failure (13c)")
+        return real_kernel(*a, **kw)
+
+    def victim_preverify(entries, dev):
+        flag.raise_now = True
+        try:
+            return vote_mod.preverify_signatures(entries, dev)
+        finally:
+            flag.raise_now = False
+
+    def routed(entries, dev=None):
+        if victim_task[0] is not None and \
+                asyncio.current_task() is victim_task[0]:
+            return pipeline.submit(victim_preverify, entries, dev)
+        return real_async(entries, dev)
+
+    async def run():
+        nodes = [await _sock_node(doc, device, _seed(seed + 136, i), pv=pv,
+                                  config=test_config().consensus)
+                 for i, pv in enumerate(pvs)]
+        victim = nodes[-1]
+        try:
+            await _sock_mesh(nodes)
+            for node in nodes:
+                await node.cs.start()
+            victim_task[0] = victim.cs._task.runner
+            deadline = time.perf_counter() + 60
+            while victim.cs.failure is None:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("13c: the victim never reached "
+                                         "the raising kernel")
+                await asyncio.sleep(0.01)
+            stopped_at = victim.block_store.height
+            await _cs_until(nodes[0], lambda: all(
+                nd.block_store.height >= stopped_at + 3
+                for nd in nodes[:-1]), "three nodes go on")
+            peers = victim.switch.num_peers()
+            for node in nodes[:-1]:
+                node.cs.raise_if_failed()
+        finally:
+            err = None
+            try:
+                await _sock_stop(nodes)
+            except RuntimeError as e:
+                err = e
+        return victim, stopped_at, peers, err, \
+            [nd.block_store.height for nd in nodes[:-1]]
+
+    _clear_memos()
+    l0 = ek.launches
+    ek.verify_cols = raising
+    vote_mod.preverify_signatures_async = routed
+    try:
+        victim, stopped_at, peers, err, others = loop.run_until_complete(
+            run())
+    finally:
+        ek.verify_cols = real_kernel
+        vote_mod.preverify_signatures_async = real_async
+    task = victim.cs._task
+    if err is None or "stand-in kernel failure" not in str(err) or \
+            task.restarts != 0 or not task.gave_up or \
+            victim.block_store.height != stopped_at:
+        raise AssertionError(f"13c: the raising kernel was hidden: {err!r}, "
+                             f"{task.restarts} restarts")
+    out.append(f"raising kernel on one of {SOCK_VALIDATORS} socket nodes: "
+               f"its consensus stopped at height {stopped_at}, 0 restarts, "
+               f"its switch kept {peers} peers, stop() raised RuntimeError "
+               f"{str(err)!r}; the other three went on to heights {others}")
+    for line in out:
+        _log(f"p2p_reject {line}")
+    _log(f"p2p_reject all {len(out)} cases as the JAX package decides them; "
+         f"card: {card}")
+    return ek.launches - l0
+
+
+def _p2p_phases(seed, card, keep, device=None):
+    """Phases 13a-13c: p2p and the consensus reactor (the secret
+    connection on the host AEAD, MConnection, Switch, ConsensusReactor).
+    ``keep`` holds what phase 12 leaves: the twin chain with its states,
+    the restarted node's stores and 12c's ms a height.  Returns B1's
+    launches by part."""
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.ops import _build, aead_host
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    t_phase = time.perf_counter()
+    aead_host.load()
+    info = _build.aead_build_info
+    _log(f"aead library {info['path']} (g++ {info['seconds']:.3f} s, "
+         f"cached={info['cached']}); RFC 8439 self-test passed in "
+         f"{info['selftest_seconds'] * 1e3:.3f} ms")
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    try:
+        sock = _sock_net(seed, card, ek, tracing, device, loop,
+                         keep["net_ms"])
+        catchup = _sock_catchup(seed, card, ek, tracing, device, loop, keep)
+        reject = _p2p_reject(seed, card, ek, device, loop)
+    finally:
+        logging.disable(logging.NOTSET)
+        loop.close()
+    _log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {f"sock_{SOCK_VALIDATORS}x{SOCK_HEIGHTS}": sock,
+            f"catchup_{EXEC_VALIDATORS}x{CATCHUP_HEIGHTS}": catchup,
+            "p2p_reject": reject}
 
 
 def main() -> int:
@@ -4358,7 +4936,10 @@ def main() -> int:
             args.seed, card, pool, keys, vals, agg_set)
         exec_launches, exec_launches8 = _exec_phases(args.seed, card, pool,
                                                      keys)
-        cs_launches, cs_launches8 = _cs_phases(args.seed, card, pool)
+        keep = {}
+        cs_launches, cs_launches8 = _cs_phases(args.seed, card, pool,
+                                               keep=keep)
+    p2p_launches = _p2p_phases(args.seed, card, keep)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -4378,7 +4959,7 @@ def main() -> int:
                              **{k: v for k, v in vote_launches.items()
                                 if k != "vote_burst_cuda8"},
                              **light_launches, **exec_launches,
-                             **cs_launches},
+                             **cs_launches, **p2p_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],

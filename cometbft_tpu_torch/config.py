@@ -1,11 +1,13 @@
-"""Node configuration: the consensus section only.
+"""Node configuration: the consensus and p2p sections.
 
-Reference: config/config.go — ConsensusConfig (:1218) and TestConfig
-(:128) — through cometbft_tpu/config.py, whose ``ConsensusConfig``
-(:173-234) and the consensus part of ``test_config`` (:411-417) this
-copy keeps, with the same field names, defaults and timeout
-arithmetic.  The other sections (base, RPC, p2p, mempool, state sync,
-storage, instrumentation) come with the node, ROADMAP.md A.7e-6.
+Reference: config/config.go — P2PConfig (:588), ConsensusConfig (:1218)
+and TestConfig (:128) — through cometbft_tpu/config.py, whose
+``ConsensusConfig`` (:173-234) and the consensus part of
+``test_config`` (:411-417) this copy keeps, with the same field names,
+defaults and timeout arithmetic, and of whose ``P2PConfig`` (:86-104)
+it keeps the fields the port reads.  The other sections (base, RPC,
+mempool, state sync, storage, instrumentation) come with the node,
+ROADMAP.md A.7e-6.
 """
 from __future__ import annotations
 
@@ -13,6 +15,19 @@ from dataclasses import dataclass, field
 
 _MS = 1_000_000
 _S = 1_000_000_000
+
+
+@dataclass
+class P2PConfig:
+    """The p2p fields the port reads: the switch hands its rates to
+    every MConnection, and PexReactor reads its mode and outbound
+    limit.  The rest of the section (listen and external addresses,
+    seeds, persistent and private peers, the address-book file, the
+    handshake and dial timeouts) comes with the node, A.7e-6."""
+    send_rate: int = 5_120_000
+    recv_rate: int = 5_120_000
+    max_num_outbound_peers: int = 10
+    seed_mode: bool = False
 
 
 @dataclass
@@ -66,7 +81,8 @@ class ConsensusConfig:
 
 @dataclass
 class Config:
-    """The configuration tree, holding its consensus section only."""
+    """The configuration tree, holding its p2p and consensus sections."""
+    p2p: P2PConfig = field(default_factory=P2PConfig)
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
 
 

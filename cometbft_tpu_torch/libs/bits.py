@@ -2,12 +2,14 @@
 record of who voted.
 
 Reference: internal/bits/bit_array.go, through cometbft_tpu/libs/bits.py
-— a fixed-size bit array with set/get, copy, not, the true indices, the
-text form, the canonical little-endian packing and the proto form.  The
-set operations and random picking that vote gossip uses are not ported
-yet.
+— a fixed-size bit array with set/get, copy, the set operations
+(or, not, sub), the true indices, random picking (vote gossip), the
+text form, the canonical little-endian packing and the proto form.
 """
 from __future__ import annotations
+
+import random
+from typing import Optional
 
 
 # bit positions set in each byte value (true_indices fast path)
@@ -53,9 +55,22 @@ class BitArray:
         ba._elems = self._elems
         return ba
 
+    def or_(self, other: "BitArray") -> "BitArray":
+        """Union; result size is the larger (reference: Or)."""
+        ba = BitArray(max(self.bits, other.bits))
+        ba._elems = self._elems | other._elems
+        return ba
+
     def not_(self) -> "BitArray":
         ba = BitArray(self.bits)
         ba._elems = ~self._elems & ((1 << self.bits) - 1)
+        return ba
+
+    def sub(self, other: "BitArray") -> "BitArray":
+        """Bits set in self but not in other (reference: Sub)."""
+        ba = BitArray(self.bits)
+        mask = (1 << self.bits) - 1
+        ba._elems = self._elems & ~(other._elems) & mask
         return ba
 
     def is_empty(self) -> bool:
@@ -84,6 +99,18 @@ class BitArray:
     def highest_true_index(self) -> int:
         """Index of the highest set bit, or -1 when empty."""
         return self._elems.bit_length() - 1
+
+    def pick_random(self) -> Optional[int]:
+        """A uniformly random true index, or None (reference: PickRandom)."""
+        idxs = self.true_indices()
+        if not idxs:
+            return None
+        return random.choice(idxs)
+
+    def update(self, other: "BitArray") -> None:
+        """Copy other's bits into self (reference: Update)."""
+        mask = (1 << self.bits) - 1
+        self._elems = other._elems & mask
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, BitArray) and self.bits == other.bits and

@@ -1,0 +1,81 @@
+"""Token-bucket flow control + transfer-rate monitoring.
+
+Reference: internal/flowrate (Monitor: sliding-window rate measurement;
+Limit: blocks until the caller may transfer n bytes at the target rate).
+Used by MConnection to cap per-connection send/recv throughput
+(p2p/transport/tcp/conn/connection.go:27-44 consts; config
+p2p.send_rate / p2p.recv_rate, 5 MB/s defaults) — the port's copy of
+cometbft_tpu/libs/flowrate.py, the same bucket and the same window.
+"""
+from __future__ import annotations
+
+import asyncio
+import time
+
+
+class RateLimiter:
+    """Async token bucket: `take(n)` waits until n bytes fit the rate.
+
+    rate = bytes/second; burst = bucket depth (defaults to one second's
+    worth, mirroring flowrate's windowing).  rate <= 0 disables limiting.
+    """
+
+    def __init__(self, rate: float, burst: float = 0.0):
+        self.rate = float(rate)
+        self.burst = float(burst) if burst > 0 else max(self.rate, 1.0)
+        self._tokens = self.burst
+        self._last = time.monotonic()
+        # rate measurement (flowrate.Monitor's job)
+        self._total = 0
+        self._window_start = self._last
+        self._window_bytes = 0
+        self._measured_rate = 0.0
+
+    def _refill(self) -> None:
+        now = time.monotonic()
+        self._tokens = min(self.burst,
+                           self._tokens + (now - self._last) * self.rate)
+        self._last = now
+
+    async def take(self, n: int) -> None:
+        """Account n bytes, sleeping as needed to hold the target rate."""
+        self._account(n)
+        if self.rate <= 0:
+            return
+        self._refill()
+        self._tokens -= n
+        if self._tokens < 0:
+            # sleep until the deficit refills
+            await asyncio.sleep(-self._tokens / self.rate)
+
+    def try_take(self, n: int) -> bool:
+        """Non-blocking: True (and accounted) if n bytes fit now."""
+        if self.rate <= 0:
+            self._account(n)
+            return True
+        self._refill()
+        if self._tokens < n:
+            return False
+        self._tokens -= n
+        self._account(n)
+        return True
+
+    # -- monitoring -------------------------------------------------------
+    def _account(self, n: int) -> None:
+        self._total += n
+        now = time.monotonic()
+        if now - self._window_start >= 1.0:
+            self._measured_rate = self._window_bytes / \
+                (now - self._window_start)
+            self._window_start = now
+            self._window_bytes = 0
+        self._window_bytes += n
+
+    @property
+    def total(self) -> int:
+        return self._total
+
+    @property
+    def measured_rate(self) -> float:
+        """Bytes/s over the last completed window."""
+        return self._measured_rate

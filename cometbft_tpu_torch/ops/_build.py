@@ -5,13 +5,14 @@ interface, loaded through ctypes.
     compiles in its own nvcc process, all started together, and one
     more nvcc links the objects into the library;
   * the host prep (``ed25519_prep.cpp``), the host BLS12-381
-    arithmetic (``bls_native.cpp``) and the host ed25519 sign and single
-    verify (``ed25519_host.cpp``): g++, each into a library of its own,
-    so they build and run where there is no nvcc.  No ``-march=native``:
-    the multi-buffer SHA-512 and SHA-NI paths carry their own
-    ``target(...)`` attributes and check the CPU at run time.  The BLS
-    and ed25519 libraries run their self-tests once a load and raise if
-    one fails.
+    arithmetic (``bls_native.cpp``), the host ed25519 sign and single
+    verify (``ed25519_host.cpp``) and the secret connection's
+    ChaCha20-Poly1305 (``chacha20poly1305.cpp``): g++, each into a
+    library of its own, so they build and run where there is no nvcc.
+    No ``-march=native``: the multi-buffer SHA-512 and SHA-NI paths
+    carry their own ``target(...)`` attributes and check the CPU at run
+    time.  The BLS, ed25519 and AEAD libraries run their self-tests
+    once a load and raise if one fails.
 
 Each library is built at first use into ``build/`` at the repository
 root, named by a hash of its sources, its headers and the flags, so an
@@ -39,16 +40,19 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 HOST_SOURCE = "ed25519_prep.cpp"
 BLS_SOURCE = "bls_native.cpp"
 ED25519_HOST_SOURCE = "ed25519_host.cpp"
+AEAD_SOURCE = "chacha20poly1305.cpp"
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _host_lock = threading.Lock()
 _bls_lock = threading.Lock()
 _ed25519_host_lock = threading.Lock()
+_aead_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _host_lib: ctypes.CDLL | None = None
 _bls_lib: ctypes.CDLL | None = None
 _ed25519_host_lib: ctypes.CDLL | None = None
+_aead_lib: ctypes.CDLL | None = None
 # what the last build or load reported: path, seconds (wall, the
 # compiles and the link), ptxas output
 build_info: dict = {}
@@ -56,6 +60,7 @@ build_info: dict = {}
 host_build_info: dict = {}
 bls_build_info: dict = {}
 ed25519_host_build_info: dict = {}
+aead_build_info: dict = {}
 
 
 def nvcc_path() -> str:
@@ -185,6 +190,11 @@ def build_ed25519_host() -> Path:
                                ed25519_host_build_info)
 
 
+def build_aead() -> Path:
+    """The host ChaCha20-Poly1305 library, built at first use."""
+    return _build_host_library(AEAD_SOURCE, "cometbft_aead", aead_build_info)
+
+
 def load_host() -> ctypes.CDLL:
     """The built host library with its C signatures declared."""
     global _host_lib
@@ -265,3 +275,31 @@ def load_ed25519_host() -> ctypes.CDLL:
                 time.perf_counter() - t0
             _ed25519_host_lib = lib
         return _ed25519_host_lib
+
+
+def load_aead() -> ctypes.CDLL:
+    """The built ChaCha20-Poly1305 library with its C signatures
+    declared, after its self-test (the RFC 8439 section 2.8.2 vector)
+    passed, once a load; a failed build or self-test raises."""
+    global _aead_lib
+    with _aead_lock:
+        if _aead_lib is None:
+            lib = ctypes.CDLL(str(build_aead()))
+            ptr, i64 = ctypes.c_char_p, ctypes.c_int64
+            for name, args in (
+                    ("aead_selftest", []),
+                    ("aead_seal", [ptr, ptr, ptr, i64, ptr, i64,
+                                   ctypes.c_void_p]),
+                    ("aead_open", [ptr, ptr, ptr, i64, ptr, i64,
+                                   ctypes.c_void_p])):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            t0 = time.perf_counter()
+            if lib.aead_selftest() != 1:
+                raise RuntimeError(
+                    f"the ChaCha20-Poly1305 library failed its self-test: "
+                    f"{aead_build_info.get('path')}")
+            aead_build_info["selftest_seconds"] = time.perf_counter() - t0
+            _aead_lib = lib
+        return _aead_lib

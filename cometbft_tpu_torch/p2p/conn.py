@@ -1,0 +1,328 @@
+"""MConnection: multiplexed prioritized streams over one connection.
+
+Reference: p2p/transport/tcp/conn/connection.go:68 — per-channel send
+queues, priority-weighted least-ratio scheduling, 1024-byte packet
+payloads, ping/pong keepalive, flow control.  Packets here ride the
+SecretConnection's message frames; the scheduler picks the channel with
+the lowest sent-bytes/priority ratio, exactly the reference's
+least-ratio rule.
+
+The port's copy of cometbft_tpu/p2p/conn.py, byte-equal on the wire: a
+packet is ``0x03 | channel | eof`` and up to 1,024 payload bytes, so a
+full 1,027-byte packet goes out as one secret-connection message of two
+sealed frames (1,024 + 3 bytes); ``0x01`` is a ping and ``0x02`` a pong.
+"""
+from __future__ import annotations
+
+import asyncio
+from dataclasses import dataclass
+from typing import Awaitable, Callable, Optional
+
+from ..config import P2PConfig
+from ..libs import tracing
+from ..libs.flowrate import RateLimiter
+from ..libs.log import Logger, new_logger
+
+MAX_PACKET_PAYLOAD_SIZE = 1024
+_PING_INTERVAL_S = 60.0
+_PONG_TIMEOUT_S = 45.0
+
+# packet types
+_PKT_PING = 0x01
+_PKT_PONG = 0x02
+_PKT_MSG = 0x03
+
+
+class MConnectionError(Exception):
+    pass
+
+
+@dataclass
+class ChannelDescriptor:
+    """Reference: conn.ChannelDescriptor."""
+    id: int
+    priority: int = 1
+    send_queue_capacity: int = 100
+    recv_message_capacity: int = 22 * 1024 * 1024
+
+
+class _Channel:
+    def __init__(self, desc: ChannelDescriptor):
+        self.desc = desc
+        self.send_queue: asyncio.Queue[bytes] = asyncio.Queue(
+            desc.send_queue_capacity)
+        self.sending: bytes = b""
+        self.sent_pos = 0
+        self.recv_buffer = bytearray()
+        self.recently_sent = 0   # for least-ratio scheduling
+        self.last_msg_len = 0    # size of the last fully-sent message
+
+    def is_send_pending(self) -> bool:
+        return bool(self.sending) or not self.send_queue.empty()
+
+    def next_packet(self) -> tuple[bytes, bool]:
+        """(payload, eof) for the next packet of the current message."""
+        if not self.sending:
+            self.sending = self.send_queue.get_nowait()
+            self.sent_pos = 0
+        chunk = self.sending[self.sent_pos:
+                             self.sent_pos + MAX_PACKET_PAYLOAD_SIZE]
+        self.sent_pos += len(chunk)
+        eof = self.sent_pos >= len(self.sending)
+        if eof:
+            self.last_msg_len = self.sent_pos
+            self.sending = b""
+            self.sent_pos = 0
+        self.recently_sent += len(chunk)
+        return chunk, eof
+
+    def recv_packet(self, payload: bytes, eof: bool,
+                    max_size: int) -> Optional[bytes]:
+        self.recv_buffer += payload
+        if len(self.recv_buffer) > max_size:
+            raise MConnectionError(
+                f"recv message exceeds {max_size} bytes on channel "
+                f"{self.desc.id}")
+        if eof:
+            msg = bytes(self.recv_buffer)
+            self.recv_buffer.clear()
+            return msg
+        return None
+
+
+class MConnection:
+    """on_receive(channel_id, msg_bytes) is awaited for every complete
+    message; on_error(exc) fires once when the connection dies."""
+
+    def __init__(self, sconn, channels: list[ChannelDescriptor],
+                 on_receive: Callable[[int, bytes], Awaitable[None]],
+                 on_error: Callable[[Exception], None],
+                 logger: Optional[Logger] = None,
+                 send_rate: float = P2PConfig.send_rate,
+                 recv_rate: float = P2PConfig.recv_rate,
+                 metrics=None, peer_id: str = ""):
+        if metrics is None:
+            from .metrics import Metrics
+            metrics = Metrics()
+        self.metrics = metrics
+        self.peer_id = peer_id or "unknown"
+        self._pending_bytes = 0
+        self._sconn = sconn
+        self._channels = {d.id: _Channel(d) for d in channels}
+        for d in channels:
+            self.metrics.touch_channel(f"{d.id:#x}")
+        self._on_receive = on_receive
+        self._on_error = on_error
+        # token-bucket flow control, P2PConfig's rates (reference:
+        # internal/flowrate via connection.go sendSomePacketMsgs /
+        # recvRoutine; config p2p.send_rate/recv_rate)
+        self.send_limiter = RateLimiter(send_rate)
+        self.recv_limiter = RateLimiter(recv_rate)
+        self.logger = logger if logger is not None else \
+            new_logger("mconn")
+        self._send_event = asyncio.Event()
+        self._tasks: list[asyncio.Task] = []
+        self._closed = False
+        self._last_recv = 0.0
+
+    def start(self) -> None:
+        loop = asyncio.get_running_loop()
+        self._last_recv = loop.time()
+        self._tasks = [
+            loop.create_task(self._send_routine()),
+            loop.create_task(self._recv_routine()),
+            loop.create_task(self._ping_routine()),
+        ]
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for t in self._tasks:
+            t.cancel()
+        self._sconn.close()
+
+    # ------------------------------------------------------------------
+    def send(self, channel_id: int, msg: bytes) -> bool:
+        """Queue a message; False when the channel queue is full
+        (reference: Peer.TrySend semantics)."""
+        ch = self._channels.get(channel_id)
+        if ch is None or self._closed:
+            return False
+        try:
+            ch.send_queue.put_nowait(msg)
+        except asyncio.QueueFull:
+            # the canonical gossip stall: TrySend dropped on a full
+            # per-channel queue — flight-recorded so /trace shows
+            # which peer/channel backpressured a height
+            tracing.instant(tracing.P2P, "send_queue_full",
+                            chan=channel_id, peer=self.peer_id[:12])
+            self.metrics.send_queue_drops.with_labels(
+                f"{channel_id:#x}").add()
+            return False
+        self._pending_bytes += len(msg)
+        self.metrics.peer_pending_send_bytes.with_labels(
+            self.peer_id).set(self._pending_bytes)
+        self._send_event.set()
+        return True
+
+    async def send_blocking(self, channel_id: int, msg: bytes) -> bool:
+        ch = self._channels.get(channel_id)
+        if ch is None or self._closed:
+            return False
+        if ch.send_queue.full():
+            # the queue-stall distribution: how long a blocking send
+            # waited for queue space on this channel
+            _t0 = asyncio.get_running_loop().time()
+            await ch.send_queue.put(msg)
+            self.metrics.queue_stall_seconds.with_labels(
+                f"{channel_id:#x}").observe(
+                asyncio.get_running_loop().time() - _t0)
+        else:
+            await ch.send_queue.put(msg)
+        self._pending_bytes += len(msg)
+        self.metrics.peer_pending_send_bytes.with_labels(
+            self.peer_id).set(self._pending_bytes)
+        self._send_event.set()
+        return True
+
+    # ------------------------------------------------------------------
+    def _pick_channel(self) -> Optional[_Channel]:
+        """Least sent-bytes/priority ratio wins (reference:
+        sendPacketMsg)."""
+        best, best_ratio = None, None
+        for ch in self._channels.values():
+            if not ch.is_send_pending():
+                continue
+            ratio = ch.recently_sent / max(1, ch.desc.priority)
+            if best_ratio is None or ratio < best_ratio:
+                best, best_ratio = ch, ratio
+        return best
+
+    async def _send_routine(self) -> None:
+        try:
+            while not self._closed:
+                ch = self._pick_channel()
+                if ch is None:
+                    self._send_event.clear()
+                    await self._send_event.wait()
+                    continue
+                payload, eof = ch.next_packet()
+                pkt = bytes([_PKT_MSG, ch.desc.id,
+                             1 if eof else 0]) + payload
+                _t0 = asyncio.get_running_loop().time()
+                await self.send_limiter.take(len(pkt))
+                _dt = asyncio.get_running_loop().time() - _t0
+                if _dt > 0:
+                    self.metrics.send_rate_limiter_delay.with_labels(
+                        self.peer_id).add(_dt)
+                    self.metrics.queue_stall_seconds.with_labels(
+                        f"{ch.desc.id:#x}").observe(_dt)
+                    tracing.instant(tracing.P2P, "send_rate_stall",
+                                    chan=ch.desc.id,
+                                    peer=self.peer_id[:12],
+                                    stall_ms=round(_dt * 1e3, 3))
+                await self._sconn.write_msg(pkt)
+                if eof:
+                    # one event per complete message, not per packet
+                    tracing.instant(tracing.P2P, "send",
+                                    chan=ch.desc.id,
+                                    peer=self.peer_id[:12],
+                                    bytes=ch.last_msg_len)
+                    self.metrics.message_send_size_bytes.with_labels(
+                        f"{ch.desc.id:#x}").observe(ch.last_msg_len)
+                self.metrics.message_send_bytes_total.with_labels(
+                    f"{ch.desc.id:#x}").add(len(pkt))
+                self._pending_bytes = max(
+                    0, self._pending_bytes - len(payload))
+                self.metrics.peer_pending_send_bytes.with_labels(
+                    self.peer_id).set(self._pending_bytes)
+                # decay the ratio counters periodically
+                if ch.recently_sent > 1 << 20:
+                    for c in self._channels.values():
+                        c.recently_sent //= 2
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            self._fail(e)
+
+    async def _recv_routine(self) -> None:
+        try:
+            while not self._closed:
+                msg = await self._sconn.read_msg()
+                _t0 = asyncio.get_running_loop().time()
+                await self.recv_limiter.take(len(msg))
+                _dt = asyncio.get_running_loop().time() - _t0
+                if _dt > 0:
+                    self.metrics.recv_rate_limiter_delay.with_labels(
+                        self.peer_id).add(_dt)
+                self._last_recv = asyncio.get_running_loop().time()
+                if len(msg) >= 2 and msg[0] == _PKT_MSG:
+                    self.metrics.message_receive_bytes_total \
+                        .with_labels(f"{msg[1]:#x}").add(len(msg))
+                if not msg:
+                    raise MConnectionError("empty packet")
+                ptype = msg[0]
+                if ptype == _PKT_PING:
+                    # reply immediately — write_msg buffers whole
+                    # frames synchronously, so it interleaves safely
+                    # with the send routine at frame granularity
+                    await self._sconn.write_msg(bytes([_PKT_PONG]))
+                elif ptype == _PKT_PONG:
+                    pass
+                elif ptype == _PKT_MSG:
+                    if len(msg) < 3:
+                        raise MConnectionError("short msg packet")
+                    chan_id, eof = msg[1], bool(msg[2])
+                    ch = self._channels.get(chan_id)
+                    if ch is None:
+                        raise MConnectionError(
+                            f"unknown channel {chan_id:#x}")
+                    complete = ch.recv_packet(
+                        msg[3:], eof, ch.desc.recv_message_capacity)
+                    if complete is not None:
+                        tracing.instant(tracing.P2P, "recv",
+                                        chan=chan_id,
+                                        peer=self.peer_id[:12],
+                                        bytes=len(complete))
+                        self.metrics.message_recv_size_bytes \
+                            .with_labels(f"{chan_id:#x}").observe(
+                                len(complete))
+                        await self._on_receive(chan_id, complete)
+                else:
+                    raise MConnectionError(
+                        f"unknown packet type {ptype:#x}")
+        except asyncio.CancelledError:
+            raise
+        except (asyncio.IncompleteReadError, ConnectionError, OSError,
+                Exception) as e:
+            self._fail(e)
+
+    async def _ping_routine(self) -> None:
+        """Keepalive + dead-link detection: if nothing at all has been
+        received for a ping interval plus the pong timeout, the link is
+        declared dead (reference: pongTimeout teardown)."""
+        try:
+            while not self._closed:
+                await asyncio.sleep(_PING_INTERVAL_S)
+                await self._sconn.write_msg(bytes([_PKT_PING]))
+                now = asyncio.get_running_loop().time()
+                if now - self._last_recv > \
+                        _PING_INTERVAL_S + _PONG_TIMEOUT_S:
+                    raise MConnectionError(
+                        "pong timeout: connection is dead")
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            self._fail(e)
+
+    def _fail(self, e: Exception) -> None:
+        if self._closed:
+            return
+        self.close()
+        try:
+            self._on_error(e)
+        except Exception:
+            self.logger.error("on_error callback raised while "
+                              "handling connection failure",
+                              peer=self.peer_id, exc_info=True)

@@ -2,10 +2,15 @@
 
   * importing every module of cometbft_tpu_torch (in a fresh
     interpreter; the chain below consensus included: the block executor,
-    the stores, the kvstore app, the state tree, the Handshaker; and the
+    the stores, the kvstore app, the state tree, the Handshaker; the
     consensus state machine: ConsensusState, the WAL, the round state,
     the ticker, adaptive timeouts, pubsub, the supervisor, the config,
-    the host ed25519) loads neither jax nor anything of cometbft_tpu;
+    the host ed25519; and p2p with the consensus reactor: the p2p
+    package, flowrate, the AEAD wrapper and its plain version) loads
+    neither jax nor anything of cometbft_tpu;
+  * importing the p2p stack and the reactor, and running a secret
+    connection's handshake, loads no ``cryptography`` either: the port
+    seals every frame in its own host library;
   * the entry points resolve ``device=None`` to CUDA and raise where
     CUDA is absent — no silent CPU fallback;
   * the kernel wrapper rejects wrong dtypes, shapes, devices and
@@ -70,6 +75,7 @@ def test_port_imports_no_jax_and_no_reference():
             "cometbft_tpu_torch.wire.consensus_pb",
             "cometbft_tpu_torch.crypto.benchmarking",
             "cometbft_tpu_torch.ops.ed25519_host"} <= set(mods)
+    assert set(P2P_MODULES) <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -78,6 +84,51 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'cometbft_tpu' or "
         "m.startswith('cometbft_tpu.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+P2P_MODULES = ("cometbft_tpu_torch.p2p",
+               "cometbft_tpu_torch.p2p.conn",
+               "cometbft_tpu_torch.p2p.key",
+               "cometbft_tpu_torch.p2p.metrics",
+               "cometbft_tpu_torch.p2p.pex",
+               "cometbft_tpu_torch.p2p.secret_connection",
+               "cometbft_tpu_torch.p2p.switch",
+               "cometbft_tpu_torch.consensus.reactor",
+               "cometbft_tpu_torch.libs.flowrate",
+               "cometbft_tpu_torch.ops.aead_host",
+               "cometbft_tpu_torch.crypto._aead_ref")
+
+
+def test_p2p_and_reactor_load_no_jax_reference_or_cryptography():
+    code = (
+        "import asyncio, importlib, sys\n"
+        f"for m in {P2P_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from cometbft_tpu_torch.crypto import ed25519\n"
+        "from cometbft_tpu_torch.p2p.secret_connection import "
+        "SecretConnection\n"
+        "async def go():\n"
+        "    got = asyncio.Queue()\n"
+        "    async def on_conn(r, w):\n"
+        "        await got.put((r, w))\n"
+        "    srv = await asyncio.start_server(on_conn, '127.0.0.1', 0)\n"
+        "    cr, cw = await asyncio.open_connection(\n"
+        "        '127.0.0.1', srv.sockets[0].getsockname()[1])\n"
+        "    sr, sw = await got.get()\n"
+        "    a, b = await asyncio.gather(\n"
+        "        SecretConnection.make(cr, cw, ed25519.gen_priv_key()),\n"
+        "        SecretConnection.make(sr, sw, ed25519.gen_priv_key()))\n"
+        "    await a.write_msg(b'x' * 2000)\n"
+        "    assert await b.read_msg() == b'x' * 2000\n"
+        "    a.close(); b.close(); srv.close()\n"
+        "asyncio.run(asyncio.wait_for(go(), 60))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'cryptography'))\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
