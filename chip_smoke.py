@@ -123,6 +123,24 @@ another network and a self-dial refused with the JAX texts, and a
 stand-in kernel that raises in one socket node's receive routine, which
 must stop that node's consensus without a restart while the other three
 go on.
+Phases 14a-14d drive block sync, evidence and the mempool (blocksync/,
+evidence/, mempool/, light/provider.NodeProvider, tools/loadtime): 13b's
+server restarted over the same stores with a passive BlocksyncReactor,
+and a fresh joiner wired as the JAX node (active BlocksyncReactor,
+ConsensusReactor waiting for sync, EvidenceReactor, MempoolReactor) that
+block-syncs the 150-validator chain, two B1 launches a height, switches
+to consensus through the JAX node's hand-off and commits the server's
+last height by catch-up, timed a height beside 13b's gossip figure, its
+rows, states and app hash held to the twin's; config 1 over sockets with
+evidence pools, one validator equivocating to node 0 until every node
+commits the evidence; a lunatic light-client attack at 150 validators
+verified on B1 against the joiner's stores and a tampered attribution
+refused; config 1 with CListMempools and the default consensus timeouts
+under 400 tx/s of 1 KB loadtime payloads for 10 s, every accepted tx
+committed once on every node; and a server whose block carries a
+flipped LastCommit signature bit banned, the evidence and mempool
+refusals, a 20-height sync under cuda8 and a raising stand-in kernel in
+the sync routine, which must stop the sync without a restart.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -316,6 +334,15 @@ SOCK_HEIGHTS = 50
 CATCHUP_HEIGHTS = 50
 AEAD_INPUTS = 1000        # 13c: seeded (key, nonce, aad, message) inputs
 AEAD_LENS = (0, 3, 1023, 1024, 1028)   # 13c: message lengths among them
+# phase 14
+LCA_COMMON = 50           # 14b(ii): the attack's common height
+LCA_CONFLICT = 60         # 14b(ii): its conflicting height
+LOAD_RATE = 400           # 14c: tx/s, round-robin over the nodes
+LOAD_SECONDS = 10.0       # 14c: the submission window
+LOAD_TX_BYTES = 1024      # 14c: CometBFT's QA tx size
+MEMPOOL_HEIGHTS = 50      # 14c: the heights the net commits at least
+BSYNC_REJECT_HEIGHTS = 20  # 14d: the depth of each of its syncs
+BSYNC_BAD_HEIGHT = 10     # 14d: the bad server spoils block BSYNC_BAD_HEIGHT + 1
 
 
 def _mixed_kind(i: int) -> str:
@@ -3081,7 +3108,11 @@ class _CsNode:
 
     @classmethod
     async def make(cls, doc, device, dbs=None, wal_path=None, config=None,
-                   pv=None):
+                   pv=None, mempool_config=None, evidence=False):
+        """``mempool_config`` gives the node a CListMempool on the app's
+        lanes, ``evidence`` an EvidencePool over MemDB; both reach the
+        BlockExecutor (otherwise it runs its no-op ones)."""
+        from cometbft_tpu_torch.abci import types as abci
         from cometbft_tpu_torch.abci.client import AppConns
         from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
         from cometbft_tpu_torch.config import ConsensusConfig
@@ -3108,7 +3139,20 @@ class _CsNode:
         await Handshaker(self.state_store, state, self.block_store, doc,
                          device=device).handshake(self.conns)
         self.bus = EventBus()
+        self.mempool = self.evpool = None
+        if mempool_config is not None:
+            from cometbft_tpu_torch.mempool import CListMempool
+            info = await self.conns.query.info(abci.InfoRequest())
+            self.mempool = CListMempool(
+                mempool_config, self.conns.mempool,
+                lanes=info.lane_priorities, default_lane=info.default_lane,
+                height=self.state_store.load().last_block_height)
+        if evidence:
+            from cometbft_tpu_torch.evidence import EvidencePool
+            self.evpool = EvidencePool(MemDB(), self.state_store,
+                                       self.block_store, device=device)
         self.exec = BlockExecutor(self.state_store, self.conns.consensus,
+                                  mempool=self.mempool, evpool=self.evpool,
                                   event_bus=self.bus,
                                   block_store=self.block_store,
                                   device=device)
@@ -3818,27 +3862,44 @@ def _cs_phases(seed, card, pool, device=None, keep=None):
 
 # -- phase 13: p2p and the consensus reactor ----------------------------------
 
-def _p2p_metrics_bytes(switches, family):
+def _p2p_metrics_bytes(switches, family,
+                      channels=("0x20", "0x21", "0x22", "0x23")):
     """{channel: bytes} summed over the switches' p2p metrics."""
     out = collections.Counter()
     for sw in switches:
         fam = getattr(sw.metrics, family)
-        for ch in ("0x20", "0x21", "0x22", "0x23"):
+        for ch in channels:
             out[ch] += fam.with_labels(ch).value
     return out
 
 
-async def _sock_node(doc, device, key_seed, pv=None, config=None, dbs=None):
+async def _sock_node(doc, device, key_seed, pv=None, config=None, dbs=None,
+                     wait_sync=False, mempool_config=None, evidence=False,
+                     reactors=()):
     """A _CsNode with a Switch on 127.0.0.1 (port 0), a ConsensusReactor
-    and a node key made from ``key_seed``."""
+    and a node key made from ``key_seed``; with a MempoolReactor when
+    ``mempool_config`` is given, an EvidenceReactor when ``evidence``, and
+    ``reactors(node)``'s reactors, all added before the switch starts."""
     from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
     from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
     from cometbft_tpu_torch.p2p import NodeKey, Switch
-    node = await _CsNode.make(doc, device, dbs=dbs, config=config, pv=pv)
+    node = await _CsNode.make(doc, device, dbs=dbs, config=config, pv=pv,
+                              mempool_config=mempool_config,
+                              evidence=evidence)
     node.switch = Switch(NodeKey(Ed25519PrivKey(key_seed)), doc.chain_id,
                          listen_addr="127.0.0.1:0")
-    node.reactor = ConsensusReactor(node.cs)
+    node.reactor = ConsensusReactor(node.cs, wait_sync=wait_sync)
     node.switch.add_reactor(node.reactor)
+    if mempool_config is not None:
+        from cometbft_tpu_torch.mempool.reactor import MempoolReactor
+        node.mempool_reactor = MempoolReactor(node.mempool, mempool_config)
+        node.switch.add_reactor(node.mempool_reactor)
+    if evidence:
+        from cometbft_tpu_torch.evidence import EvidenceReactor
+        node.evidence_reactor = EvidenceReactor(node.evpool)
+        node.switch.add_reactor(node.evidence_reactor)
+    for reactor in (reactors(node) if reactors else ()):
+        node.switch.add_reactor(reactor)
     await node.switch.start()
     return node
 
@@ -4066,6 +4127,7 @@ def _sock_catchup(seed, card, ek, tracing, device, loop, keep):
             info.last_block_app_hash != final.app_hash:
         raise AssertionError("13b: the joiner's app hash != the twin's")
     ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    keep["catchup_ms"] = ms
     sent = _p2p_metrics_bytes([server.switch], "message_send_bytes_total")
     _log(f"catchup_{n}x{top} {top} heights in {stamps[-1] - stamps[0]:.2f} "
          f"s from the dial ({top / (stamps[-1] - stamps[0]):.2f} heights a "
@@ -4348,6 +4410,922 @@ def _p2p_phases(seed, card, keep, device=None):
     return {f"sock_{SOCK_VALIDATORS}x{SOCK_HEIGHTS}": sock,
             f"catchup_{EXEC_VALIDATORS}x{CATCHUP_HEIGHTS}": catchup,
             "p2p_reject": reject}
+
+
+# -- phase 14: block sync, evidence and the mempool ---------------------------
+
+def _switch_to_consensus(node, log):
+    """The JAX node's hand-off from block sync to consensus
+    (cometbft_tpu/node/node.py:433-452), step by step: LastCommit rebuilt
+    from the stored seen commit off the loop, the synced state taken,
+    the reactor told to stop waiting, consensus started.  ``log`` gets
+    when it ran, B1's launches in it and the round state it left."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+    async def switch(new_state, height):
+        log["switch_at"] = time.perf_counter()
+        l0 = ek.launches
+        if new_state.last_block_height > 0:
+            node.cs.rs.last_commit = None
+            await node.cs.reconstruct_last_commit_off_loop(new_state)
+        node.cs.update_to_state(new_state)
+        node.reactor.wait_sync = False
+        await node.cs.start()
+        rs = node.cs.rs
+        log.update(switch_launches=ek.launches - l0, height=height,
+                   rs_height=rs.height, last_commit=rs.last_commit,
+                   switched=time.perf_counter())
+    return switch
+
+
+def _bsync_reactor(node, cfg, device, log):
+    """An active BlocksyncReactor for ``node`` as the JAX node wires it
+    (node.py:419-458): active and wait_sync read cfg.blocksync.enable."""
+    from cometbft_tpu_torch.blocksync import BlocksyncReactor
+    node.bsync = BlocksyncReactor(
+        node.state_store.load(), node.exec, node.block_store,
+        active=cfg.blocksync.enable,
+        on_caught_up=_switch_to_consensus(node, log), device=device)
+    return [node.bsync]
+
+
+def _passive_bsync(node, device):
+    from cometbft_tpu_torch.blocksync import BlocksyncReactor
+    node.bsync = BlocksyncReactor(node.state_store.load(), node.exec,
+                                  node.block_store, active=False,
+                                  device=device)
+    return [node.bsync]
+
+
+def _bsync_chain(seed, card, ek, tracing, device, loop, keep):
+    """14a: phase 13b's server restarted over the same stores (the twin's
+    150-validator chain, 12b's height on top) with a passive
+    BlocksyncReactor; a fresh joiner from genesis wired as the JAX node
+    (Switch, active BlocksyncReactor, ConsensusReactor(wait_sync=True),
+    EvidenceReactor, MempoolReactor, kvstore app, MemDB) block-syncs the
+    chain, switches to consensus and takes the server's last block by
+    the consensus catch-up.  Returns (B1 launches, the joiner)."""
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.blocksync.pool import BlockPool
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.ops import ed25519_host as host
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    from cometbft_tpu_torch.wire import encode, pb
+    chain, n, cfg = keep["chain"], EXEC_VALIDATORS, Config()
+    _clear_memos()
+    ek.launches = 0
+    tracing.clear()
+    gap = _LoopGap()
+    rec = {"recv": {}, "saved": {}, "launches": {}, "stall": {}}
+    log = {}
+    real_add = BlockPool.add_block
+
+    def add_block(pool, peer_id, block, ext, size):
+        rec["recv"].setdefault(block.header.height, time.perf_counter())
+        return real_add(pool, peer_id, block, ext, size)
+
+    async def run():
+        server = await _sock_node(
+            chain.doc, device, _seed(seed + 140, 0), dbs=keep["dbs"],
+            reactors=lambda nd: _passive_bsync(nd, device))
+        top = server.block_store.height
+        _phase(f"14a blocksync-{n}x{top - 1}: phase 13b's server restarted "
+               f"over its stores ({top} heights of the twin's {n}-validator "
+               f"chain) with a passive BlocksyncReactor; a fresh joiner "
+               f"(active BlocksyncReactor, ConsensusReactor(wait_sync), "
+               f"EvidenceReactor, MempoolReactor) block-syncs heights "
+               f"1-{top - 1} (the last needs its successor's LastCommit), "
+               f"switches to consensus and commits {top} by catch-up")
+        joiner = await _sock_node(
+            chain.doc, device, _seed(seed + 140, 1),
+            wait_sync=cfg.blocksync.enable, mempool_config=cfg.mempool,
+            evidence=True,
+            reactors=lambda nd: _bsync_reactor(nd, cfg, device, log))
+        states = {}
+        real_save = joiner.state_store.save
+        real_save_block = joiner.block_store.save_block
+
+        def save(state):
+            states[state.last_block_height] = state.bytes()
+            real_save(state)
+
+        def save_block(block, parts, seen):
+            real_save_block(block, parts, seen)
+            h = block.header.height
+            rec["saved"][h] = time.perf_counter()
+            rec["launches"][h] = ek.launches
+            rec["stall"][h] = gap.take()
+
+        joiner.state_store.save = save
+        joiner.block_store.save_block = save_block
+        sub = joiner.bus.subscribe("chip-smoke-bsync", EVENT_QUERY_NEW_BLOCK,
+                                   out_capacity=1000)
+        gap_task = asyncio.ensure_future(gap.run())
+        try:
+            await server.cs.start()
+            await joiner.bsync.start_sync()
+            t0 = time.perf_counter()
+            rec["launches"][0] = ek.launches
+            await asyncio.wait_for(
+                joiner.switch.dial_peer(server.switch.listen_addr), 30)
+            gap.take()
+            deadline = t0 + 180
+            while "switched" not in log:
+                joiner.bsync.raise_if_failed()
+                server.cs.raise_if_failed()
+                if time.perf_counter() > deadline:
+                    raise AssertionError(
+                        f"14a: no switch to consensus in 180 s (joiner at "
+                        f"{joiner.block_store.height})")
+                await asyncio.sleep(0.01)
+            await _cs_new_block(joiner, sub, top)
+            t_done = time.perf_counter()
+            await joiner.bsync.stop_sync()
+            final_rs = joiner.cs.rs.height
+        finally:
+            gap.stop = True
+            await gap_task
+            await _sock_stop([joiner, server])
+        return server, joiner, top, states, t0, t_done, final_rs
+
+    BlockPool.add_block = add_block
+    try:
+        with _timed(host, "verify") as verifies, _gc_pauses() as pauses:
+            server, joiner, top, states, t0, t_done, final_rs = \
+                loop.run_until_complete(run())
+    finally:
+        BlockPool.add_block = real_add
+    synced = range(1, top)
+    lanes = [ev["attrs"]["batch"]
+             for ev in tracing.snapshot(category=tracing.CRYPTO)
+             if ev["name"] == "batch_verify"]
+    # the gates: the joiner's rows, states and app hash are the twin's
+    for h in range(1, top + 1):
+        mine, twin = joiner.block_store, chain.block_store
+        if encode(pb.BLOCK, mine.load_block(h).to_proto()) != \
+                encode(pb.BLOCK, twin.load_block(h).to_proto()) or \
+                encode(pb.BLOCK_META, mine.load_block_meta(h).to_proto()) != \
+                encode(pb.BLOCK_META, twin.load_block_meta(h).to_proto()):
+            raise AssertionError(f"14a: the joiner's block {h} != the twin's")
+        if h < top and encode(pb.COMMIT,
+                              mine.load_seen_commit(h).to_proto()) != \
+                encode(pb.COMMIT, twin.load_seen_commit(h).to_proto()):
+            raise AssertionError(f"14a: the joiner's seen commit {h} != the "
+                                 f"twin's")
+        if states.get(h) != chain.states[h]:
+            raise AssertionError(f"14a: the joiner's State at {h} != the "
+                                 f"twin's")
+    final = joiner.state_store.load()
+    info = loop.run_until_complete(joiner.conns.query.info(
+        abci.InfoRequest()))
+    if final.last_block_height != top or \
+            info.last_block_app_hash != final.app_hash or \
+            final.bytes() != chain.states[top]:
+        raise AssertionError("14a: the joiner's app hash != the twin's")
+    # the switch: consensus took the synced height, LastCommit is the
+    # stored seen commit, and the catch-up then commits the server's top
+    seen = joiner.block_store.load_seen_commit(top - 1)
+    vs = log["last_commit"]
+    if log["height"] != top - 1 or log["rs_height"] != top or \
+            vs is None or vs.height != top - 1 or any(
+                vs.get_by_index(i).signature != sig.signature
+                for i, sig in enumerate(seen.signatures)
+                if not sig.absent_flag()) or final_rs != top + 1:
+        raise AssertionError(
+            f"14a: the switch left rs.height {log['rs_height']} (then "
+            f"{final_rs}) for a sync to {log['height']}")
+    ms = [(rec["saved"][h] - rec["recv"][h]) * 1e3 for h in synced]
+    step = [(rec["saved"][h] - rec["saved"][h - 1]) * 1e3
+            for h in synced if h > 1]
+    per = [rec["launches"][h] - rec["launches"].get(h - 1, 0)
+           for h in synced]
+    stalls = [rec["stall"][h] * 1e3 for h in synced]
+    sync_s = rec["saved"][top - 1] - t0
+    grace_s = log["switch_at"] - rec["saved"][top - 1]
+    launches = rec["launches"][top - 1] - rec["launches"][0]
+    sent = _p2p_metrics_bytes([server.switch], "message_send_bytes_total",
+                              ("0x40",))["0x40"]
+    got = _p2p_metrics_bytes([joiner.switch], "message_send_bytes_total",
+                             ("0x40",))["0x40"]
+    _log(f"blocksync_{n}x{top - 1} {top - 1} heights in {sync_s:.2f} s from "
+         f"the dial ({(top - 1) / sync_s:.2f} heights a second); ms a height "
+         f"from BlockResponse received to the block store's save "
+         f"{_p50_p90(ms)}, save to save {_p50_p90(step)}; beside it "
+         f"catchup_{n}x{CATCHUP_HEIGHTS}'s gossip catch-up in this call "
+         f"{_p50_p90(keep['catchup_ms'])} ms a height; B1 launches "
+         f"{launches} ({_p50_p90(per)} a height: verify_commit_light on "
+         f"the next block's LastCommit, then validate_block on the block's "
+         f"own), lanes a launch {sorted(collections.Counter(lanes).items())}; "
+         f"card: {card}")
+    _log(f"blocksync_{n}x{top - 1} caught up to the switch {grace_s:.2f} s "
+         f"(the JAX grace is 2 x 2 s); the switch's LastCommit rebuild "
+         f"{log['switch_launches']} B1 launch(es), rs.height {top} at the "
+         f"switch, {final_rs} after the consensus catch-up of height {top} "
+         f"({(t_done - log['switched']) * 1e3:.1f} ms); serial host verifies "
+         f"{len(verifies)}; wire bytes a height on 0x40: server "
+         f"{sent / (top - 1):.0f}, joiner {got / (top - 1):.0f}; the loop's "
+         f"longest stall a height ms {_p50_p90(stalls)}, max "
+         f"{max(stalls):.2f}; gc in the run: {_gc_line(pauses)}; the "
+         f"joiner's rows, State.bytes() and app hash equal the twin's at "
+         f"every height")
+    return launches + log["switch_launches"], joiner
+
+
+def _evidence_dup(seed, card, ek, device, loop):
+    """14b(i): 13a's socket net (BASELINE.json config 1, four validators,
+    the JAX test timeouts) with an EvidencePool and an EvidenceReactor on
+    every node; a harness holding validator 3's key sends node 0 a second
+    prevote for another block id.  Returns (B1 launches, what 14d
+    reads)."""
+    from cometbft_tpu_torch.config import test_config
+    from cometbft_tpu_torch.consensus.messages import VoteMessage
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.canonical import PREVOTE_TYPE
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    from cometbft_tpu_torch.types.part_set import PartSetHeader
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import Vote
+    n = SOCK_VALIDATORS
+    _phase(f"14b(i) evidence-dup-{n}: 13a's net with an EvidencePool and an "
+           f"EvidenceReactor on every node; validator 3 equivocates to node "
+           f"0, the evidence is gossiped on 0x38, proposed and committed")
+    doc, pvs = _net_doc(seed + 141, n, "evidence-chip")
+    _clear_memos()
+    ek.launches = 0
+    seen = [[] for _ in pvs]
+    found = []
+
+    async def run():
+        nodes = [await _sock_node(doc, device, _seed(seed + 142, i), pv=pv,
+                                  config=test_config().consensus,
+                                  evidence=True)
+                 for i, pv in enumerate(pvs)]
+        for i, node in enumerate(nodes):
+            real = node.app.finalize_block
+
+            async def finalize(req, real=real, i=i):
+                seen[i].extend((req.height, m) for m in req.misbehavior)
+                return await real(req)
+            node.app.finalize_block = finalize
+        real_add = nodes[0].evpool._add_pending
+
+        def add_pending(ev):
+            found.append((ev, nodes[0].block_store.height))
+            real_add(ev)
+        nodes[0].evpool._add_pending = add_pending
+        try:
+            await _sock_mesh(nodes)
+            sub = nodes[0].bus.subscribe("chip-smoke-ev",
+                                         EVENT_QUERY_NEW_BLOCK,
+                                         out_capacity=1000)
+            for node in nodes:
+                await node.cs.start()
+            await _cs_new_block(nodes[0], sub, 2)
+            reports = []
+            deadline = time.perf_counter() + 60
+            while not found:
+                rs = nodes[0].cs.rs
+                h, r = rs.height, rs.round
+                vote = Vote(type=PREVOTE_TYPE, height=h, round=r,
+                            block_id=BlockID(
+                                hashlib.sha256(b"%d/%d" % (seed, h)).digest(),
+                                PartSetHeader(1, bytes(32))),
+                            timestamp=Timestamp(EXEC_T0 + h, 3),
+                            validator_address=pvs[3].get_pub_key().address(),
+                            validator_index=3)
+                vote.signature = pvs[3].priv_key.sign(
+                    vote.sign_bytes(doc.chain_id))
+                nodes[0].cs.send_peer(VoteMessage(vote), "equivocation")
+                reports.append(h)
+                until = nodes[0].block_store.height + 3
+                while not found and nodes[0].block_store.height < until:
+                    for node in nodes:
+                        node.cs.raise_if_failed()
+                        node.evidence_reactor.raise_if_failed()
+                    if time.perf_counter() > deadline:
+                        raise AssertionError("14b: no evidence in 60 s")
+                    await asyncio.sleep(0.005)
+            ev = found[0][0]
+            while not all(node.evpool._is_committed(ev) for node in nodes):
+                for node in nodes:
+                    node.cs.raise_if_failed()
+                    node.evidence_reactor.raise_if_failed()
+                if time.perf_counter() > deadline:
+                    raise AssertionError("14b: the evidence was not "
+                                         "committed everywhere in 60 s")
+                await asyncio.sleep(0.005)
+            top = min(node.block_store.height for node in nodes)
+            await _cs_until(nodes[0], lambda: all(
+                nd.block_store.height >= top + 1 for nd in nodes),
+                "every node one height on")
+        finally:
+            await _sock_stop(nodes)
+        return nodes, reports, top
+
+    nodes, reports, top = loop.run_until_complete(run())
+    ev, pending_at = found[0]
+    committed_at = [h for h in range(1, top + 1) if any(
+        e.hash() == ev.hash()
+        for e in nodes[0].block_store.load_block(h).evidence)]
+    if len(committed_at) != 1:
+        raise AssertionError(f"14b: the evidence is in blocks {committed_at}")
+    for i in range(n):
+        hits = [h for h, m in seen[i]
+                if m.validator.address == ev.vote_a.validator_address]
+        if hits != committed_at:
+            raise AssertionError(f"14b: node {i}'s app saw the misbehavior "
+                                 f"at {hits}, not {committed_at}")
+    for h in range(1, top + 1):
+        if len({nd.block_store.load_block(h).header.app_hash
+                for nd in nodes}) != 1:
+            raise AssertionError(f"14b: the app hashes differ at {h}")
+    ev_bytes = _p2p_metrics_bytes([nd.switch for nd in nodes],
+                                  "message_send_bytes_total", ("0x38",))
+    _log(f"evidence_dup_{n} validator 3's second prevote reported to node 0 "
+         f"at height {reports[-1]} ({len(reports)} report(s)); "
+         f"DuplicateVoteEvidence pending on node 0 after height "
+         f"{pending_at}, committed in block {committed_at[0]} "
+         f"({committed_at[0] - reports[-1]} heights from the report); every "
+         f"pool marks it committed, every app saw the misbehavior once in "
+         f"FinalizeBlock, app hashes agree to height {top}; 0x38 bytes sent "
+         f"by the four nodes {ev_bytes['0x38']:.0f}; B1 launches "
+         f"{ek.launches}; card: {card}")
+    return ek.launches, {"ev": ev, "node": nodes[0]}
+
+
+def _evidence_lca(seed, card, ek, tracing, device, keep, joiner):
+    """14b(ii): a lunatic light-client attack at config 4's width, judged
+    against 14a's joiner stores: a conflicting header at LCA_CONFLICT
+    with a forged validator set of the fewest common-set validators that
+    hold more than a third of its power, all of them signing.  Returns
+    B1 launches."""
+    import dataclasses
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.evidence import EvidenceError, EvidencePool
+    from cometbft_tpu_torch.types.block import LightBlock, SignedHeader
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.canonical import (
+        PRECOMMIT_TYPE, vote_sign_bytes_template)
+    from cometbft_tpu_torch.types.commit import Commit, CommitSig
+    from cometbft_tpu_torch.types.evidence import LightClientAttackEvidence
+    from cometbft_tpu_torch.types.part_set import PartSetHeader
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator
+    from cometbft_tpu_torch.types.validator_set import ValidatorSet
+    from cometbft_tpu_torch.types.vote import BLOCK_ID_FLAG_COMMIT
+    chain, n = keep["chain"], EXEC_VALIDATORS
+    ss, bs = joiner.state_store, joiner.block_store
+    common = ss.load_validators(LCA_COMMON)
+    total = common.total_voting_power()
+    k, power = 0, 0
+    while 3 * power <= total:
+        power += common.validators[k].voting_power
+        k += 1
+    _phase(f"14b(ii) evidence-lca-{n}: a lunatic attack on 14a's joiner "
+           f"stores — a header at {LCA_CONFLICT} signed by a forged set of "
+           f"{k} of the {common.size()} validators of height {LCA_COMMON} "
+           f"({power} of {total} power), verified by the pool on B1")
+    forged = ValidatorSet([Validator.new(v.pub_key, v.voting_power)
+                           for v in common.validators[:k]])
+    meta = bs.load_block_meta(LCA_CONFLICT)
+    header = dataclasses.replace(
+        meta.header, validators_hash=forged.hash(),
+        next_validators_hash=forged.hash(), app_hash=b"\xee" * 32)
+    block_id = BlockID(header.hash(), PartSetHeader(1, b"\xab" * 32))
+    make = vote_sign_bytes_template(chain.chain_id, PRECOMMIT_TYPE,
+                                    LCA_CONFLICT, 0, block_id)
+    stamps = [Timestamp(EXEC_T0 + LCA_CONFLICT, 7 + i) for i in range(k)]
+    sigs = _Signer().sign([(chain.seed_of[v.address], make(stamps[i]))
+                           for i, v in enumerate(forged.validators)])
+    commit = Commit(LCA_CONFLICT, 0, block_id, [
+        CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, stamps[i], sigs[i])
+        for i, v in enumerate(forged.validators)])
+    conflicting = LightBlock(SignedHeader(header, commit), forged)
+    trusted = SignedHeader(bs.load_block_meta(LCA_CONFLICT).header,
+                           bs.load_block_commit(LCA_CONFLICT))
+    ev = LightClientAttackEvidence(
+        conflicting_block=conflicting, common_height=LCA_COMMON,
+        total_voting_power=total,
+        timestamp=bs.load_block_meta(LCA_COMMON).header.time)
+    ev.byzantine_validators = ev.get_byzantine_validators(common, trusted)
+    _clear_memos()
+    tracing.clear()
+    l0 = ek.launches
+    pool = EvidencePool(MemDB(), ss, bs, device=device)
+    t = time.perf_counter()
+    pool.add_evidence(ev)
+    ms = (time.perf_counter() - t) * 1e3
+    launches = ek.launches - l0
+    lanes = [e["attrs"]["batch"]
+             for e in tracing.snapshot(category=tracing.CRYPTO)
+             if e["name"] == "batch_verify"]
+    if [e.hash() for e in pool.all_pending()] != [ev.hash()] or \
+            len(ev.byzantine_validators) != k or launches != 2:
+        raise AssertionError(f"14b: the attack was not admitted on B1 "
+                             f"({launches} launches)")
+    bad = dataclasses.replace(
+        ev, byzantine_validators=ev.byzantine_validators[:1])
+    want = f"expected {k} byzantine validators, got 1"
+    _expect_rejection(lambda: EvidencePool(MemDB(), ss, bs, device=device)
+                      .add_evidence(bad), EvidenceError, want)
+    _log(f"evidence_lca_{n} a lunatic attack (common height {LCA_COMMON}, "
+         f"conflicting {LCA_CONFLICT}, {k} byzantine validators) verified "
+         f"by add_evidence in {ms:.2f} ms with {launches} B1 launches "
+         f"(verify_commit_light_trusting on the common set, then "
+         f"verify_commit_light on the forged set), lanes a launch "
+         f"{sorted(collections.Counter(lanes).items())}; a tampered "
+         f"attribution refused: EvidenceError {want!r}; card: {card}")
+    return launches
+
+
+def _mempool_net(seed, card, ek, tracing, device, loop):
+    """14c: 13a's net again, each node with a CListMempool at the
+    MempoolConfig defaults (have/want gossip, incremental recheck), a
+    MempoolReactor and its mempool in the BlockExecutor; loadtime
+    payloads submitted round-robin through CheckTx.  The consensus
+    timeouts are ConsensusConfig's defaults (propose 3 s, votes 1 s):
+    under the JAX test_config's 40 / 10 ms, blocks of 1 KB txs cannot
+    cross the sockets inside a round, and the net stops committing.
+    Returns B1 launches."""
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.mempool import MempoolError
+    from cometbft_tpu_torch.mempool import reactor as mreactor
+    from cometbft_tpu_torch.tools.loadtime import (
+        Stats, payload_bytes, payload_from_tx)
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    n, cfg = SOCK_VALIDATORS, Config()
+    mcfg = cfg.mempool
+    _phase(f"14c mempool-{n}x{MEMPOOL_HEIGHTS}: 13a's net with the default "
+           f"ConsensusConfig timeouts, each node with a "
+           f"CListMempool (MempoolConfig defaults) and a MempoolReactor; "
+           f"{LOAD_RATE} tx/s of {LOAD_TX_BYTES}-byte loadtime payloads for "
+           f"{LOAD_SECONDS:.0f} s, round-robin through CheckTx, then until "
+           f"every pool drains and {MEMPOOL_HEIGHTS} heights are committed")
+    doc, pvs = _net_doc(seed + 143, n, "mempool-chip")
+    exp = f"chip-smoke-{seed}"
+    _clear_memos()
+    ek.launches = 0
+    wire = collections.Counter()
+    real_encode = mreactor.encode_mempool
+
+    def counting(msg):
+        raw = real_encode(msg)
+        wire[type(msg).__name__] += len(raw)
+        return raw
+
+    async def run():
+        nodes = [await _sock_node(doc, device, _seed(seed + 144, i), pv=pv,
+                                  config=cfg.consensus, mempool_config=mcfg)
+                 for i, pv in enumerate(pvs)]
+        blocks, stamps = {}, []
+        accepted, refused = [], collections.Counter()
+        col = None
+        try:
+            await _sock_mesh(nodes)
+            sub = nodes[0].bus.subscribe("chip-smoke-mp",
+                                         EVENT_QUERY_NEW_BLOCK,
+                                         out_capacity=100_000)
+
+            async def collect():
+                while True:
+                    msg = await sub.next()
+                    blocks[msg.data.payload["block"].header.height] = \
+                        time.time_ns()
+                    stamps.append(time.perf_counter())
+            col = asyncio.ensure_future(collect())
+            for node in nodes:
+                await node.cs.start()
+            t0 = time.perf_counter()
+            for i in range(int(LOAD_RATE * LOAD_SECONDS)):
+                delay = t0 + i / LOAD_RATE - time.perf_counter()
+                if delay > 0:
+                    await asyncio.sleep(delay)
+                tx = payload_bytes(exp, size=LOAD_TX_BYTES, rate=LOAD_RATE,
+                                   connections=n)
+                try:
+                    await nodes[i % n].mempool.check_tx(tx)
+                    accepted.append(tx)
+                except MempoolError as e:
+                    refused[type(e).__name__] += 1
+                if i % 40 == 0:
+                    for node in nodes:
+                        node.cs.raise_if_failed()
+            send_s = time.perf_counter() - t0
+            await _cs_until(nodes[0], lambda: all(
+                nd.mempool.size() == 0 and
+                nd.block_store.height >= MEMPOOL_HEIGHTS for nd in nodes),
+                "every mempool drained", timeout_s=120.0)
+            top = min(nd.block_store.height for nd in nodes)
+            await _cs_until(nodes[0], lambda: max(blocks, default=0) >= top,
+                            "node 0's NewBlock for the last height")
+        finally:
+            if col is not None:
+                col.cancel()
+            await _sock_stop(nodes)
+        return nodes, blocks, stamps, accepted, refused, send_s, top
+
+    mreactor.encode_mempool = counting
+    try:
+        nodes, blocks, stamps, accepted, refused, send_s, top = \
+            loop.run_until_complete(run())
+    finally:
+        mreactor.encode_mempool = real_encode
+    # the gates: every accepted tx committed exactly once on every node,
+    # the app hashes agree, every pool drained
+    want = collections.Counter(accepted)
+    latency, per_block, committed_ns = [], [], []
+    for i, node in enumerate(nodes):
+        got = collections.Counter()
+        for h in range(1, node.block_store.height + 1):
+            txs = node.block_store.load_block(h).data.txs
+            got.update(txs)
+            if i == 0 and h <= top:
+                per_block.append(len(txs))
+                for tx in txs:
+                    p = payload_from_tx(tx)
+                    if p is not None and p["id"] == exp:
+                        latency.append((blocks[h] - p["time_ns"]) / 1e9)
+                        committed_ns.append(blocks[h])
+        if got != want:
+            raise AssertionError(f"14c: node {i} committed "
+                                 f"{sum(got.values())} txs, "
+                                 f"{len(set(got) ^ set(want))} not as "
+                                 f"submitted, or a tx twice")
+    for h in range(1, top + 1):
+        if len({nd.block_store.load_block(h).header.app_hash
+                for nd in nodes}) != 1:
+            raise AssertionError(f"14c: the app hashes differ at {h}")
+    first_ns = min(payload_from_tx(tx)["time_ns"] for tx in accepted)
+    tps = len(accepted) / ((max(committed_ns) - first_ns) / 1e9)
+    lat = Stats.from_samples(latency)
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    m = [nd.cs.metrics for nd in nodes]
+    mp = [nd.mempool.metrics for nd in nodes]
+    recv = sum(x.gossip_txs_received.value for x in mp)
+    dup = sum(x.gossip_txs_duplicate.value for x in mp)
+    sent = _p2p_metrics_bytes([nd.switch for nd in nodes],
+                              "message_send_bytes_total", ("0x30",))["0x30"]
+    _log(f"mempool_{n}x{MEMPOOL_HEIGHTS} {len(accepted)} txs accepted of "
+         f"{len(accepted) + sum(refused.values())} submitted in {send_s:.2f} "
+         f"s (refused: {dict(refused)}); committed {tps:.1f} tx/s; latency "
+         f"submit to committing block (node 0's NewBlock) p50 "
+         f"{lat.p50_s * 1e3:.1f} ms, p90 {lat.p90_s * 1e3:.1f} ms, max "
+         f"{lat.max_s * 1e3:.1f} ms; {top} heights, ms a height "
+         f"{_p50_p90(ms)}, txs a block {_p50_p90(per_block)} max "
+         f"{max(per_block)}; card: {card}")
+    _log(f"mempool_{n}x{MEMPOOL_HEIGHTS} compact proposals sent "
+         f"{sum(x.compact_blocks_sent.value for x in m):.0f}, rebuilt from "
+         f"the mempool "
+         f"{sum(x.compact_blocks_reconstructed.value for x in m):.0f}, "
+         f"misses (nacked to parts) "
+         f"{sum(x.compact_block_misses.value for x in m):.0f}, mismatches "
+         f"{sum(x.compact_block_mismatches.value for x in m):.0f}; 0x30 bytes "
+         f"sent {sent:.0f}: Txs {wire['TxsMessage']}, TxHave "
+         f"{wire['TxHaveMessage']}, TxWant {wire['TxWantMessage']}; "
+         f"duplicate-receive ratio {dup / max(recv, 1):.3f} ({dup:.0f} of "
+         f"{recv:.0f}); B1 launches {ek.launches}; every accepted tx "
+         f"committed once on every node, app hashes agree, every pool at 0")
+    return ek.launches
+
+
+class _CappedStore:
+    """A block store seen up to ``cap``: what a server at that height
+    serves a block-syncing peer."""
+
+    def __init__(self, store, cap):
+        self._store, self._cap = store, cap
+
+    @property
+    def height(self):
+        return self._cap
+
+    @property
+    def base(self):
+        return self._store.base
+
+    def load_block(self, h):
+        return self._store.load_block(h) if h <= self._cap else None
+
+    def load_block_ext_commit(self, h):
+        return self._store.load_block_ext_commit(h) if h <= self._cap \
+            else None
+
+
+async def _bsync_server(chain, key_seed, cap, device, bad_height=0):
+    """A Switch with a passive BlocksyncReactor over the twin's stores seen
+    up to ``cap``; with ``bad_height``, the block served there carries a
+    LastCommit with one signature bit flipped."""
+    from cometbft_tpu_torch.blocksync import BlocksyncReactor
+    from cometbft_tpu_torch.blocksync.reactor import (
+        BLOCKSYNC_CHANNEL, MESSAGE)
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from cometbft_tpu_torch.p2p import NodeKey, Switch
+    from cometbft_tpu_torch.wire import encode
+    store = _CappedStore(chain.block_store, cap)
+    reactor = BlocksyncReactor(chain.state, chain.exec, store, active=False,
+                               device=device)
+    if bad_height:
+        real = reactor._respond_to_block_request
+
+        def respond(peer, height):
+            if height != bad_height:
+                return real(peer, height)
+            block = store.load_block(height)
+            sig = block.last_commit.signatures[0]
+            sig.signature = bytes([sig.signature[0] ^ 1]) + sig.signature[1:]
+            peer.send(BLOCKSYNC_CHANNEL, encode(MESSAGE, {
+                "block_response": {"block": block.to_proto()}}))
+        reactor._respond_to_block_request = respond
+    sw = Switch(NodeKey(Ed25519PrivKey(key_seed)), chain.chain_id,
+                listen_addr="127.0.0.1:0")
+    sw.add_reactor(reactor)
+    await sw.start()
+    return sw
+
+
+async def _bsync_joiner(chain, key_seed, device):
+    """A fresh node from genesis with a Switch and an active
+    BlocksyncReactor (no switch to consensus: ``on_caught_up`` unset)."""
+    from cometbft_tpu_torch.blocksync import BlocksyncReactor
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from cometbft_tpu_torch.p2p import NodeKey, Switch
+    node = await _CsNode.make(chain.doc, device)
+    node.states = {}
+    real_save = node.state_store.save
+
+    def save(state):
+        node.states[state.last_block_height] = state.bytes()
+        real_save(state)
+    node.state_store.save = save
+    node.bsync = BlocksyncReactor(node.state_store.load(), node.exec,
+                                  node.block_store, active=True,
+                                  device=device)
+    node.switch = Switch(NodeKey(Ed25519PrivKey(key_seed)), chain.chain_id,
+                         listen_addr="127.0.0.1:0")
+    node.switch.add_reactor(node.bsync)
+    await node.switch.start()
+    return node
+
+
+async def _bsync_until(node, pred, what, timeout_s=60.0):
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        node.bsync.raise_if_failed()
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what}: not reached in {timeout_s} s (at "
+                                 f"{node.block_store.height})")
+        await asyncio.sleep(0.005)
+
+
+def _bsync_reject(seed, card, ek, ek8, oe, device, loop, keep, dup):
+    """14d: a server whose block carries a bad LastCommit signature, the
+    evidence and mempool refusals, a sync under cuda8 and a raising
+    stand-in kernel in the joiner's sync routine.  Returns (B1 launches,
+    B2 launches)."""
+    import dataclasses
+    from cometbft_tpu_torch.abci.client import AppConns
+    from cometbft_tpu_torch.abci.kvstore import (
+        DEFAULT_LANES, KVStoreApplication)
+    from cometbft_tpu_torch.config import MempoolConfig
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.evidence import EvidenceError, EvidencePool
+    from cometbft_tpu_torch.mempool import CListMempool, MempoolError
+    from cometbft_tpu_torch.mempool.mempool import (
+        MempoolFullError, TxInCacheError)
+    chain, depth = keep["chain"], BSYNC_REJECT_HEIGHTS
+    _phase(f"14d bsync-reject: a server whose block {BSYNC_BAD_HEIGHT + 1} "
+           f"carries a flipped LastCommit signature bit, evidence and "
+           f"mempool refusals, a {depth}-height sync under cuda8 and a "
+           f"raising stand-in kernel in a joiner's sync routine")
+    out = []
+    _clear_memos()
+    l0 = ek.launches
+
+    def check_states(node, what):
+        for h in range(1, depth + 1):
+            if node.states.get(h) != chain.states[h]:
+                raise AssertionError(f"14d: {what}: the State at {h} != the "
+                                     f"twin's")
+
+    async def bad_then_honest():
+        bad = await _bsync_server(chain, _seed(seed + 145, 0), depth + 1,
+                                  device, bad_height=BSYNC_BAD_HEIGHT + 1)
+        good = await _bsync_server(chain, _seed(seed + 145, 1), depth + 1,
+                                   device)
+        joiner = await _bsync_joiner(chain, _seed(seed + 145, 2), device)
+        bans, redos = [], []
+        real_ban = joiner.bsync._ban_peer
+
+        def ban(peer_id, reason):
+            bans.append((peer_id, reason))
+            real_ban(peer_id, reason)
+        joiner.bsync._ban_peer = ban
+        try:
+            await joiner.bsync.start_sync()
+            real_redo = joiner.bsync.pool.redo_request
+
+            def redo(height, reason):
+                redos.append(height)
+                real_redo(height, reason)
+            joiner.bsync.pool.redo_request = redo
+            bad_peer = await joiner.switch.dial_peer(bad.listen_addr)
+            await _bsync_until(joiner, lambda: bans and
+                               bad_peer.id not in joiner.switch.peers,
+                               "14d: the ban of the bad server")
+            stalled = joiner.block_store.height
+            await joiner.switch.dial_peer(good.listen_addr)
+            await _bsync_until(joiner, lambda: joiner.block_store.height >=
+                               depth, "14d: the sync from the honest server")
+            await joiner.bsync.stop_sync()
+        finally:
+            for sw in (joiner.switch, bad, good):
+                await sw.stop()
+        return joiner, bad_peer.id, bans, redos, stalled
+
+    joiner, bad_id, bans, redos, stalled = loop.run_until_complete(
+        bad_then_honest())
+    check_states(joiner, "the sync past the bad server")
+    if redos[:2] != [BSYNC_BAD_HEIGHT, BSYNC_BAD_HEIGHT + 1] or \
+            {p for p, _ in bans} != {bad_id} or \
+            stalled != BSYNC_BAD_HEIGHT - 1:
+        raise AssertionError(f"14d: redos {redos}, bans {bans}, stalled at "
+                             f"{stalled}")
+    out.append(f"bad LastCommit signature in block {BSYNC_BAD_HEIGHT + 1}: "
+               f"the joiner stopped at {stalled}, redid heights "
+               f"{redos[:2]}, banned the server with reason "
+               f"{bans[0][1]!r}, then synced {depth} heights from the "
+               f"honest server, its States the twin's")
+
+    # evidence refusals on 14b's chain
+    ev, node = dup["ev"], dup["node"]
+
+    def pool():
+        return EvidencePool(MemDB(), node.state_store, node.block_store,
+                            device=device)
+    vals = node.state_store.load_validators(ev.height)
+    wrong = dataclasses.replace(ev, total_voting_power=ev.total_voting_power
+                                + 1)
+    want = (f"total voting power mismatch: {wrong.total_voting_power} vs "
+            f"{vals.total_voting_power()}")
+    _expect_rejection(lambda: pool().add_evidence(wrong), EvidenceError, want)
+    out.append(f"evidence with the wrong total power: EvidenceError {want!r}")
+    want = "evidence was already committed"
+    _expect_rejection(lambda: node.evpool.check_evidence([ev]),
+                      EvidenceError, want)
+    out.append(f"committed evidence in a block: EvidenceError {want!r}")
+    old = pool()
+    state = node.state_store.load()
+    params = state.consensus_params
+    old.state = dataclasses.replace(
+        state, consensus_params=dataclasses.replace(
+            params, evidence=dataclasses.replace(
+                params.evidence, max_age_num_blocks=1,
+                max_age_duration_ns=1)))
+    want = f"evidence from height {ev.height} is too old"
+    _expect_rejection(lambda: old.add_evidence(ev), EvidenceError, want)
+    out.append(f"expired evidence: EvidenceError {want!r}")
+
+    # mempool refusals
+    async def mempool_cases():
+        mp = CListMempool(MempoolConfig(size=2, max_tx_bytes=64),
+                          AppConns(KVStoreApplication()).mempool,
+                          lanes=DEFAULT_LANES, default_lane="default")
+        await mp.check_tx(b"a=1")
+        await mp.check_tx(b"b=2")
+        res = []
+        for tx, exc, text in (
+                (b"a=1", TxInCacheError, "tx already exists in cache"),
+                (b"d=" + b"x" * 63, MempoolError, "tx too large: 65 > 64"),
+                (b"c=3", MempoolFullError,
+                 "mempool is full: 2 txs, 6 bytes")):
+            try:
+                await mp.check_tx(tx)
+            except MempoolError as e:
+                if type(e) is not exc or str(e) != text:
+                    raise AssertionError(f"14d: {type(e).__name__} {e}")
+                res.append(f"{exc.__name__} {text!r}")
+                continue
+            raise AssertionError(f"14d: the mempool took {tx[:8]!r}")
+        return res
+    for line in loop.run_until_complete(mempool_cases()):
+        out.append(f"mempool refuses: {line}")
+
+    # one sync under cuda8: the same States as under B1
+    async def sync8():
+        good = await _bsync_server(chain, _seed(seed + 146, 0), depth + 1,
+                                   device)
+        joiner = await _bsync_joiner(chain, _seed(seed + 146, 1), device)
+        try:
+            await joiner.bsync.start_sync()
+            await joiner.switch.dial_peer(good.listen_addr)
+            await _bsync_until(joiner, lambda: joiner.block_store.height >=
+                               depth, "14d: the cuda8 sync")
+            await joiner.bsync.stop_sync()
+        finally:
+            await joiner.switch.stop()
+            await good.stop()
+        return joiner
+
+    _clear_memos()
+    b1, ek8.launches = ek.launches, 0
+    os.environ[oe.KERNEL_ENV] = "cuda8"
+    try:
+        joiner8 = loop.run_until_complete(sync8())
+    finally:
+        os.environ.pop(oe.KERNEL_ENV, None)
+    launches8, b1_in_8 = ek8.launches, ek.launches - b1
+    check_states(joiner8, "the cuda8 sync")
+    if b1_in_8 or launches8 < 2 * (depth - 1):
+        raise AssertionError(f"14d: cuda8 sync launched B1 {b1_in_8}, B2 "
+                             f"{launches8}")
+    out.append(f"{depth}-height sync under cuda8: {launches8} B2 launches, "
+               f"0 B1, its States equal the B1 sync's")
+
+    # a kernel that raises in the joiner's sync routine stops the sync
+    async def raising_sync():
+        good = await _bsync_server(chain, _seed(seed + 147, 0), depth + 1,
+                                   device)
+        joiner = await _bsync_joiner(chain, _seed(seed + 147, 1), device)
+        err = None
+        try:
+            await joiner.bsync.start_sync()
+            task = joiner.bsync._tasks[0]
+            await joiner.switch.dial_peer(good.listen_addr)
+            deadline = time.perf_counter() + 30
+            while joiner.bsync.failure is None:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("14d: the raising kernel was never "
+                                         "reached")
+                await asyncio.sleep(0.005)
+            await asyncio.sleep(0.5)
+            running = joiner.bsync.pool.is_running
+            try:
+                await joiner.bsync.stop_sync()
+            except RuntimeError as e:
+                err = e
+        finally:
+            await joiner.switch.stop()
+            await good.stop()
+        return joiner, task, running, err
+
+    real_kernel = ek.verify_cols
+
+    def raising(*a, **kw):
+        raise RuntimeError("stand-in kernel failure (14d)")
+
+    _clear_memos()
+    ek.verify_cols = raising
+    try:
+        joiner_r, task, running, err = loop.run_until_complete(
+            raising_sync())
+    finally:
+        ek.verify_cols = real_kernel
+    if err is None or "stand-in kernel failure" not in str(err) or \
+            task.restarts != 0 or not task.gave_up or running or \
+            joiner_r.block_store.height != 0:
+        raise AssertionError(f"14d: the raising kernel was hidden: {err!r}, "
+                             f"{task.restarts} restarts")
+    out.append(f"raising kernel in the sync routine: the sync stopped at "
+               f"height 0, 0 restarts, the pool stopped, stop_sync() raised "
+               f"RuntimeError {str(err)!r}")
+    for line in out:
+        _log(f"bsync_reject {line}")
+    _log(f"bsync_reject all {len(out)} cases as the JAX package decides "
+         f"them; card: {card}")
+    return ek.launches - l0 - b1_in_8, launches8
+
+
+def _sync_phases(seed, card, keep, device=None):
+    """Phases 14a-14d: block sync, evidence and the mempool (blocksync/,
+    evidence/, mempool/, light/provider.NodeProvider, tools/loadtime).
+    ``keep`` holds what phases 12 and 13 leave: the twin chain with its
+    states, 13b's server stores and its ms a height.  Returns B1's
+    launches by part and B2's."""
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    t_phase = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    try:
+        bsync, joiner = _bsync_chain(seed, card, ek, tracing, device, loop,
+                                     keep)
+        dup, dup_keep = _evidence_dup(seed, card, ek, device, loop)
+        lca = _evidence_lca(seed, card, ek, tracing, device, keep, joiner)
+        mempool = _mempool_net(seed, card, ek, tracing, device, loop)
+        reject, reject8 = _bsync_reject(seed, card, ek, ek8, oe, device,
+                                        loop, keep, dup_keep)
+    finally:
+        logging.disable(logging.NOTSET)
+        loop.close()
+    _log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return ({f"blocksync_{EXEC_VALIDATORS}x{CS_HEIGHTS}": bsync,
+             f"evidence_dup_{SOCK_VALIDATORS}": dup,
+             f"evidence_lca_{EXEC_VALIDATORS}": lca,
+             f"mempool_{SOCK_VALIDATORS}x{MEMPOOL_HEIGHTS}": mempool,
+             "bsync_reject": reject},
+            {f"bsync_{BSYNC_REJECT_HEIGHTS}_cuda8": reject8})
 
 
 def main() -> int:
@@ -4940,6 +5918,7 @@ def main() -> int:
         cs_launches, cs_launches8 = _cs_phases(args.seed, card, pool,
                                                keep=keep)
     p2p_launches = _p2p_phases(args.seed, card, keep)
+    sync_launches, sync_launches8 = _sync_phases(args.seed, card, keep)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -4959,7 +5938,8 @@ def main() -> int:
                              **{k: v for k, v in vote_launches.items()
                                 if k != "vote_burst_cuda8"},
                              **light_launches, **exec_launches,
-                             **cs_launches, **p2p_launches},
+                             **cs_launches, **p2p_launches,
+                             **sync_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -4987,7 +5967,7 @@ def main() -> int:
                              "vote_burst_cuda8":
                                  vote_launches["vote_burst_cuda8"],
                              **light_launches8, **exec_launches8,
-                             **cs_launches8},
+                             **cs_launches8, **sync_launches8},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

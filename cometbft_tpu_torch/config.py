@@ -1,13 +1,15 @@
-"""Node configuration: the consensus and p2p sections.
+"""Node configuration: the consensus, p2p, mempool and block-sync
+sections.
 
-Reference: config/config.go — P2PConfig (:588), ConsensusConfig (:1218)
-and TestConfig (:128) — through cometbft_tpu/config.py, whose
-``ConsensusConfig`` (:173-234) and the consensus part of
-``test_config`` (:411-417) this copy keeps, with the same field names,
-defaults and timeout arithmetic, and of whose ``P2PConfig`` (:86-104)
-it keeps the fields the port reads.  The other sections (base, RPC,
-mempool, state sync, storage, instrumentation) come with the node,
-ROADMAP.md A.7e-6.
+Reference: config/config.go — P2PConfig (:588), MempoolConfig,
+BlockSyncConfig, ConsensusConfig (:1218) and TestConfig (:128) —
+through cometbft_tpu/config.py, whose ``ConsensusConfig`` (:173-234) and
+the consensus part of ``test_config`` (:411-417) this copy keeps, with
+the same field names, defaults and timeout arithmetic, and of whose
+``P2PConfig`` (:86-104), ``MempoolConfig`` (:108-152) and
+``BlockSyncConfig`` (:168) it keeps the fields the port reads.  The
+other sections (base, RPC, state sync, storage, instrumentation) come
+with the node, ROADMAP.md A.7e-6.
 """
 from __future__ import annotations
 
@@ -28,6 +30,45 @@ class P2PConfig:
     recv_rate: int = 5_120_000
     max_num_outbound_peers: int = 10
     seed_mode: bool = False
+
+
+@dataclass
+class MempoolConfig:
+    """What CListMempool and MempoolReactor read, with the JAX defaults.
+    ``recheck_timeout_ns`` is left out: no module of either package reads
+    it."""
+    recheck: bool = True
+    broadcast: bool = True
+    size: int = 5000
+    max_txs_bytes: int = 64 * 1024 * 1024
+    cache_size: int = 10000
+    keep_invalid_txs_in_cache: bool = False
+    max_tx_bytes: int = 1024 * 1024
+    # incremental recheck: after a commit, CheckTx again only the pooled
+    # txs whose app-reported state keys overlap the committed block's,
+    # plus any tx not revalidated within recheck_max_age_blocks heights;
+    # False restores the full-pool recheck
+    recheck_incremental: bool = True
+    recheck_max_age_blocks: int = 12
+    # CheckTx calls issued together in a recheck pass
+    recheck_batch_size: int = 64
+    # have/want gossip ("txrecon/1", negotiated per link): advertise short
+    # salted tx ids, let peers pull what they miss
+    gossip_reconciliation: bool = True
+    recon_advert_max_ids: int = 256
+    recon_want_timeout_ns: int = 1 * _S
+    # brand-new local txs are pushed in full to about this many peers
+    recon_push_peers: int = 2
+    # heights a salt epoch lasts
+    recon_salt_epoch_blocks: int = 16
+
+
+@dataclass
+class BlockSyncConfig:
+    """Whether a node block-syncs before consensus: read where a node
+    wires BlocksyncReactor(active=...) and ConsensusReactor(wait_sync=...)
+    (cometbft_tpu/node/node.py:419-425)."""
+    enable: bool = True
 
 
 @dataclass
@@ -81,8 +122,11 @@ class ConsensusConfig:
 
 @dataclass
 class Config:
-    """The configuration tree, holding its p2p and consensus sections."""
+    """The configuration tree, holding its p2p, mempool, block-sync and
+    consensus sections."""
     p2p: P2PConfig = field(default_factory=P2PConfig)
+    mempool: MempoolConfig = field(default_factory=MempoolConfig)
+    blocksync: BlockSyncConfig = field(default_factory=BlockSyncConfig)
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
 
 

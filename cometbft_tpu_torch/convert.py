@@ -1,6 +1,7 @@
 """Carry validator sets, commits, votes, headers, light blocks,
-evidence, blocks, block metas, consensus params, genesis docs and states
-across from the reference package.
+evidence, blocks, block metas, block-sync block responses, consensus
+params, genesis docs, states and mempool configs across from the
+reference package.
 
 Accepts the reference's plain data — a ``ValidatorSet.to_proto()`` /
 ``Commit.to_proto()`` / ``AggregateCommit.to_proto()`` /
@@ -9,12 +10,19 @@ Accepts the reference's plain data — a ``ValidatorSet.to_proto()`` /
 ``ConsensusParams`` / ``State`` ``.to_proto()`` dict of Python bytes
 and ints, or its protobuf wire bytes; evidence as the wrapped
 ``Evidence`` oneof (``to_proto_wrapped()``); a genesis doc as its JSON
-(``GenesisDoc.to_json()``) — and returns the port's objects.  Validator
+(``GenesisDoc.to_json()``); a block-sync ``BlockResponse`` as its dict
+or wire bytes; a mempool config as ``dataclasses.asdict`` of it — and
+returns the port's objects.  Validator
 sets may hold any of the four key types.  Nothing of the reference is
 imported: the dict layout and the wire schema are the contract.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
+from .blocksync.reactor import BLOCK_RESPONSE
+from .config import MempoolConfig
 from .state.state import State
 from .types.block import Block, BlockMeta, Header, LightBlock, SignedHeader
 from .types.commit import AggregateCommit, Commit, ExtendedCommit
@@ -96,3 +104,21 @@ def genesis_doc(obj) -> GenesisDoc:
 
 def state(obj) -> State:
     return State.from_proto(_as_dict(obj, state_pb.STATE))
+
+
+def block_response(obj) -> tuple[Block, Optional[ExtendedCommit]]:
+    """A block-sync BlockResponse: (block, extended commit or None)."""
+    d = _as_dict(obj, BLOCK_RESPONSE)
+    ec = d.get("ext_commit")
+    return (Block.from_proto(d.get("block") or {}),
+            ExtendedCommit.from_proto(ec) if ec is not None else None)
+
+
+def mempool_config(obj: dict) -> MempoolConfig:
+    """The port's MempoolConfig from the reference's fields (those the
+    port does not read are dropped)."""
+    if not isinstance(obj, dict):
+        raise TypeError(
+            f"expected a MempoolConfig dict, got {type(obj).__name__}")
+    names = {f.name for f in dataclasses.fields(MempoolConfig)}
+    return MempoolConfig(**{k: v for k, v in obj.items() if k in names})

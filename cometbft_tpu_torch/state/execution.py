@@ -9,10 +9,17 @@ cometbft_tpu/state/execution.py, whose error texts this copy keeps.
 ``BlockExecutor(..., device=None)`` resolves its device at construction
 (the card; it raises where CUDA is absent) and validates every block on
 it: ``apply_block`` verifies the block's LastCommit on B1 before the app
-sees the block.  The mempool and the evidence pool are the no-op ones
-(the mempool until ROADMAP.md A.7e-3: it reaps nothing and resolves no
-tx hash).  On an aggregate-commit chain the proposer aggregates the
-last commit as the JAX package's does.
+sees the block.  The mempool and the evidence pool are the caller's
+(mempool/mempool.CListMempool, evidence/pool.EvidencePool), or no-op
+ones that reap nothing, resolve no tx hash and hold no evidence.  On an
+aggregate-commit chain the proposer aggregates the last commit as the
+JAX package's does.
+
+One departure (ROADMAP.md §C): the JAX ``validate_block`` turns every
+exception of ``check_evidence`` into an invalid block; the port turns
+only the evidence's own protocol errors (``EvidenceError``,
+``VoteError``) into one, and lets a kernel that does not build or launch
+raise as it is.
 """
 from __future__ import annotations
 
@@ -26,13 +33,15 @@ from ..libs.log import Logger, new_logger
 from ..types.block import Block
 from ..types.block_id import BlockID
 from ..types.commit import AggregateCommit, Commit, ExtendedCommit
-from ..types.evidence import DuplicateVoteEvidence, LightClientAttackEvidence
+from ..types.evidence import (
+    DuplicateVoteEvidence, EvidenceError, LightClientAttackEvidence,
+)
 from ..types.events import NopEventBus
 from ..types.params import MAX_BLOCK_SIZE_BYTES, ParamsError
 from ..types.tx import compute_proto_size_overhead
 from ..types.validator import Validator
 from ..types.vote import (
-    BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, Vote,
+    BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, Vote, VoteError,
 )
 from ..wire import abci_pb, encode
 from .metrics import Metrics
@@ -191,6 +200,8 @@ class _NopEvidencePool:
 
 
 class _NopMempool:
+    """What the executor calls of a mempool when it is given none."""
+
     def lock(self):
         pass
 
@@ -344,9 +355,7 @@ class BlockExecutor:
             self._last_validated_hash = block.hash()
         try:
             self.evpool.check_evidence(block.evidence)
-        except BlockValidationError:
-            raise
-        except Exception as e:  # EvidenceError -> invalid block
+        except (EvidenceError, VoteError) as e:   # -> an invalid block
             raise BlockValidationError(f"invalid evidence: {e}") from e
 
     async def apply_block(self, state: State, block_id: BlockID,

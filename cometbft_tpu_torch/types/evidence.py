@@ -2,9 +2,11 @@
 
 Reference: types/evidence.go — DuplicateVoteEvidence (equivocation) and
 LightClientAttackEvidence (a conflicting light block), their bytes and
-hashes and the attribution of a light-client attack, through
-cometbft_tpu/types/evidence.py:38-306.  Verifying evidence against the
-chain's state belongs to the evidence pool (ROADMAP A.7e).
+hashes, the height and time the evidence pool keys it by, the
+cross-field check of a duplicate vote and the attribution of a
+light-client attack, through cometbft_tpu/types/evidence.py:38-306.
+Verifying evidence against the chain's state is the evidence pool's
+(evidence/pool.py).
 """
 from __future__ import annotations
 
@@ -72,6 +74,14 @@ class DuplicateVoteEvidence:
     def hash(self) -> bytes:
         return tmhash.sum(self.bytes())
 
+    @property
+    def height(self) -> int:
+        return self.vote_a.height
+
+    @property
+    def time(self) -> Timestamp:
+        return self.timestamp
+
     def validate_basic(self) -> None:
         if self.vote_a is None or self.vote_b is None:
             raise EvidenceError("empty duplicate vote evidence")
@@ -80,6 +90,17 @@ class DuplicateVoteEvidence:
         if self.vote_a.block_id.key() >= self.vote_b.block_id.key():
             raise EvidenceError(
                 "duplicate votes in invalid order (or the same block id)")
+
+    def validate_abci(self) -> None:
+        """Cross-field consistency (reference: evidence.go ValidateABCI)."""
+        va, vb = self.vote_a, self.vote_b
+        if va.height != vb.height or va.round != vb.round or \
+                va.type != vb.type:
+            raise EvidenceError("duplicate votes from different H/R/S")
+        if va.validator_address != vb.validator_address:
+            raise EvidenceError("duplicate votes from different validators")
+        if va.block_id == vb.block_id:
+            raise EvidenceError("duplicate votes for the same block")
 
     def to_proto(self) -> dict:
         d: dict = {
@@ -200,6 +221,14 @@ class LightClientAttackEvidence:
         bz[:tmhash.SIZE - 1] = bh[:tmhash.SIZE - 1]
         bz[tmhash.SIZE:] = buf
         return tmhash.sum(bytes(bz))
+
+    @property
+    def height(self) -> int:
+        return self.common_height
+
+    @property
+    def time(self) -> Timestamp:
+        return self.timestamp
 
     def validate_basic(self) -> None:
         if self.conflicting_block is None or \

@@ -5,9 +5,11 @@
     the stores, the kvstore app, the state tree, the Handshaker; the
     consensus state machine: ConsensusState, the WAL, the round state,
     the ticker, adaptive timeouts, pubsub, the supervisor, the config,
-    the host ed25519; and p2p with the consensus reactor: the p2p
-    package, flowrate, the AEAD wrapper and its plain version) loads
-    neither jax nor anything of cometbft_tpu;
+    the host ed25519; p2p with the consensus reactor: the p2p
+    package, flowrate, the AEAD wrapper and its plain version; block
+    sync, the evidence pool and reactor, the mempool with its messages,
+    reactor and metrics, the node provider and the load generator's
+    payloads) loads neither jax nor anything of cometbft_tpu;
   * importing the p2p stack and the reactor, and running a secret
     connection's handshake, loads no ``cryptography`` either: the port
     seals every frame in its own host library;
@@ -76,6 +78,7 @@ def test_port_imports_no_jax_and_no_reference():
             "cometbft_tpu_torch.crypto.benchmarking",
             "cometbft_tpu_torch.ops.ed25519_host"} <= set(mods)
     assert set(P2P_MODULES) <= set(mods)
+    assert set(SYNC_MODULES) <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -102,6 +105,40 @@ P2P_MODULES = ("cometbft_tpu_torch.p2p",
                "cometbft_tpu_torch.libs.flowrate",
                "cometbft_tpu_torch.ops.aead_host",
                "cometbft_tpu_torch.crypto._aead_ref")
+
+
+SYNC_MODULES = ("cometbft_tpu_torch.blocksync",
+                "cometbft_tpu_torch.blocksync.metrics",
+                "cometbft_tpu_torch.blocksync.pool",
+                "cometbft_tpu_torch.blocksync.reactor",
+                "cometbft_tpu_torch.evidence",
+                "cometbft_tpu_torch.evidence.pool",
+                "cometbft_tpu_torch.evidence.reactor",
+                "cometbft_tpu_torch.mempool",
+                "cometbft_tpu_torch.mempool.mempool",
+                "cometbft_tpu_torch.mempool.messages",
+                "cometbft_tpu_torch.mempool.metrics",
+                "cometbft_tpu_torch.mempool.reactor",
+                "cometbft_tpu_torch.light.provider",
+                "cometbft_tpu_torch.tools.loadtime")
+
+
+def test_sync_evidence_and_mempool_load_no_jax_or_reference():
+    """The modules of block sync, evidence and the mempool, imported in a
+    fresh interpreter, load nothing of jax or of the JAX package (the
+    mempool's short ids use hashlib, not the JAX package's native
+    hashes)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SYNC_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'cryptography'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_p2p_and_reactor_load_no_jax_reference_or_cryptography():
@@ -195,6 +232,27 @@ def test_consensus_state_raises_without_cuda():
     cs = ConsensusState(ConsensusConfig(), state, exec_, blocks,
                         device="cpu")
     assert cs.device == torch.device("cpu")
+
+
+def test_sync_entry_points_raise_without_cuda():
+    """BlocksyncReactor and EvidencePool resolve device=None to CUDA and
+    raise where it is absent; device="cpu" builds them."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cometbft_tpu_torch.blocksync import BlocksyncReactor
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.state.store import Store
+    from cometbft_tpu_torch.store import BlockStore
+    store, blocks = Store(MemDB()), BlockStore(MemDB())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BlocksyncReactor(None, None, blocks, active=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EvidencePool(MemDB(), store, blocks)
+    assert BlocksyncReactor(None, None, blocks, active=True,
+                            device="cpu").device == torch.device("cpu")
+    assert EvidencePool(MemDB(), store, blocks,
+                        device="cpu").device == torch.device("cpu")
 
 
 def _cols(n=4, dtype=torch.int32):
