@@ -141,6 +141,24 @@ committed once on every node; and a server whose block carries a
 flipped LastCommit signature bit banned, the evidence and mempool
 refusals, a 20-height sync under cuda8 and a raising stand-in kernel in
 the sync routine, which must stop the sync without a restart.
+Phases 15a-15c drive state sync and pruning (statesync/, state/pruner.py,
+state/rollback.py, the stores' bootstrap and pruning, the kvstore's
+snapshots, the state tree's prune and import): a 150-validator source of
+105 heights of 200 txs each under its own key (about 20,000 pairs),
+snapshots every 10 heights, retain_blocks 50 and a Pruner service on its
+executor, served over sockets by a full node without a key; a fresh
+joiner wired as the JAX node's state-syncing one restores the snapshot
+at 100 through its light client (trust root 90, every light block's
+commit on B1), bootstraps, block-syncs 101-104, switches to consensus and
+commits 105 by catch-up, timed stage by stage with B1's launches, the
+chunk's MB/s over the secret connection and the device's busy share, its
+rows, app and app hash held to the source's; the pruned source held to
+its retain height (no row below the block store's base but the validator
+rows retained pointers name, every tree version rebuilt to its root) and
+rollback_state on the stopped joiner; and the refusals: a format the app
+refuses, a chunk off its hash, a chunk never served, a snapshot at the
+tip, a flipped signature bit in a light block, a raising stand-in
+kernel, and one state sync under cuda8 with the same rows.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -343,6 +361,16 @@ LOAD_TX_BYTES = 1024      # 14c: CometBFT's QA tx size
 MEMPOOL_HEIGHTS = 50      # 14c: the heights the net commits at least
 BSYNC_REJECT_HEIGHTS = 20  # 14d: the depth of each of its syncs
 BSYNC_BAD_HEIGHT = 10     # 14d: the bad server spoils block BSYNC_BAD_HEIGHT + 1
+# phase 15
+SS_CHAIN_ID = "statesync-chip"
+SS_HEIGHTS = 105          # 15a: the source chain's heights
+SS_INTERVAL = 10          # 15a: snapshot_interval, the JAX node's builtin one
+SS_RETAIN = 50            # 15a: the source app's retain_blocks
+SS_TRUST = 90             # 15a: the joiner's trust root
+SS_LEAD_S = 300           # 15a: the genesis lies this long before the run
+SS_DISCOVERY_NS = 2 * 10**9       # 15a: the JAX QA joiner's discovery time
+SS_REJECT_DISCOVERY_NS = 5 * 10**8  # 15c: the peers are dialed beforehand
+SS_CHUNK_TIMEOUT_NS = 25 * 10**7    # 15c(ii): a short chunk_request_timeout_ns
 
 
 def _mixed_kind(i: int) -> str:
@@ -2518,7 +2546,7 @@ class _ExecChain:
     commit), save_block with the commit the height's set signs."""
 
     def __init__(self, chain_id, seeds, signer, pubs=None, power=EXEC_POWER,
-                 dbs=None, device=None, sig_cache=None):
+                 dbs=None, device=None, sig_cache=None, t0=EXEC_T0):
         from cometbft_tpu_torch.abci.client import AppConns
         from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
         from cometbft_tpu_torch.consensus.replay import Handshaker
@@ -2533,12 +2561,13 @@ class _ExecChain:
             GenesisDoc, GenesisValidator)
         from cometbft_tpu_torch.types.timestamp import Timestamp
         self.chain_id, self.signer, self.device = chain_id, signer, device
+        self.t0 = t0                # genesis time; height h signs at t0 + h s
         self.sig_cache = {} if sig_cache is None else sig_cache
         pubs = signer.pubs(seeds) if pubs is None else pubs
         keys = [Ed25519PubKey(p) for p in pubs]
         self.seed_of = {pk.address(): s for pk, s in zip(keys, seeds)}
         self.doc = GenesisDoc(
-            chain_id=chain_id, genesis_time=Timestamp(EXEC_T0, 0),
+            chain_id=chain_id, genesis_time=Timestamp(t0, 0),
             validators=[GenesisValidator(b"", pk, power) for pk in keys])
         self.dbs = dbs or {"state": MemDB(), "block": MemDB(),
                            "app": MemDB()}
@@ -2560,7 +2589,7 @@ class _ExecChain:
 
     def sign_commit(self, vals, h, block_id, skip=()):
         """The commit for (h, block_id): every validator of vals precommits
-        at EXEC_T0 + h s + (index + 1) ns, but those in ``skip`` (absent)."""
+        at t0 + h s + (index + 1) ns, but those in ``skip`` (absent)."""
         from cometbft_tpu_torch.types.canonical import (
             PRECOMMIT_TYPE, vote_sign_bytes_template)
         from cometbft_tpu_torch.types.commit import Commit, CommitSig
@@ -2569,7 +2598,7 @@ class _ExecChain:
         make = vote_sign_bytes_template(self.chain_id, PRECOMMIT_TYPE, h, 0,
                                         block_id)
         idx = [i for i in range(vals.size()) if i not in skip]
-        stamps = {i: Timestamp(EXEC_T0 + h, i + 1) for i in idx}
+        stamps = {i: Timestamp(self.t0 + h, i + 1) for i in idx}
         jobs = [(self.seed_of[vals.validators[i].address], make(stamps[i]))
                 for i in idx]
         todo = [j for j in jobs if j not in self.sig_cache]
@@ -2604,9 +2633,17 @@ class _ExecChain:
         """One height; returns (block, seconds of its host work with the
         signing of its commit left out)."""
         t0 = time.perf_counter()
-        block, parts, block_id, signing_set = asyncio.run(
-            self._propose_apply(txs))
-        t1 = time.perf_counter()
+        out = asyncio.run(self._propose_apply(txs))
+        return self._sign_save(out, time.perf_counter() - t0)
+
+    async def astep(self, txs):
+        """step() on the caller's running event loop."""
+        t0 = time.perf_counter()
+        out = await self._propose_apply(txs)
+        return self._sign_save(out, time.perf_counter() - t0)
+
+    def _sign_save(self, out, apply_s):
+        block, parts, block_id, signing_set = out
         h = block.header.height
         commit = self.sign_commit(signing_set, h, block_id)
         t2 = time.perf_counter()
@@ -2615,7 +2652,7 @@ class _ExecChain:
         self.last_commit = commit
         self.applied[h] = block.hash()
         self.parts[h] = parts.total
-        return block, (t1 - t0) + (t3 - t2)
+        return block, apply_s + (t3 - t2)
 
     def info(self, conns=None):
         from cometbft_tpu_torch.abci import types as abci
@@ -3108,10 +3145,12 @@ class _CsNode:
 
     @classmethod
     async def make(cls, doc, device, dbs=None, wal_path=None, config=None,
-                   pv=None, mempool_config=None, evidence=False):
+                   pv=None, mempool_config=None, evidence=False, app=None):
         """``mempool_config`` gives the node a CListMempool on the app's
         lanes, ``evidence`` an EvidencePool over MemDB; both reach the
-        BlockExecutor (otherwise it runs its no-op ones)."""
+        BlockExecutor (otherwise it runs its no-op ones).  ``app`` is a
+        kvstore app over ``dbs["app"]`` to keep (its snapshots live in
+        memory); by default the node opens a new one."""
         from cometbft_tpu_torch.abci import types as abci
         from cometbft_tpu_torch.abci.client import AppConns
         from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
@@ -3134,7 +3173,8 @@ class _CsNode:
         if state is None:
             state = make_genesis_state(doc)
             self.state_store.save(state)
-        self.app = KVStoreApplication(db=self.dbs["app"])
+        self.app = app if app is not None else \
+            KVStoreApplication(db=self.dbs["app"])
         self.conns = AppConns(self.app)
         await Handshaker(self.state_store, state, self.block_store, doc,
                          device=device).handshake(self.conns)
@@ -3875,7 +3915,7 @@ def _p2p_metrics_bytes(switches, family,
 
 async def _sock_node(doc, device, key_seed, pv=None, config=None, dbs=None,
                      wait_sync=False, mempool_config=None, evidence=False,
-                     reactors=()):
+                     reactors=(), app=None):
     """A _CsNode with a Switch on 127.0.0.1 (port 0), a ConsensusReactor
     and a node key made from ``key_seed``; with a MempoolReactor when
     ``mempool_config`` is given, an EvidenceReactor when ``evidence``, and
@@ -3885,7 +3925,7 @@ async def _sock_node(doc, device, key_seed, pv=None, config=None, dbs=None,
     from cometbft_tpu_torch.p2p import NodeKey, Switch
     node = await _CsNode.make(doc, device, dbs=dbs, config=config, pv=pv,
                               mempool_config=mempool_config,
-                              evidence=evidence)
+                              evidence=evidence, app=app)
     node.switch = Switch(NodeKey(Ed25519PrivKey(key_seed)), doc.chain_id,
                          listen_addr="127.0.0.1:0")
     node.reactor = ConsensusReactor(node.cs, wait_sync=wait_sync)
@@ -5328,6 +5368,907 @@ def _sync_phases(seed, card, keep, device=None):
             {f"bsync_{BSYNC_REJECT_HEIGHTS}_cuda8": reject8})
 
 
+# -- phase 15: state sync and pruning -----------------------------------------
+
+def _keyed_tx(seed: int, h: int, j: int) -> bytes:
+    """_load_tx's tx of EXEC_TX_BYTES under its own key "h.j" (not "a"),
+    so a height adds EXEC_TXS pairs to the app's state."""
+    tx = _load_tx(seed, h, j)
+    key = b"%d.%d" % (h, j)
+    return key + tx[1:len(tx) - len(key) + 1]
+
+
+class _HostSigner(_Signer):
+    """_Signer's interface on the port's host ed25519 library: RFC 8032
+    signing is deterministic, so its signatures are the golden model's."""
+
+    def __init__(self):
+        super().__init__(None)
+        self._keys = {}
+
+    def _key(self, seed):
+        from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+        key = self._keys.get(seed)
+        if key is None:
+            key = self._keys[seed] = Ed25519PrivKey(seed)
+        return key
+
+    def pubs(self, seeds):
+        return [self._key(s).pub_key().bytes() for s in seeds]
+
+    def sign(self, jobs):
+        t0 = time.perf_counter()
+        out = [self._key(s).sign(m) for s, m in jobs]
+        self.signed += len(jobs)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+class _Stages:
+    """Each stage's wall time, B1 launches and verify_batch sizes (the
+    lanes of each batch), by name; stages nest, and a batch counts in the
+    innermost one.  ``wrap`` makes an object's coroutine method a stage."""
+
+    def __init__(self, ek):
+        self.ek, self.cur, self.rows = ek, None, {}
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        row = self.rows.setdefault(name, {"ms": 0.0, "launches": 0,
+                                          "lanes": [], "calls": 0})
+        prev, self.cur = self.cur, name
+        l0, t0 = self.ek.launches, time.perf_counter()
+        row.setdefault("first", t0)
+        try:
+            yield row
+        finally:
+            row["ms"] += (time.perf_counter() - t0) * 1e3
+            row["launches"] += self.ek.launches - l0
+            row["calls"] += 1
+            self.cur = prev
+
+    def wrap(self, obj, name, stage):
+        real = getattr(obj, name)
+
+        async def staged(*a, **kw):
+            with self.stage(stage if isinstance(stage, str)
+                            else stage(*a, **kw)):
+                return await real(*a, **kw)
+        setattr(obj, name, staged)
+
+    @contextlib.contextmanager
+    def batches(self, oe):
+        """Record the size of each verify_batch call under the current
+        stage while the block runs."""
+        real = oe.verify_batch
+
+        def verify_batch(items, *a, **kw):
+            if self.cur is not None:
+                self.rows[self.cur]["lanes"].append(len(items))
+            return real(items, *a, **kw)
+        oe.verify_batch = verify_batch
+        try:
+            yield
+        finally:
+            oe.verify_batch = real
+
+    def line(self, name) -> str:
+        row = self.rows.get(name)
+        if row is None:
+            return f"{name} not run"
+        return (f"{name} {row['ms']:.1f} ms ({row['calls']} call(s)), B1 "
+                f"launches {row['launches']}, batch sizes {row['lanes']}")
+
+
+def _ss_source(seed, card, ek, device, loop):
+    """15a's source: config 4's 150 validators through _ExecChain over a
+    kvstore with snapshot_interval SS_INTERVAL and retain_blocks
+    SS_RETAIN, a Pruner wired to its executor as the JAX node wires one
+    (cometbft_tpu/node/node.py:307-316, :369) and run as its service on
+    the same event loop; SS_HEIGHTS heights of EXEC_TXS txs of
+    EXEC_TX_BYTES bytes, each under its own key, and 11a's val= txs at
+    EXEC_UPDATES.  The genesis lies SS_LEAD_S before now, so the light
+    client's trusting period and clock drift hold for every header.
+    Returns what 15a-15c read of it."""
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.state.pruner import Pruner
+    n, top = EXEC_VALIDATORS, SS_HEIGHTS
+    signer = _HostSigner()
+    chain = _ExecChain(SS_CHAIN_ID, [_seed(seed + 150, i) for i in range(n)],
+                       signer, device=device,
+                       t0=int(time.time()) - SS_LEAD_S)
+    chain.app.snapshot_interval = SS_INTERVAL
+    chain.app.retain_blocks = SS_RETAIN
+    updates = _exec_updates(seed, chain, signer)
+    pruner = Pruner(chain.state_store, chain.block_store, MemDB(),
+                    interval_s=Config().storage.pruning_interval_ns / 1e9,
+                    metrics=chain.exec.metrics)
+    chain.exec.pruner = pruner
+    passes, roots, states, host_ms = [], {}, {}, []
+    real_prune = pruner.prune_once
+
+    def prune_once():
+        t = time.perf_counter()
+        out = real_prune()
+        passes.append((out[0], (time.perf_counter() - t) * 1e3))
+        return out
+    pruner.prune_once = prune_once
+    tree_ms, snap_ms = [], []
+    for obj, name, out in ((chain.app.tree, "prune", tree_ms),
+                           (chain.app, "_serialize_state", snap_ms)):
+        real = getattr(obj, name)
+
+        def timed(*a, real=real, out=out, **kw):
+            t = time.perf_counter()
+            res = real(*a, **kw)
+            out.append((time.perf_counter() - t) * 1e3)
+            return res
+        setattr(obj, name, timed)
+
+    async def build():
+        await pruner.start()
+        for h in range(1, top + 1):
+            txs = [_keyed_tx(seed, h, j) for j in range(EXEC_TXS)]
+            if h in updates:
+                txs[-1] = updates[h]
+            _, host_s = await chain.astep(txs)
+            host_ms.append(host_s * 1e3)
+            roots[h] = chain.app.tree.root(h)
+            states[h] = (chain.state.last_block_height, chain.state.app_hash)
+            await asyncio.sleep(0)          # the pruner's pass for h
+        deadline = time.perf_counter() + 30
+        while chain.block_store.base != chain.exec.last_retain_height:
+            if time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"15b: the pruner left the base at "
+                    f"{chain.block_store.base}, the app's retain height is "
+                    f"{chain.exec.last_retain_height}")
+            await asyncio.sleep(0.005)
+        await pruner.stop()
+
+    ek.launches = 0
+    t0 = time.perf_counter()
+    loop.run_until_complete(build())
+    build_s = time.perf_counter() - t0
+    snaps = sorted(chain.app._snapshots)
+    chunk = len(chain.app._snapshots[snaps[-1]])
+    _log(f"statesync_source_{n}x{top} built in {build_s:.2f} s ({top} "
+         f"heights, ms a height {_p50_p90(host_ms)} with signing left out, "
+         f"{signer.signed} signatures in {signer.seconds:.2f} s on the host "
+         f"ed25519), B1 launches {ek.launches} (validate_block's one a "
+         f"height); app pairs at {top} {len(chain.app.tree.pairs())}, "
+         f"snapshots at {snaps}, the one chunk of {snaps[-1]} is {chunk} "
+         f"bytes ({chunk / 2**20:.2f} MiB, recv_message_capacity 22 MiB), "
+         f"each snapshot's JSON in Commit ms {_p50_p90(snap_ms)}; card: "
+         f"{card}")
+    return {"chain": chain, "pruner": pruner, "passes": passes,
+            "roots": roots, "states": states, "launches": ek.launches,
+            "chunk_bytes": chunk, "tree_ms": tree_ms}
+
+
+def _ss_light_client(chain, device, primary=None):
+    """The joiner's light client as the JAX new_rpc_state_provider makes
+    it (skipping verification, a TrustedStore on MemDB, StateSyncConfig's
+    trusting period), over the source's stores: a NodeProvider as primary
+    and one as witness, the trust root at SS_TRUST with its hash read from
+    the source's block store (the operator's out-of-band step)."""
+    from cometbft_tpu_torch.config import StateSyncConfig
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.provider import NodeProvider
+    from cometbft_tpu_torch.light.store import TrustedStore
+    trust_hash = chain.block_store.load_block_meta(SS_TRUST).block_id.hash
+    if primary is None:
+        primary = NodeProvider(chain.block_store, chain.state_store,
+                               chain.chain_id)
+    witness = NodeProvider(chain.block_store, chain.state_store,
+                           chain.chain_id)
+    return Client(chain.chain_id,
+                  TrustOptions(period_ns=StateSyncConfig().trust_period_ns,
+                               height=SS_TRUST, header_hash=trust_hash),
+                  primary, [witness], TrustedStore(MemDB()), device=device)
+
+
+def _ss_syncer(node, sp, cfg, logger=None):
+    """A Syncer and an active StatesyncReactor for ``node``, wired as the
+    JAX node wires them (node.py:479-495)."""
+    from cometbft_tpu_torch.statesync import StatesyncReactor, Syncer
+    node.syncer = Syncer(
+        node.conns, sp,
+        request_chunk=lambda snap, i: node.ss.request_chunk(snap, i),
+        chunk_timeout_s=cfg.statesync.chunk_request_timeout_ns / 1e9,
+        chunk_dir=cfg.statesync.temp_dir or None, logger=logger)
+    node.ss = StatesyncReactor(node.conns, node.syncer)
+    return [node.ss]
+
+
+async def _ss_bootstrap(node, cfg, discovery_ns=None):
+    """The JAX node's state-sync tail (node.py:528-547): sync_any, the
+    state store's bootstrap and the seen commit, the block-sync reactor
+    given the synced state; returns (state, commit)."""
+    ns = cfg.statesync.discovery_time_ns if discovery_ns is None \
+        else discovery_ns
+    new_state, commit = await node.syncer.sync_any(ns / 1e9)
+    node.state_store.bootstrap(new_state)
+    node.block_store.save_seen_commit_standalone(commit)
+    if getattr(node, "bsync", None) is not None:
+        node.bsync.state = new_state
+    node.ss.metrics.syncing.set(0)
+    return new_state, commit
+
+
+async def _ss_snapshot_server(conns, key_seed, chain_id):
+    """A Switch serving ``conns.snapshot``'s snapshots through a passive
+    StatesyncReactor, and nothing else."""
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from cometbft_tpu_torch.p2p import NodeKey, Switch
+    from cometbft_tpu_torch.statesync import StatesyncReactor
+    sw = Switch(NodeKey(Ed25519PrivKey(key_seed)), chain_id,
+                listen_addr="127.0.0.1:0")
+    sw.add_reactor(StatesyncReactor(conns))
+    await sw.start()
+    return sw
+
+
+def _db_rows(node):
+    """The node's state-store, block-store and app rows."""
+    return {k: list(db.iterator()) for k, db in node.dbs.items()}
+
+
+def _ss_chain(seed, card, ek, device, loop, src, keep):
+    """15a statesync-150x105: the source's stores and app behind a full
+    node without a key (a StatesyncReactor with no syncer, a passive
+    BlocksyncReactor, a ConsensusReactor); a fresh joiner wired as the JAX
+    node wires a state-syncing one (node.py:411-558) runs sync_any over
+    its light client, bootstraps, block-syncs the tail, switches to
+    consensus and commits the source's top by catch-up.  Returns B1's
+    launches."""
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.statesync import StateProvider, StatesyncReactor
+    from cometbft_tpu_torch.store import store as bs
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    chain, n, top = src["chain"], EXEC_VALIDATORS, SS_HEIGHTS
+    snap_h = max(chain.app._snapshots)
+    _phase(f"15a statesync-{n}x{top}: the {n}-validator source of "
+           f"{top} heights (snapshots every {SS_INTERVAL}, "
+           f"retain_blocks {SS_RETAIN}, pruned by its Pruner) behind a "
+           f"full node without a key; a fresh joiner (StatesyncReactor with "
+           f"a Syncer, active BlocksyncReactor, ConsensusReactor(wait_sync), "
+           f"EvidenceReactor, MempoolReactor) restores the snapshot at "
+           f"{snap_h} through its light client (trust root {SS_TRUST}), "
+           f"block-syncs {snap_h + 1}-{top - 1}, switches to consensus and "
+           f"commits {top} by catch-up")
+    cfg = Config()
+    cfg.statesync.discovery_time_ns = SS_DISCOVERY_NS
+    _log(f"statesync_{n}x{top} the joiner's StateSyncConfig: "
+         f"discovery_time_ns {cfg.statesync.discovery_time_ns} (the JAX QA "
+         f"joiner's, cometbft_tpu/tools/qa.py:374), chunk_request_timeout_ns "
+         f"{cfg.statesync.chunk_request_timeout_ns}, trust_period_ns "
+         f"{cfg.statesync.trust_period_ns}; P2PConfig send_rate "
+         f"{cfg.p2p.send_rate} B/s")
+    _clear_memos()
+    stages, log, rec = _Stages(ek), {}, {"saved": {}, "launches": {}}
+    gap = _LoopGap()
+
+    async def run():
+        server = await _sock_node(
+            chain.doc, device, _seed(seed + 151, 0), dbs=chain.dbs,
+            app=chain.app, reactors=lambda nd: _passive_bsync(nd, device) + [
+                StatesyncReactor(nd.conns)])
+        lc = _ss_light_client(chain, device)
+        await lc.initialize()
+        sp = StateProvider(lc, chain.chain_id, chain.doc)
+        stages.wrap(sp, "app_hash", "app_hash(H): light block H+1")
+        stages.wrap(sp, "state", "state(H): light blocks H, H+1, H+2")
+        stages.wrap(sp, "commit", "commit(H): light block H")
+        stages.wrap(lc, "verify_light_block_at_height",
+                    lambda h, *a, **kw: f"light block {h}")
+
+        def reactors(node):
+            return _bsync_reactor(node, cfg, device, log) + _ss_syncer(
+                node, sp, cfg)
+        joiner = await _sock_node(
+            chain.doc, device, _seed(seed + 151, 1), wait_sync=True,
+            mempool_config=cfg.mempool, evidence=True, reactors=reactors)
+        stages.wrap(joiner.conns.snapshot, "offer_snapshot", "offer")
+        stages.wrap(joiner.conns.snapshot, "apply_snapshot_chunk",
+                    "apply_snapshot_chunk")
+        real_req, real_add = joiner.ss.request_chunk, joiner.syncer.add_chunk
+
+        def request_chunk(snap, i):
+            log.setdefault("chunk_req", time.perf_counter())
+            return real_req(snap, i)
+
+        def add_chunk(height, format_, index, chunk, sender=""):
+            log["chunk_at"] = time.perf_counter()
+            log["chunk_bytes"] = len(chunk)
+            log["chunk_stall"] = gap.take()
+            return real_add(height, format_, index, chunk, sender)
+        joiner.ss.request_chunk = request_chunk
+        joiner.syncer.add_chunk = add_chunk
+        for store, name in ((joiner.state_store, "bootstrap"),
+                            (joiner.block_store,
+                             "save_seen_commit_standalone")):
+            real = getattr(store, name)
+
+            def timed(arg, real=real):
+                t = time.perf_counter()
+                real(arg)
+                log["bootstrap_s"] = log.get("bootstrap_s", 0.0) + \
+                    time.perf_counter() - t
+            setattr(store, name, timed)
+        real_save_block = joiner.block_store.save_block
+
+        def save_block(block, parts, seen):
+            real_save_block(block, parts, seen)
+            h = block.header.height
+            rec["saved"][h] = time.perf_counter()
+            rec["launches"][h] = ek.launches
+        joiner.block_store.save_block = save_block
+        sub = joiner.bus.subscribe("chip-smoke-ss", EVENT_QUERY_NEW_BLOCK,
+                                   out_capacity=1000)
+        gap_task = asyncio.ensure_future(gap.run())
+        try:
+            await server.cs.start()
+            t0 = time.perf_counter()
+            await asyncio.wait_for(
+                joiner.switch.dial_peer(server.switch.listen_addr), 30)
+            gap.take()
+            log["sync_at"] = time.perf_counter()
+            l0 = ek.launches
+            new_state, commit = await _ss_bootstrap(joiner, cfg)
+            log["synced_at"] = time.perf_counter()
+            log["sync_launches"] = ek.launches - l0
+            await asyncio.sleep(0.005)      # the ticker sees the restore
+            log["restore_stall"] = gap.take()
+            info = await joiner.conns.query.info(abci.InfoRequest())
+            keep["ss_rows"] = _db_rows(joiner)
+            rec["launches"][snap_h] = ek.launches
+            rec["saved"][snap_h] = time.perf_counter()
+            with stages.stage("block sync, the switch and the catch-up"):
+                await joiner.bsync.start_sync()
+                deadline = time.perf_counter() + 120
+                while "switched" not in log:
+                    joiner.bsync.raise_if_failed()
+                    server.cs.raise_if_failed()
+                    if time.perf_counter() > deadline:
+                        raise AssertionError(
+                            f"15a: no switch to consensus in 120 s (joiner "
+                            f"at {joiner.block_store.height})")
+                    await asyncio.sleep(0.01)
+                await _cs_new_block(joiner, sub, top)
+            t_done = time.perf_counter()
+            await joiner.bsync.stop_sync()
+            final_rs = joiner.cs.rs.height
+        finally:
+            gap.stop = True
+            await gap_task
+            await _sock_stop([joiner, server])
+        return joiner, new_state, commit, info, t0, t_done, final_rs
+
+    out = {}
+    with stages.batches(oe), _gc_pauses() as pauses:
+        ek.launches = 0
+        window_ms, busy_ms, _, n_dev = _device_busy(
+            lambda: out.update(r=loop.run_until_complete(run())))
+    joiner, new_state, commit, info, t0, t_done, final_rs = out["r"]
+    launches = ek.launches
+    # the gates: the restored app, the bootstrapped state, the synced rows
+    src_blocks = chain.block_store
+    hdr = {h: src_blocks.load_block_meta(h).header
+           for h in (snap_h, snap_h + 1, snap_h + 2)}
+    if info.last_block_height != snap_h or \
+            info.last_block_app_hash != hdr[snap_h + 1].app_hash:
+        raise AssertionError(f"15a: the restored app is at "
+                             f"{info.last_block_height} with app hash "
+                             f"{info.last_block_app_hash.hex()}, header "
+                             f"{snap_h + 1} says {hdr[snap_h + 1].app_hash.hex()}")
+    if new_state.last_block_height != snap_h or commit.height != snap_h or \
+            new_state.app_hash != hdr[snap_h + 1].app_hash or \
+            new_state.last_validators.hash() != hdr[snap_h].validators_hash or \
+            new_state.validators.hash() != hdr[snap_h + 1].validators_hash or \
+            new_state.next_validators.hash() != \
+            hdr[snap_h + 2].validators_hash or \
+            new_state.last_block_id != commit.block_id or \
+            commit.block_id.hash != src_blocks.load_block_meta(
+                snap_h).block_id.hash:
+        raise AssertionError("15a: the bootstrapped state does not match the "
+                             "source's headers")
+    db_src, db_dst = chain.dbs["block"], joiner.dbs["block"]
+    for h in range(snap_h + 1, top):
+        meta = src_blocks.load_block_meta(h)
+        keys = [bs._meta_key(h), bs._commit_key(h), bs._seen_commit_key(h),
+                bs._ext_commit_key(h), bs._hash_key(meta.block_id.hash)] + [
+            bs._part_key(h, i)
+            for i in range(meta.block_id.part_set_header.total)]
+        if any(db_src.get(k) != db_dst.get(k) for k in keys) or \
+                db_dst.get(bs._meta_key(h)) is None:
+            raise AssertionError(f"15a: the joiner's block-store rows at {h} "
+                                 f"!= the source's")
+    if joiner.app.tree.root(top - 1) != chain.app.tree.root(top - 1) or \
+            joiner.app.tree.pairs(top - 1) != chain.app.tree.pairs(top - 1):
+        raise AssertionError(f"15a: the joiner's app tree at {top - 1} != "
+                             f"the source's")
+    final = joiner.state_store.load()
+    if final.last_block_height != top or \
+            final.app_hash != src["states"][top][1] or \
+            log["height"] != top - 1 or log["rs_height"] != top or \
+            final_rs != top + 1:
+        raise AssertionError(f"15a: the joiner ended at "
+                             f"{final.last_block_height} (rs {final_rs}), "
+                             f"switched at {log.get('height')}")
+    keep["ss_joiner"] = joiner
+    keep["ss_state"] = new_state.bytes()
+    synced = range(snap_h + 1, top)
+    step = [(rec["saved"][h] - rec["saved"][h - 1]) * 1e3 for h in synced]
+    per = [rec["launches"][h] - rec["launches"][h - 1] for h in synced]
+    bsync_launches = rec["launches"][top - 1] - rec["launches"][snap_h]
+    chunk_s = log["chunk_at"] - log["chunk_req"]
+    discovery_s = stages.rows["app_hash(H): light block H+1"]["first"] - \
+        log["sync_at"]
+    busy = f"{busy_ms / window_ms:.4f}" if busy_ms is not None else \
+        "not measured (the profiler saw no device event)"
+    _log(f"statesync_{n}x{top} stages: discovery {discovery_s * 1e3:.1f} ms; "
+         + "; ".join(stages.line(k) for k in (
+             "app_hash(H): light block H+1", "offer",
+             "apply_snapshot_chunk", "state(H): light blocks H, H+1, H+2",
+             "commit(H): light block H")))
+    _log(f"statesync_{n}x{top} light verifications: " + "; ".join(
+        stages.line(k) for k in sorted(
+            (k for k in stages.rows if k.startswith("light block")),
+            key=lambda k: int(k.split()[-1]))))
+    _log(f"statesync_{n}x{top} chunk transfer {chunk_s * 1e3:.1f} ms for "
+         f"{log['chunk_bytes']} bytes ({log['chunk_bytes'] / chunk_s / 1e6:.2f}"
+         f" MB/s over the secret connection; send_rate "
+         f"{cfg.p2p.send_rate / 1e6:.2f} MB/s); sync_any to the restored app "
+         f"{(log['synced_at'] - log['sync_at']) * 1e3:.1f} ms with "
+         f"{log['sync_launches']} B1 launches; the state store's bootstrap "
+         f"and the seen commit {log['bootstrap_s'] * 1e3:.2f} ms; the "
+         f"loop's longest stall: "
+         f"{log['chunk_stall'] * 1e3:.1f} ms before the chunk landed, "
+         f"{log['restore_stall'] * 1e3:.1f} ms over the restore (JSON "
+         f"decode and import_snapshot on the loop)")
+    _log(f"statesync_{n}x{top} block sync {snap_h + 1}-{top - 1}: save to "
+         f"save ms {_p50_p90(step)}, B1 launches {bsync_launches} "
+         f"({per} a height); the switch "
+         f"{(log['switched'] - log['switch_at']) * 1e3:.1f} ms with "
+         f"{log['switch_launches']} B1 launch(es) for LastCommit, batch "
+         f"sizes from the sync to the catch-up "
+         f"{stages.rows['block sync, the switch and the catch-up']['lanes']}, "
+         f"rs.height {log['rs_height']}, then {final_rs} after the catch-up "
+         f"of {top} ({(t_done - log['switched']) * 1e3:.1f} ms); total from "
+         f"the dial to consensus {(log['switched'] - t0) * 1e3:.1f} ms; B1 "
+         f"launches in all {launches} (the catch-up's "
+         f"{launches - log['sync_launches'] - bsync_launches - log['switch_launches']}"
+         f"); device busy share over the traced "
+         f"run {busy} ({n_dev} device events, window {window_ms:.1f} ms); "
+         f"gc in the run: {_gc_line(pauses)}; card: {card}")
+    _log(f"statesync_{n}x{top} gates held: the restored app hash is header "
+         f"{snap_h + 1}'s, the bootstrapped validator sets hash to headers "
+         f"{snap_h}-{snap_h + 2}'s, block-store rows {snap_h + 1}-{top - 1} "
+         f"and the app tree at {top - 1} equal the source's, the joiner's "
+         f"app hash at {top} is the source's")
+    return launches
+
+
+def _tree_roots(tree):
+    """Every retained version's root, rebuilt from the tree's node records
+    in one ordered pass (independent of the version records the tree
+    reports), by the merkle layer's own leaf and root functions."""
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.statetree import tree as st
+    by_ver = collections.defaultdict(list)
+    for raw, rec in tree._db.iterator(st._NODE, st._VERSION):
+        key, ver = st._split_node_key(raw[len(st._NODE):])
+        by_ver[ver].append((key, rec))
+    versions = set(tree.versions())
+    if min(by_ver) < min(versions):
+        raise AssertionError(f"15b: node records at {min(by_ver)} below the "
+                             f"tree's base {min(versions)}")
+    live, roots = {}, {}
+    for v in sorted(set(by_ver) | versions):
+        for key, rec in by_ver.get(v, ()):
+            if rec[:1] == st._TOMBSTONE:
+                live.pop(key, None)
+            else:
+                live[key] = merkle.leaf_hash(
+                    merkle.value_op_leaf(key, rec[1:]))
+        if v in versions:
+            roots[v] = merkle.root_from_leaf_hashes(
+                [live[k] for k in sorted(live)])
+    return roots
+
+
+def _ss_prune(card, src, keep):
+    """15b prune-150: the pruner's passes over the source while 15a built
+    it, the pruned stores and tree held to the retain height, then
+    rollback_state(remove_block=True) on 15a's stopped joiner."""
+    import struct
+    from cometbft_tpu_torch.state.rollback import rollback_state
+    from cometbft_tpu_torch.state import store as ss
+    chain, passes = src["chain"], src["passes"]
+    n, top = EXEC_VALIDATORS, SS_HEIGHTS
+    _phase(f"15b prune-{n}: the source's Pruner passes (retain_blocks "
+           f"{SS_RETAIN}), its stores and state tree below the retain "
+           f"height, and rollback_state on 15a's stopped joiner")
+    base, retain = chain.block_store.base, chain.exec.last_retain_height
+    if base != retain or retain != top - SS_RETAIN + 1:
+        raise AssertionError(f"15b: block store base {base}, the app's "
+                             f"retain height {retain}")
+    # what the JAX stores leave below the base: block 1's empty LastCommit
+    # (commit key 0, below PruneBlocks' first base) and the full validator
+    # records a pass kept as its retain height's lookback target; nothing
+    # else, and every retained lookback pointer still finds its record
+    left, kept = [], []
+    for k, v in chain.dbs["block"].iterator():
+        if k[:1] in (b"\x00", b"\x01", b"\x02", b"\x03", b"\x04"):
+            h = struct.unpack(">q", k[1:9])[0]
+        elif k[:1] == b"\x05":
+            h = struct.unpack(">q", v)[0]
+        else:
+            continue
+        if h < base and (k[:1], h) != (b"\x02", 0):
+            left.append(("block", k[:1], h))
+    sdb = chain.dbs["state"]
+    for k, v in sdb.iterator():
+        if k[:1] not in (ss._VALIDATORS, ss._CONSENSUS_PARAMS,
+                         ss._ABCI_RESPONSES):
+            continue
+        h = struct.unpack(">q", k[1:9])[0]
+        if h >= base:
+            continue
+        if k[:1] == ss._VALIDATORS and ss.decode(
+                ss.state_pb.VALIDATORS_INFO, v).get("validator_set"):
+            kept.append(h)
+        else:
+            left.append(("state", k[:1], h))
+    if left:
+        raise AssertionError(f"15b: rows left below the base {base}: "
+                             f"{left[:8]}")
+    store = ss.Store(sdb)
+    for h in range(base, top + 2):
+        store.load_validators(h)        # raises if a pointer dangles
+    tree = chain.app.tree
+    rebuilt = _tree_roots(tree)
+    versions = sorted(rebuilt)
+    bad = [v for v in versions
+           if rebuilt[v] != src["roots"][v] or tree.root(v) != src["roots"][v]]
+    if bad or versions[0] != retain - 1 or versions[-1] != top or \
+            tree.base_version != retain - 1:
+        raise AssertionError(f"15b: tree versions {versions[0]}-"
+                             f"{versions[-1]}, roots changed at {bad}")
+    pruned = [p for p, _ in passes]
+    ms = [m for p, m in passes if p]
+    _log(f"prune_{n} the Pruner ran {len(passes)} passes while the source "
+         f"was built, {sum(1 for p in pruned if p)} of them pruning "
+         f"(heights a pruning pass {sorted(collections.Counter(p for p in pruned if p).items())}"
+         f", {sum(pruned)} in all): ms a pruning pass {_p50_p90(ms)}, max "
+         f"{max(ms):.3f}; ms a pass that pruned nothing "
+         f"{_p50_p90([m for p, m in passes if not p] or [0.0])}; the block "
+         f"store's base {base} = the app's last retain_height; below it no "
+         f"meta, part, seen, extended-commit, hash, params or "
+         f"FinalizeBlock-response row, no commit row but block 1's empty "
+         f"LastCommit (key height 0), no validator pointer, only the full "
+         f"validator records at {kept} that passes kept as lookback targets "
+         f"(the JAX stores leave the same), every retained height's "
+         f"validator set loads; the tree keeps "
+         f"versions {versions[0]}-{versions[-1]}, each rebuilt from its node "
+         f"records to the root it had at its commit; the app's tree prune "
+         f"in Commit ({len(src['tree_ms'])} commits) ms "
+         f"{_p50_p90(src['tree_ms'])}, max {max(src['tree_ms']):.1f}, "
+         f"{sum(src['tree_ms']) / 1e3:.2f} s in all; card: {card}")
+    joiner = keep.pop("ss_joiner")
+    t0 = time.perf_counter()
+    height, app_hash = rollback_state(joiner.state_store, joiner.block_store,
+                                      remove_block=True)
+    rb_ms = (time.perf_counter() - t0) * 1e3
+    if (height, app_hash) != src["states"][top - 1] or \
+            joiner.block_store.height != top - 1 or \
+            joiner.state_store.load().last_block_height != top - 1:
+        raise AssertionError(f"15b: the rollback left ({height}, "
+                             f"{app_hash.hex()}), the source's state at "
+                             f"{top - 1} is {src['states'][top - 1][1].hex()}")
+    _log(f"prune_{n} rollback_state(remove_block=True) on the stopped joiner "
+         f"in {rb_ms:.2f} ms: height {height}, app hash {app_hash.hex()[:16]}"
+         f"..., the source's state at {top - 1}; the joiner's block store "
+         f"now ends at {joiner.block_store.height}")
+
+
+class _SnapshotLiar:
+    """A snapshot connection that advertises ``snaps`` ([(Snapshot, chunk
+    or None)]) and serves each snapshot's one chunk; a None chunk is never
+    served (the reactor answers it missing)."""
+
+    def __init__(self, snaps):
+        self.snaps = snaps
+
+    async def list_snapshots(self, req):
+        from cometbft_tpu_torch.abci import types as abci
+        return abci.ListSnapshotsResponse(snapshots=[s for s, _ in self.snaps])
+
+    async def load_snapshot_chunk(self, req):
+        from cometbft_tpu_torch.abci import types as abci
+        for s, chunk in self.snaps:
+            if (s.height, s.format) == (req.height, req.format):
+                return abci.LoadSnapshotChunkResponse(chunk=chunk or b"")
+        return abci.LoadSnapshotChunkResponse()
+
+
+class _LogRecorder:
+    """A logger that keeps (message, fields) of every call."""
+
+    def __init__(self):
+        self.lines = []
+
+    def info(self, msg, **kv):
+        self.lines.append((msg, kv))
+
+    debug = warn = error = info
+
+
+def _ss_reject(seed, card, ek, ek8, oe, device, loop, src, keep):
+    """15c statesync-reject: a liar's snapshots (a format the app refuses,
+    a chunk that does not hash to its snapshot) rejected before the
+    source's good one, a chunk that never comes under a short
+    chunk_request_timeout_ns, a snapshot at the source's tip, a
+    corrupted signature in light block H+1, a raising stand-in kernel,
+    and one state sync under cuda8.  Returns (B1 launches, B2
+    launches)."""
+    import copy
+    from types import SimpleNamespace
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.abci.client import AppConns
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.crypto import tmhash
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from cometbft_tpu_torch.light.provider import NodeProvider
+    from cometbft_tpu_torch.p2p import NodeKey, Switch
+    from cometbft_tpu_torch.statesync import StateProvider
+    from cometbft_tpu_torch.statesync.syncer import RejectSnapshotError
+    chain, top = src["chain"], SS_HEIGHTS
+    snap_h = max(chain.app._snapshots)
+    _phase(f"15c statesync-reject: a liar's snapshots at {snap_h + 3} (format "
+           f"2) and {snap_h + 2} (a chunk off its hash) before the source's "
+           f"{snap_h}; a chunk never served under a {SS_CHUNK_TIMEOUT_NS} ns "
+           f"chunk timeout; a snapshot at the tip {top}; a flipped signature "
+           f"bit in light block {snap_h + 1}; a raising stand-in kernel; one "
+           f"state sync under cuda8")
+    cfg = Config()
+    short = copy.deepcopy(cfg)
+    short.statesync.chunk_request_timeout_ns = SS_CHUNK_TIMEOUT_NS
+    out = []
+    l0 = ek.launches
+
+    def snap(h, fmt=1, chunk=b"advertised"):
+        return abci.Snapshot(height=h, format=fmt, chunks=1,
+                             hash=tmhash.sum(chunk))
+
+    class Flipped(NodeProvider):
+        """The source's stores with one signature bit of light block
+        ``bad`` flipped."""
+        bad = snap_h + 1
+
+        async def light_block(self, height):
+            lb = await super().light_block(height)
+            if height == self.bad:
+                sig = lb.signed_header.commit.signatures[0]
+                sig.signature = bytes([sig.signature[0] ^ 1]) + \
+                    sig.signature[1:]
+            return lb
+
+    def rejections(logger):
+        return [(kv.get("height"), kv.get("err")) for msg, kv in logger.lines
+                if msg == "snapshot rejected; trying next"]
+
+    async def attempt(i, servers, primary=None, conf=cfg, until=None):
+        """A fresh node state-syncs from ``servers``; with ``until``, the
+        sync is cancelled once until(rejections) holds."""
+        lc = _ss_light_client(chain, device, primary=primary)
+        await lc.initialize()
+        sp = StateProvider(lc, chain.chain_id, chain.doc)
+        node = await _CsNode.make(chain.doc, device)
+        logger = _LogRecorder()
+        node.switch = Switch(NodeKey(Ed25519PrivKey(_seed(seed + 153, i))),
+                             chain.chain_id, listen_addr="127.0.0.1:0")
+        for r in _ss_syncer(node, sp, conf, logger=logger):
+            node.switch.add_reactor(r)
+        await node.switch.start()
+        try:
+            for sw in servers:
+                await asyncio.wait_for(node.switch.dial_peer(sw.listen_addr),
+                                       30)
+            task = asyncio.ensure_future(
+                _ss_bootstrap(node, conf, SS_REJECT_DISCOVERY_NS))
+            deadline = time.perf_counter() + 60
+            while until is not None and not task.done() and \
+                    not until(rejections(logger)):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("15c: the sync's outcome never came")
+                await asyncio.sleep(0.005)
+            if until is not None and not task.done():
+                task.cancel()
+            try:
+                res = await task
+            except asyncio.CancelledError:
+                res = None
+            except Exception as e:  # noqa: BLE001 — the case's outcome
+                res = e
+        finally:
+            await node.switch.stop()
+        return node, res, rejections(logger)
+
+    def untouched(node, what):
+        info = loop.run_until_complete(node.conns.query.info(
+            abci.InfoRequest()))
+        if info.last_block_height != 0 or node.block_store.height != 0 or \
+                node.state_store.load().last_block_height != 0:
+            raise AssertionError(f"15c: {what} bootstrapped something")
+
+    async def server(conns, i):
+        return await _ss_snapshot_server(conns, _seed(seed + 152, i),
+                                         chain.chain_id)
+
+    def liar(snaps):
+        return SimpleNamespace(snapshot=_SnapshotLiar(snaps))
+
+    good = loop.run_until_complete(server(AppConns(chain.app), 0))
+    try:
+        # (i) a format the app refuses, a chunk off its hash, then the good
+        _clear_memos()
+        bad = loop.run_until_complete(server(liar([
+            (snap(snap_h + 3, fmt=2), b"x"),
+            (snap(snap_h + 2), b"not the advertised chunk")]), 1))
+        try:
+            node, res, rejected = loop.run_until_complete(
+                attempt(0, [good, bad]))
+        finally:
+            loop.run_until_complete(bad.stop())
+        want = [(snap_h + 3, "app rejected snapshot: 4"),
+                (snap_h + 2, "chunk apply failed: 5")]
+        if isinstance(res, Exception) or rejected != want or \
+                res[0].bytes() != keep["ss_state"]:
+            raise AssertionError(f"15c: the liar's snapshots gave {res!r}, "
+                                 f"rejections {rejected}")
+        for h, err in rejected:
+            out.append(f"snapshot at {h} rejected: RejectSnapshotError "
+                       f"{err!r}, sync_any went on")
+        out.append(f"then the source's {snap_h} restored, the bootstrapped "
+                   f"State 15a's")
+
+        # (ii) a chunk that never comes: rejected, then rediscovery
+        never = _SnapshotLiar([(snap(snap_h + 1), None)])
+        listed = []
+        real_list = never.list_snapshots
+
+        async def list_snapshots(req):
+            listed.append(time.perf_counter())
+            return await real_list(req)
+        never.list_snapshots = list_snapshots
+        srv = loop.run_until_complete(server(
+            SimpleNamespace(snapshot=never), 2))
+        try:
+            node, res, rejected = loop.run_until_complete(attempt(
+                1, [srv], conf=short,
+                until=lambda rej: rej and len(listed) >= 2))
+        finally:
+            loop.run_until_complete(srv.stop())
+        want = [(snap_h + 1, "timed out waiting for chunks (4 rounds)")]
+        if res is not None or rejected != want or len(listed) < 2:
+            raise AssertionError(f"15c: the missing chunk gave {res!r}, "
+                                 f"{rejected}, {len(listed)} listings")
+        untouched(node, "the missing chunk")
+        out.append(f"a chunk never served (chunk_request_timeout_ns "
+                   f"{SS_CHUNK_TIMEOUT_NS}): snapshot {snap_h + 1} rejected, "
+                   f"RejectSnapshotError {want[0][1]!r}, and the syncer asked "
+                   f"its peers for snapshots again")
+
+        # (iii) a snapshot at the tip: H+1 and H+2 do not exist yet
+        srv = loop.run_until_complete(server(liar([(snap(top), b"x")]), 3))
+        try:
+            node, res, rejected = loop.run_until_complete(attempt(2, [srv]))
+        finally:
+            loop.run_until_complete(srv.stop())
+        want = f"no light block at height {top + 1}"
+        if not isinstance(res, Exception) or str(res) != want or \
+                isinstance(res, RejectSnapshotError) or rejected:
+            raise AssertionError(f"15c: the tip snapshot gave {res!r}")
+        untouched(node, "the tip snapshot")
+        out.append(f"a snapshot at the tip {top}: sync_any raised "
+                   f"{type(res).__name__} {str(res)!r}, nothing bootstrapped")
+
+        # (iv) a flipped signature bit in light block H+1
+        _clear_memos()
+        l_flip = ek.launches
+        node, res, rejected = loop.run_until_complete(attempt(
+            3, [good], primary=Flipped(chain.block_store, chain.state_store,
+                                       chain.chain_id)))
+        if type(res).__name__ != "InvalidHeaderError" or \
+                not str(res).startswith("wrong signature (#0): ") or \
+                ek.launches == l_flip:
+            raise AssertionError(f"15c: the flipped bit gave {res!r}")
+        untouched(node, "the flipped bit")
+        out.append(f"a flipped signature bit in light block {snap_h + 1}: B1 "
+                   f"({ek.launches - l_flip} launch(es)) refused it, "
+                   f"sync_any raised {type(res).__name__} {str(res)[:40]!r}"
+                   f"..., nothing bootstrapped")
+
+        # (v) a raising stand-in kernel
+        real_kernel = ek.verify_cols
+
+        def raising(*a, **kw):
+            raise RuntimeError("stand-in kernel failure (15c)")
+
+        _clear_memos()
+        ek.verify_cols = raising
+        try:
+            node, res, rejected = loop.run_until_complete(attempt(4, [good]))
+        finally:
+            ek.verify_cols = real_kernel
+        if not isinstance(res, RuntimeError) or \
+                str(res) != "stand-in kernel failure (15c)" or rejected:
+            raise AssertionError(f"15c: the raising kernel was hidden: "
+                                 f"{res!r}")
+        untouched(node, "the raising kernel")
+        out.append(f"a raising stand-in kernel: sync_any raised RuntimeError "
+                   f"{str(res)!r}, no fallback, nothing bootstrapped")
+
+        # (vi) one state sync under cuda8
+        _clear_memos()
+        b1, ek8.launches = ek.launches, 0
+        os.environ[oe.KERNEL_ENV] = "cuda8"
+        try:
+            node, res, rejected = loop.run_until_complete(attempt(5, [good]))
+        finally:
+            os.environ.pop(oe.KERNEL_ENV, None)
+        launches8, b1_in_8 = ek8.launches, ek.launches - b1
+        if isinstance(res, Exception):
+            raise res
+        if _db_rows(node) != keep["ss_rows"] or b1_in_8 or not launches8:
+            raise AssertionError(f"15c: the cuda8 sync launched B1 {b1_in_8}"
+                                 f", B2 {launches8}, or its rows differ")
+        out.append(f"a state sync under cuda8: {launches8} B2 launches, 0 B1, "
+                   f"its state-store, block-store and app rows at the "
+                   f"bootstrap equal 15a's under B1")
+    finally:
+        loop.run_until_complete(good.stop())
+    for line in out:
+        _log(f"statesync_reject {line}")
+    _log(f"statesync_reject all {len(out)} outcomes as the JAX package "
+         f"decides them; card: {card}")
+    return ek.launches - l0 - b1_in_8, launches8
+
+
+def _statesync_phases(seed, card, keep, device=None):
+    """Phases 15a-15c: state sync and pruning (statesync/, state/pruner.py,
+    state/rollback.py, the stores' bootstrap and pruning, the kvstore's
+    snapshots, the state tree's prune and import).  Returns B1's launches
+    by part and B2's."""
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    t_phase = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    try:
+        src = _ss_source(seed, card, ek, device, loop)
+        sync = _ss_chain(seed, card, ek, device, loop, src, keep)
+        _ss_prune(card, src, keep)
+        reject, reject8 = _ss_reject(seed, card, ek, ek8, oe, device, loop,
+                                     src, keep)
+    finally:
+        logging.disable(logging.NOTSET)
+        loop.close()
+    _log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    n, top = EXEC_VALIDATORS, SS_HEIGHTS
+    return ({f"statesync_source_{n}x{top}": src["launches"],
+             f"statesync_{n}x{top}": sync,
+             "statesync_reject": reject},
+            {f"statesync_{n}_cuda8": reject8})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5919,6 +6860,7 @@ def main() -> int:
                                                keep=keep)
     p2p_launches = _p2p_phases(args.seed, card, keep)
     sync_launches, sync_launches8 = _sync_phases(args.seed, card, keep)
+    ss_launches, ss_launches8 = _statesync_phases(args.seed, card, keep)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -5939,7 +6881,7 @@ def main() -> int:
                                 if k != "vote_burst_cuda8"},
                              **light_launches, **exec_launches,
                              **cs_launches, **p2p_launches,
-                             **sync_launches},
+                             **sync_launches, **ss_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -5967,7 +6909,8 @@ def main() -> int:
                              "vote_burst_cuda8":
                                  vote_launches["vote_burst_cuda8"],
                              **light_launches8, **exec_launches8,
-                             **cs_launches8, **sync_launches8},
+                             **cs_launches8, **sync_launches8,
+                             **ss_launches8},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

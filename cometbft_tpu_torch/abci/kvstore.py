@@ -9,10 +9,14 @@ for byte.
 Storage is the committed state tree (statetree/): every kv pair and
 validator record is a tree leaf, FinalizeBlock returns the tree's
 working root as app_hash and Commit persists it as the height's version,
-so queries serve versioned (historical) reads.  Not ported: the
-/multistore proof query (ROADMAP A.7b'), state-sync snapshots, pruning
-by retain height, artificial call delays, and the import of pre-tree
-stores.
+so queries serve versioned (historical) reads.  Every
+``snapshot_interval`` heights Commit keeps a one-chunk snapshot of the
+whole state (a bounded window of 5), which a state-syncing node restores
+through the snapshot connection; with ``retain_blocks`` set, Commit
+answers a retain height and prunes the tree's versions below it.  Not
+ported: the /multistore proof query and the lightserve ``version_pin``
+(ROADMAP A.7b'; until then the tree prunes with no pinned versions),
+artificial call delays, and the import of pre-tree stores.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Optional
 
 from .. import version as _version
 from ..crypto import encoding as crypto_encoding
+from ..crypto import tmhash
 from ..db import DB, MemDB
 from ..db.db import PrefixDB
 from ..libs.log import new_logger
@@ -140,9 +145,14 @@ def _val_tree_key(pub_key_bytes: bytes) -> bytes:
 
 class KVStoreApplication(abci.Application):
     def __init__(self, db: Optional[DB] = None,
-                 lane_priorities: Optional[dict[str, int]] = DEFAULT_LANES):
+                 lane_priorities: Optional[dict[str, int]] = DEFAULT_LANES,
+                 snapshot_interval: int = 0):
         self.db = db if db is not None else MemDB()
         self.lane_priorities = dict(lane_priorities or {})
+        self.snapshot_interval = snapshot_interval
+        self._snapshots: dict[int, bytes] = {}
+        self._restoring: Optional[abci.Snapshot] = None
+        self.retain_blocks = 0
         self.logger = new_logger("kvstore")
         self._val_updates: list[abci.ValidatorUpdate] = []
         self._val_addr_to_pubkey: dict[bytes, tuple[str, bytes]] = {}
@@ -343,7 +353,18 @@ class KVStoreApplication(abci.Application):
         self.tree.commit(self._height, extra={"size": self._size})
         for u in self._dedup_val_updates():
             self._track_validator(u)
-        return abci.CommitResponse()
+        if self.snapshot_interval > 0 and self._height > 0 and \
+                self._height % self.snapshot_interval == 0:
+            self._snapshots[self._height] = self._serialize_state()
+            # keep a bounded window: each entry is a full state copy
+            while len(self._snapshots) > 5:
+                del self._snapshots[min(self._snapshots)]
+        resp = abci.CommitResponse()
+        if self.retain_blocks > 0 and self._height >= self.retain_blocks:
+            resp.retain_height = self._height - self.retain_blocks + 1
+            # prune tree versions below the retention horizon
+            self.tree.prune(resp.retain_height - 1)
+        return resp
 
     def _dedup_val_updates(self) -> list[abci.ValidatorUpdate]:
         by_key: dict[bytes, abci.ValidatorUpdate] = {}
@@ -351,10 +372,67 @@ class KVStoreApplication(abci.Application):
             by_key[u.pub_key_bytes] = u
         return list(by_key.values())
 
+    # ------------------------------------------------------------------
+    # snapshots: single-chunk full-state snapshots keyed by height
+
+    def _serialize_state(self) -> bytes:
+        pairs = [[k.hex(), v.hex()] for k, v in self.tree.pairs()]
+        return json.dumps({"height": self._height,
+                           "size": self._size,
+                           "pairs": pairs}).encode()
+
+    def _restore_state(self, raw: bytes) -> None:
+        d = json.loads(raw)
+        self._height = d["height"]
+        self._size = d["size"]
+        # import reproduces a byte-identical root: same pairs, same
+        # sorted order, same leaf binding as the snapshot producer
+        self.tree.import_snapshot(
+            self._height,
+            [(bytes.fromhex(k), bytes.fromhex(v))
+             for k, v in d["pairs"]],
+            extra={"size": self._size})
+        self._rebuild_val_map()
+
+    async def list_snapshots(self, req: abci.ListSnapshotsRequest
+                             ) -> abci.ListSnapshotsResponse:
+        snaps = [abci.Snapshot(height=h, format=1, chunks=1,
+                               hash=tmhash.sum(raw))
+                 for h, raw in sorted(self._snapshots.items())]
+        return abci.ListSnapshotsResponse(snapshots=snaps)
+
+    async def offer_snapshot(self, req: abci.OfferSnapshotRequest
+                             ) -> abci.OfferSnapshotResponse:
+        s = req.snapshot
+        if s is None or s.format != 1 or s.chunks != 1:
+            return abci.OfferSnapshotResponse(
+                result=abci.OFFER_SNAPSHOT_RESULT_REJECT_FORMAT)
+        self._restoring = s
+        return abci.OfferSnapshotResponse(
+            result=abci.OFFER_SNAPSHOT_RESULT_ACCEPT)
+
+    async def load_snapshot_chunk(self, req: abci.LoadSnapshotChunkRequest
+                                  ) -> abci.LoadSnapshotChunkResponse:
+        raw = self._snapshots.get(req.height, b"")
+        return abci.LoadSnapshotChunkResponse(chunk=raw)
+
+    async def apply_snapshot_chunk(self,
+                                   req: abci.ApplySnapshotChunkRequest
+                                   ) -> abci.ApplySnapshotChunkResponse:
+        restoring = self._restoring
+        if restoring is None or \
+                tmhash.sum(req.chunk) != restoring.hash:
+            return abci.ApplySnapshotChunkResponse(
+                result=abci.APPLY_SNAPSHOT_CHUNK_RESULT_REJECT_SNAPSHOT)
+        self._restore_state(req.chunk)
+        self._restoring = None
+        return abci.ApplySnapshotChunkResponse(
+            result=abci.APPLY_SNAPSHOT_CHUNK_RESULT_ACCEPT)
+
     def _resolve_version(self, height: int) -> Optional[int]:
         """Query height -> tree version (they coincide: version H is
         the state after block H).  0 = latest.  Raises ValueError for
-        a height the tree cannot serve (not yet committed);
+        a height the tree cannot serve (pruned / not yet committed);
         returns None when nothing was ever committed."""
         latest = self.tree.latest_version
         if latest is None:
@@ -366,6 +444,9 @@ class KVStoreApplication(abci.Application):
         if height > latest:
             raise ValueError(f"height {height} not yet committed "
                              f"(latest {latest})")
+        if height < self.tree.base_version:
+            raise ValueError(f"height {height} pruned (oldest "
+                             f"retained {self.tree.base_version})")
         return height
 
     async def query(self, req: abci.QueryRequest) -> abci.QueryResponse:
@@ -413,8 +494,8 @@ class KVStoreApplication(abci.Application):
         if v.power == 0:
             self.tree.delete(key)
         else:
-            # record the key TYPE with the power: a restart must
-            # rebuild a mixed-key validator map (the b64 pubkey alone
+            # record the key TYPE with the power: a restart or a
+            # snapshot restore must rebuild a mixed-key validator map (the b64 pubkey alone
             # can't distinguish ed25519 from secp256k1)
             self.tree.set(key, f"{v.pub_key_type}!{v.power}".encode())
 

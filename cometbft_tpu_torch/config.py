@@ -1,15 +1,16 @@
-"""Node configuration: the consensus, p2p, mempool and block-sync
-sections.
+"""Node configuration: the consensus, p2p, mempool, block-sync, state-sync
+and storage sections.
 
 Reference: config/config.go — P2PConfig (:588), MempoolConfig,
-BlockSyncConfig, ConsensusConfig (:1218) and TestConfig (:128) —
-through cometbft_tpu/config.py, whose ``ConsensusConfig`` (:173-234) and
-the consensus part of ``test_config`` (:411-417) this copy keeps, with
-the same field names, defaults and timeout arithmetic, and of whose
-``P2PConfig`` (:86-104), ``MempoolConfig`` (:108-152) and
-``BlockSyncConfig`` (:168) it keeps the fields the port reads.  The
-other sections (base, RPC, state sync, storage, instrumentation) come
-with the node, ROADMAP.md A.7e-6.
+StateSyncConfig, BlockSyncConfig, ConsensusConfig (:1218), StorageConfig
+and TestConfig (:128) — through cometbft_tpu/config.py, whose
+``ConsensusConfig`` (:173-234) and the consensus part of ``test_config``
+(:411-417) this copy keeps, with the same field names, defaults and
+timeout arithmetic, and of whose ``P2PConfig`` (:86-104),
+``MempoolConfig`` (:108-152), ``StateSyncConfig`` (:155-164),
+``BlockSyncConfig`` (:168) and ``StorageConfig`` (:238-240) it keeps the
+fields the port reads, with their defaults.  The other sections (base,
+RPC, instrumentation) come with the node, ROADMAP.md A.7e-6.
 """
 from __future__ import annotations
 
@@ -61,6 +62,19 @@ class MempoolConfig:
     recon_push_peers: int = 2
     # heights a salt epoch lasts
     recon_salt_epoch_blocks: int = 16
+
+
+@dataclass
+class StateSyncConfig:
+    """The fields of a fresh node's state sync that the port reads: the
+    light client's trusting period, the discovery time, the chunk timeout
+    and the chunks' directory.  The switch and the light client's RPC
+    servers and trust root come with the node and the RPC client
+    (ROADMAP.md A.7e-5, A.7e-6)."""
+    trust_period_ns: int = 168 * 3600 * _S
+    discovery_time_ns: int = 15 * _S
+    chunk_request_timeout_ns: int = 10 * _S
+    temp_dir: str = ""
 
 
 @dataclass
@@ -121,13 +135,22 @@ class ConsensusConfig:
 
 
 @dataclass
+class StorageConfig:
+    """The pruner service's interval (state/pruner.Pruner's
+    ``interval_s``)."""
+    pruning_interval_ns: int = 10 * _S
+
+
+@dataclass
 class Config:
-    """The configuration tree, holding its p2p, mempool, block-sync and
-    consensus sections."""
+    """The configuration tree, holding its p2p, mempool, state-sync,
+    block-sync, consensus and storage sections."""
     p2p: P2PConfig = field(default_factory=P2PConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
+    statesync: StateSyncConfig = field(default_factory=StateSyncConfig)
     blocksync: BlockSyncConfig = field(default_factory=BlockSyncConfig)
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
+    storage: StorageConfig = field(default_factory=StorageConfig)
 
 
 def test_config() -> Config:

@@ -249,6 +249,7 @@ class BlockExecutor:
             new_logger("state")
         self._last_validated_hash: bytes = b""
         self.last_retain_height = 0
+        self.pruner = None          # attached by the node (state/pruner.py)
 
     # ------------------------------------------------------------------
     async def create_proposal_block(
@@ -434,8 +435,11 @@ class BlockExecutor:
         state.app_hash = abci_response.app_hash
         self.store.save(state)
 
-        # the app's retain height (pruning is not ported)
+        # app-requested pruning: hand the retain height to the pruner
+        # service (reference: execution.go pruneBlocks -> state/pruner.go)
         self.last_retain_height = retain_height
+        if self.pruner is not None and retain_height > 0:
+            self.pruner.set_application_retain_height(retain_height)
 
         self._fire_events(block, block_id, abci_response,
                           validator_updates)

@@ -1,5 +1,6 @@
-"""State/execution metrics (reference: state/metrics.gen.go), the
-families of cometbft_tpu/state/metrics.py on the port's libs/metrics."""
+"""State/execution and pruner metrics (reference: state/metrics.gen.go),
+the families of cometbft_tpu/state/metrics.py on the port's
+libs/metrics."""
 from __future__ import annotations
 
 from typing import Optional
@@ -18,3 +19,13 @@ class Metrics:
             "state", "validator_set_updates",
             "Number of validator set updates returned by the "
             "application since process start.")
+        self.application_block_retain_height = m.gauge(
+            "state", "application_block_retain_height",
+            "The retain height set by the application.")
+        self.pruning_service_block_retain_height = m.gauge(
+            "state", "pruning_service_block_retain_height",
+            "The retain height set by the pruning service (data "
+            "companion).")
+        self.block_store_base_height = m.gauge(
+            "state", "block_store_base_height",
+            "The first height the block store retains.")

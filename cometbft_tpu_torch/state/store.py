@@ -3,9 +3,8 @@
 Reference: state/store.go:157 (Store interface, dbStore impl) — state
 record, validator sets and consensus params by height (with lookback
 pointers so unchanged heights store only a reference), finalize-block
-responses — through cometbft_tpu/state/store.py, whose rows this copy
-writes byte for byte.  Pruning and the state-sync bootstrap are not
-ported.
+responses, pruning and the state-sync bootstrap — through
+cometbft_tpu/state/store.py, whose rows this copy writes byte for byte.
 """
 from __future__ import annotations
 
@@ -95,6 +94,23 @@ class Store:
                                   state.last_height_validators_changed)
             self._save_params(next_height, state.consensus_params,
                               state.last_height_consensus_params_changed)
+            self._db.set_sync(_STATE_KEY, state.bytes())
+
+    def bootstrap(self, state: State) -> None:
+        """Reference: store.go Bootstrap — used by state sync."""
+        with self._lock:
+            self._val_cache.clear()
+            height = state.last_block_height + 1
+            if height > 1 and state.last_validators is not None and \
+                    state.last_validators.size() > 0:
+                self._save_validators(
+                    height - 1, state.last_validators, height - 1)
+            self._save_validators(height, state.validators, height)
+            self._save_validators(height + 1, state.next_validators,
+                                  height + 1)
+            self._save_params(
+                height, state.consensus_params,
+                state.last_height_consensus_params_changed or height)
             self._db.set_sync(_STATE_KEY, state.bytes())
 
     # ------------------------------------------------------------------
@@ -232,6 +248,71 @@ class Store:
         info = decode(state_pb.ABCI_RESPONSES_INFO, raw)
         fb = info.get("finalize_block")
         return _fbr_from_proto(fb) if fb is not None else None
+
+    # ------------------------------------------------------------------
+    def prune_abci_responses(self, from_height: int,
+                             to_height: int) -> int:
+        """Delete stored FinalizeBlockResponses in [from, to) — the
+        data-companion artifact class, pruned by the pruner's companion
+        pass, which comes with the pruning service (ROADMAP A.7e-5)
+        (reference: store.go PruneABCIResponses).  Returns number
+        deleted."""
+        if from_height <= 0 or to_height <= from_height:
+            return 0
+        batch = self._db.new_batch()
+        pruned = 0
+        for k, _ in list(self._db.iterator(
+                _abci_responses_key(from_height),
+                _abci_responses_key(to_height))):
+            batch.delete(k)
+            pruned += 1
+        batch.write()
+        return pruned
+
+    # ------------------------------------------------------------------
+    def prune_states(self, from_height: int, to_height: int,
+                     evidence_threshold_height: int) -> int:
+        """Delete state records in [from, to) (reference: store.go
+        PruneStates — kept heights are materialized in full BEFORE their
+        lookback targets are deleted); returns number pruned."""
+        if from_height <= 0 or to_height <= from_height:
+            return 0
+        self._val_cache.clear()
+        # heights whose FULL validator records must survive: the lookback
+        # targets of to_height and of the evidence threshold (reference:
+        # store.go PruneStates keepVals)
+        keep_val_heights: set[int] = set()
+        for keep in {to_height, evidence_threshold_height}:
+            if keep <= 0:
+                continue
+            raw = self._db.get(_validators_key(keep))
+            if raw is None:
+                continue
+            info = decode(state_pb.VALIDATORS_INFO, raw)
+            if info.get("validator_set") is None:
+                keep_val_heights.add(self._last_stored_height_for(
+                    keep, info.get("last_height_changed", 0)))
+        # materialize params at to_height so its pointer cannot dangle
+        try:
+            params = self.load_consensus_params(to_height)
+            self._db.set(
+                _params_key(to_height),
+                encode(state_pb.CONSENSUS_PARAMS_INFO,
+                       {"last_height_changed": to_height,
+                        "consensus_params": params.to_proto()}))
+        except StateStoreError:
+            pass
+        pruned = 0
+        batch = self._db.new_batch()
+        for h in range(from_height, to_height):
+            batch.delete(_abci_responses_key(h))
+            if h < evidence_threshold_height and \
+                    h not in keep_val_heights:
+                batch.delete(_validators_key(h))
+            batch.delete(_params_key(h))
+            pruned += 1
+        batch.write()
+        return pruned
 
 
 def _fbr_to_proto(resp) -> dict:

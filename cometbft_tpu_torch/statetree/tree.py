@@ -3,7 +3,8 @@
 The port's copy of cometbft_tpu/statetree/tree.py.  Leaves hash with
 ``merkle.leaf_hash`` (hashlib) only, so the roots are byte-equal to the
 reference package's on any machine; proofs (``prove``,
-statetree/proof.py), pruning and snapshot import wait for ROADMAP A.7b'.
+statetree/proof.py) wait for ROADMAP A.7b'.  The reference's memo of
+materialized versions serves only its proofs, so this copy has none.
 
 Design: a sorted-kv commitment with versioned nodes.  The committed state
 at version V is the set of live (key, value) pairs; its root is the
@@ -39,7 +40,7 @@ import bisect
 import json
 import struct
 import threading
-from typing import Optional
+from typing import Iterable, Optional
 
 from ..crypto import merkle
 from ..db.db import DB, _prefix_end
@@ -327,6 +328,99 @@ class StateTree:
             self._working.clear()
             self._pending = None
             return root
+
+    # -- pruning / snapshots ---------------------------------------------------
+
+    def prune(self, retain_from: int,
+              pinned: Iterable[int] = ()) -> int:
+        """Drop versions < ``retain_from`` except ``pinned`` ones.  Node
+        records are compacted so every retained version still
+        materializes the exact same pairs.  Returns the number of
+        versions dropped.
+
+        The rows it leaves are the reference's: a record is kept iff it
+        is the newest <= some kept version, rewritten AT the pruning
+        floor when its own version was dropped below it, and deleted
+        otherwise.  A record at a kept version is always the newest <=
+        that version, so only records at other versions are examined,
+        each against the next record of its key, in one ordered pass
+        (the reference groups every record by key and searches each
+        key's versions once per kept version)."""
+        with self._lock:
+            if self.latest_version is None:
+                return 0
+            retain_from = min(retain_from, self.latest_version)
+            pinned = {p for p in pinned if p >= self.base_version}
+            versions = self.versions()
+            keep = sorted({v for v in versions if v >= retain_from} |
+                          pinned)
+            kept_set = set(keep)
+            drop = [v for v in versions if v not in kept_set]
+            if not drop:
+                return 0
+            floor = keep[0]
+            batch = self._db.new_batch()
+
+            def settle(raw: bytes, rec: bytes, ver: int,
+                       next_ver: Optional[int]) -> None:
+                # needed iff a kept version falls in [ver, next_ver)
+                j = bisect.bisect_left(keep, ver)
+                if j < len(keep) and (next_ver is None or
+                                      keep[j] < next_ver):
+                    if ver < floor:
+                        # re-anchor at the pruning floor so the record
+                        # stays visible to every retained version
+                        # >= floor that needs it
+                        batch.delete(raw)
+                        if rec[:1] != _TOMBSTONE:
+                            batch.set(raw[:-8] + _be64(floor), rec)
+                else:
+                    batch.delete(raw)
+
+            # records of one key are contiguous and version-ascending,
+            # and a record key ends in its be64 version
+            pending = None
+            for raw, rec in self._db.iterator(_NODE, _VERSION):
+                (ver,) = struct.unpack(">Q", raw[-8:])
+                if pending is not None:
+                    settle(*pending, ver if raw[:-8] == pending[0][:-8]
+                           else None)
+                    pending = None
+                if ver not in kept_set:
+                    pending = (raw, rec, ver)
+            if pending is not None:
+                settle(*pending, None)
+            for v in drop:
+                batch.delete(_VERSION + _be64(v))
+                self._roots.pop(v, None)
+            batch.set(_META_BASE, _be64(floor))
+            batch.write()
+            self.base_version = floor
+            return len(drop)
+
+    def import_snapshot(self, version: int,
+                        pairs: Iterable[tuple[bytes, bytes]],
+                        extra: Optional[dict] = None) -> bytes:
+        """Replace all tree content with ``pairs`` committed at
+        ``version`` (state-sync restore).  The resulting root is
+        byte-identical to the snapshot producer's: same pairs, same
+        sorted order, same leaf binding."""
+        with self._lock:
+            batch = self._db.new_batch()
+            for raw, _ in self._db.iterator(None, None):
+                batch.delete(raw)
+            batch.write()
+            self._map = {}
+            self._sorted = []
+            self._leafh = {}
+            self._working = {}
+            self._pending = None
+            self._roots.clear()
+            self.latest_version = None
+            self.base_version = version
+            for k, v in pairs:
+                self.set(k, v)
+            return self.commit(version, extra=extra)
 
     def _view(self, version: Optional[int]) -> tuple:
         """(sorted keys, values) at ``version``: latest from the live

@@ -1,12 +1,11 @@
 """BlockStore: blocks by parts, metas, commits, seen and extended
-commits, and the block-hash index.
+commits, the block-hash index, pruning and rollback.
 
 Reference: store/store.go:46 (BlockStore struct + methods) and
 store/db_key_layout.go, through cometbft_tpu/store/store.py, whose rows
 this copy writes byte for byte.  Key layout is the v2-style ordered
 layout: a prefix byte followed by fixed-width big-endian integers, so
-height ranges scan in order on any ordered-KV backend.  Pruning and
-rollback are not ported.
+height ranges scan in order on any ordered-KV backend.
 """
 from __future__ import annotations
 
@@ -180,6 +179,26 @@ class BlockStore:
             self._save_store_state(batch)
             batch.write_sync()
 
+    def save_seen_commit_standalone(self, commit: Commit) -> None:
+        """Persist only a seen commit, without a block — the state-sync
+        bootstrap artifact block sync needs to start verifying from the
+        snapshot height (reference: store.go SaveSeenCommit, used by the
+        statesync reactor's Bootstrap)."""
+        with self._lock:
+            batch = self._db.new_batch()
+            batch.set(_seen_commit_key(commit.height),
+                      _encode_commit_row(commit))
+            # advance height so block sync resumes AFTER the snapshot;
+            # base points at the FIRST block we will actually store
+            # (H+1) — advertising base=H would promise a block we can
+            # never serve
+            if self._height < commit.height:
+                self._height = commit.height
+            if self._base <= commit.height:
+                self._base = commit.height + 1
+            self._save_store_state(batch)
+            batch.write_sync()
+
     # ------------------------------------------------------------------
     def load_block_meta(self, height: int) -> Optional[BlockMeta]:
         raw = self._db.get(_meta_key(height))
@@ -239,3 +258,58 @@ class BlockStore:
             return None
         return ExtendedCommit.from_proto(
             decode(pb.EXTENDED_COMMIT, raw))
+
+    # ------------------------------------------------------------------
+    def prune_blocks(self, retain_height: int) -> tuple[int, int]:
+        """Remove blocks below retain_height; returns (pruned,
+        new_base_of_evidence) (reference: PruneBlocks)."""
+        with self._lock:
+            if retain_height <= self._base:
+                return 0, self._base
+            if retain_height > self._height:
+                raise BlockStoreError(
+                    "cannot prune beyond the latest height "
+                    f"{self._height}")
+            pruned = 0
+            batch = self._db.new_batch()
+            for h in range(self._base, retain_height):
+                meta = self.load_block_meta(h)
+                if meta is not None:
+                    batch.delete(_meta_key(h))
+                    batch.delete(_hash_key(meta.block_id.hash))
+                    for i in range(meta.block_id.part_set_header.total):
+                        batch.delete(_part_key(h, i))
+                    pruned += 1
+                # _commit_key(h) holds the canonical commit FOR block h
+                batch.delete(_commit_key(h))
+                batch.delete(_seen_commit_key(h))
+                batch.delete(_ext_commit_key(h))
+            self._base = retain_height
+            self._save_store_state(batch)
+            batch.write()
+            return pruned, self._base
+
+    def delete_latest_block(self) -> None:
+        """Rollback support: remove the highest block (reference:
+        DeleteLatestBlock)."""
+        with self._lock:
+            h = self._height
+            if h == 0:
+                raise BlockStoreError("no blocks to delete")
+            meta = self.load_block_meta(h)
+            batch = self._db.new_batch()
+            if meta is not None:
+                batch.delete(_hash_key(meta.block_id.hash))
+                for i in range(meta.block_id.part_set_header.total):
+                    batch.delete(_part_key(h, i))
+            batch.delete(_meta_key(h))
+            # the canonical commit FOR h (stored when h+1 was saved, so
+            # normally absent for the head; deleted defensively)
+            batch.delete(_commit_key(h))
+            batch.delete(_seen_commit_key(h))
+            batch.delete(_ext_commit_key(h))
+            self._height = h - 1
+            if self._base > self._height:
+                self._base = self._height
+            self._save_store_state(batch)
+            batch.write_sync()

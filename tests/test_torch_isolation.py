@@ -9,7 +9,9 @@
     package, flowrate, the AEAD wrapper and its plain version; block
     sync, the evidence pool and reactor, the mempool with its messages,
     reactor and metrics, the node provider and the load generator's
-    payloads) loads neither jax nor anything of cometbft_tpu;
+    payloads; state sync's syncer, reactor and metrics, the pruner and
+    rollback, with the stores, the state tree and the kvstore they
+    extend) loads neither jax nor anything of cometbft_tpu;
   * importing the p2p stack and the reactor, and running a secret
     connection's handshake, loads no ``cryptography`` either: the port
     seals every frame in its own host library;
@@ -79,6 +81,7 @@ def test_port_imports_no_jax_and_no_reference():
             "cometbft_tpu_torch.ops.ed25519_host"} <= set(mods)
     assert set(P2P_MODULES) <= set(mods)
     assert set(SYNC_MODULES) <= set(mods)
+    assert set(STATESYNC_MODULES) <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -121,6 +124,37 @@ SYNC_MODULES = ("cometbft_tpu_torch.blocksync",
                 "cometbft_tpu_torch.mempool.reactor",
                 "cometbft_tpu_torch.light.provider",
                 "cometbft_tpu_torch.tools.loadtime")
+
+
+STATESYNC_MODULES = ("cometbft_tpu_torch.statesync",
+                     "cometbft_tpu_torch.statesync.metrics",
+                     "cometbft_tpu_torch.statesync.reactor",
+                     "cometbft_tpu_torch.statesync.syncer",
+                     "cometbft_tpu_torch.state.pruner",
+                     "cometbft_tpu_torch.state.rollback",
+                     "cometbft_tpu_torch.state.store",
+                     "cometbft_tpu_torch.state.metrics",
+                     "cometbft_tpu_torch.store.store",
+                     "cometbft_tpu_torch.statetree.tree",
+                     "cometbft_tpu_torch.abci.kvstore",
+                     "cometbft_tpu_torch.config")
+
+
+def test_statesync_and_pruning_load_no_jax_or_reference():
+    """State sync, the pruner, rollback and the stores, tree and kvstore
+    they extend, imported in a fresh interpreter, load nothing of jax, of
+    the JAX package or of ``cryptography``."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {STATESYNC_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'cryptography'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_sync_evidence_and_mempool_load_no_jax_or_reference():
@@ -253,6 +287,30 @@ def test_sync_entry_points_raise_without_cuda():
                             device="cpu").device == torch.device("cpu")
     assert EvidencePool(MemDB(), store, blocks,
                         device="cpu").device == torch.device("cpu")
+
+
+def test_state_sync_raises_without_cuda():
+    """A state sync whose light client is left at device=None raises
+    where CUDA is absent: the client resolves its device when it is
+    built, before any snapshot is offered; device="cpu" builds it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.provider import NodeProvider
+    from cometbft_tpu_torch.light.store import TrustedStore
+    from cometbft_tpu_torch.state.store import Store
+    from cometbft_tpu_torch.statesync import StateProvider
+    from cometbft_tpu_torch.store import BlockStore
+    provider = NodeProvider(BlockStore(MemDB()), Store(MemDB()), "c")
+    trust = TrustOptions(period_ns=10**9, height=1, header_hash=b"h" * 32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StateProvider(Client("c", trust, provider, [],
+                             TrustedStore(MemDB())), "c", None)
+    client = Client("c", trust, provider, [], TrustedStore(MemDB()),
+                    device="cpu")
+    assert StateProvider(client, "c", None).light_client.device == \
+        torch.device("cpu")
 
 
 def _cols(n=4, dtype=torch.int32):
