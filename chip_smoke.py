@@ -159,6 +159,22 @@ rollback_state on the stopped joiner; and the refusals: a format the app
 refuses, a chunk off its hash, a chunk never served, a snapshot at the
 tip, a flipped signature bit in a light block, a raising stand-in
 kernel, and one state sync under cuda8 with the same rows.
+Phases 16a-16e drive privval and the JSON-RPC (privval/, indexer/, rpc/,
+the HTTP provider, new_rpc_state_provider, loadtime's generate and
+report): a light client over two RPCServers serving 15a's source
+(HttpProviders, sequential and skipping from 90 to 105) against the same
+syncs over NodeProviders, every light block over HTTP held to the stores'
+bytes; 15a's joiner with new_rpc_state_provider over those servers, its
+bootstrapped rows held to 15a's; config 1 over sockets with three FilePVs
+and validator 0 signing in `python -m cometbft_tpu_torch.privval.signer`,
+against 13a's MockPV net, then loadtime over HTTP, broadcast_tx_commit
+and a WebSocket client with every tx found by /tx and tx_search; the
+signer killed and restarted from its files (a conflicting vote refused
+with the JAX text, a timestamp-only one given the stored signature); and
+the refusals: a lying server's commit (B1, then cuda8), a forked witness
+(divergence and evidence over broadcast_evidence), the unsafe routes, an
+unknown method, a bad parameter, a body over max_body_bytes, the
+lightserve routes, the signer gone, a raising stand-in kernel.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -371,6 +387,14 @@ SS_LEAD_S = 300           # 15a: the genesis lies this long before the run
 SS_DISCOVERY_NS = 2 * 10**9       # 15a: the JAX QA joiner's discovery time
 SS_REJECT_DISCOVERY_NS = 5 * 10**8  # 15c: the peers are dialed beforehand
 SS_CHUNK_TIMEOUT_NS = 25 * 10**7    # 15c(ii): a short chunk_request_timeout_ns
+# phase 16: privval and the JSON-RPC over 15a's source and config 1
+PV_VALIDATORS = 4         # 16c: config 1
+PV_HEIGHTS = 20           # 16c: the heights of each net before the load
+RPC_LOAD_RATE = 100       # 16d: tx/s over HTTP, round-robin over the nodes
+RPC_LOAD_SECONDS = 3.0    # 16d: the submission window
+RPC_TX_BYTES = 1024       # 16d: CometBFT's QA tx size
+RPC_COMMIT_TXS = 10       # 16d: txs sent by broadcast_tx_commit
+RPC_TX_HEIGHTS = 20       # 16d: the heights the net commits at least after 16c
 
 
 def _mixed_kind(i: int) -> str:
@@ -3135,13 +3159,89 @@ def _cs_feed(chain, heights, signer):
     return feed
 
 
+def _node_status(node) -> dict:
+    """The JAX Node.status (cometbft_tpu/node/node.py:616-653) over a
+    holder of a node's parts; ``node.moniker`` stands in for
+    config.base.moniker (the port's Config has no base section yet)."""
+    from cometbft_tpu_torch.types.genesis import pub_key_to_json
+    state = node.state_store.load()
+    latest_meta = node.block_store.load_block_meta(node.block_store.height)
+    pub = node.priv_validator.get_pub_key()
+    power = 0
+    if state is not None and state.validators is not None:
+        _, val = state.validators.get_by_address(pub.address())
+        power = val.voting_power if val else 0
+    return {
+        "node_info": {
+            "id": node.node_key.id,
+            "listen_addr": node.switch.listen_addr,
+            "network": node.genesis_doc.chain_id,
+            "moniker": node.moniker,
+        },
+        "sync_info": {
+            "latest_block_hash":
+                latest_meta.block_id.hash.hex().upper()
+                if latest_meta else "",
+            "latest_app_hash":
+                (state.app_hash.hex().upper() if state else ""),
+            "latest_block_height": str(node.block_store.height),
+            "latest_block_time":
+                latest_meta.header.time.rfc3339() if latest_meta else "",
+            "earliest_block_height": str(node.block_store.base),
+            "catching_up": False,
+        },
+        "validator_info": {
+            "address": pub.address().hex().upper(),
+            "pub_key": pub_key_to_json(pub),
+            "voting_power": str(power),
+        },
+    }
+
+
 class _CsNode:
     """A port ConsensusState over a kvstore app on AppConns, a Store and a
     BlockStore (MemDB unless ``dbs`` names them), a BlockExecutor that
     publishes to the node's EventBus, and a WAL at ``wal_path`` (none:
     the NilWAL).  Build it with ``await _CsNode.make(...)``: the
     Handshaker runs InitChain on a fresh app, or replays the stores into
-    a fresh app on an app db that is behind."""
+    a fresh app on an app db that is behind.
+
+    It also carries the JAX Node's attribute names that rpc/core's routes
+    read (``consensus_state``, ``event_bus``, ``app_conns``,
+    ``genesis_doc``, ``config``, ``priv_validator``, ``evidence_pool``,
+    the indexers and the pruner, ``status()``), so an RPCServer serves
+    it as it would serve that Node."""
+
+    moniker = "anonymous"
+    tx_indexer = block_indexer = pruner = None
+    consensus_reactor = None
+
+    @property
+    def blocksync_reactor(self):
+        return getattr(self, "bsync", None)
+
+    @property
+    def consensus_state(self):
+        return self.cs
+
+    @property
+    def event_bus(self):
+        return self.bus
+
+    @property
+    def app_conns(self):
+        return self.conns
+
+    @property
+    def evidence_pool(self):
+        return self.evpool
+
+    @property
+    def priv_validator(self):
+        return self.cs.priv_validator
+
+    def status(self) -> dict:
+        return _node_status(self)
 
     @classmethod
     async def make(cls, doc, device, dbs=None, wal_path=None, config=None,
@@ -3154,7 +3254,7 @@ class _CsNode:
         from cometbft_tpu_torch.abci import types as abci
         from cometbft_tpu_torch.abci.client import AppConns
         from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
-        from cometbft_tpu_torch.config import ConsensusConfig
+        from cometbft_tpu_torch.config import Config, ConsensusConfig
         from cometbft_tpu_torch.consensus.replay import Handshaker
         from cometbft_tpu_torch.consensus.state import ConsensusState
         from cometbft_tpu_torch.consensus.wal import WAL
@@ -3165,6 +3265,7 @@ class _CsNode:
         from cometbft_tpu_torch.store import BlockStore
         from cometbft_tpu_torch.types.events import EventBus
         self = cls()
+        self.genesis_doc, self.config = doc, Config()
         self.dbs = dbs or {"state": MemDB(), "block": MemDB(),
                            "app": MemDB()}
         self.state_store = Store(self.dbs["state"])
@@ -3926,9 +4027,11 @@ async def _sock_node(doc, device, key_seed, pv=None, config=None, dbs=None,
     node = await _CsNode.make(doc, device, dbs=dbs, config=config, pv=pv,
                               mempool_config=mempool_config,
                               evidence=evidence, app=app)
-    node.switch = Switch(NodeKey(Ed25519PrivKey(key_seed)), doc.chain_id,
+    node.node_key = NodeKey(Ed25519PrivKey(key_seed))
+    node.switch = Switch(node.node_key, doc.chain_id,
                          listen_addr="127.0.0.1:0")
-    node.reactor = ConsensusReactor(node.cs, wait_sync=wait_sync)
+    node.reactor = node.consensus_reactor = ConsensusReactor(
+        node.cs, wait_sync=wait_sync)
     node.switch.add_reactor(node.reactor)
     if mempool_config is not None:
         from cometbft_tpu_torch.mempool.reactor import MempoolReactor
@@ -5802,6 +5905,7 @@ def _ss_chain(seed, card, ek, device, loop, src, keep):
                              f"switched at {log.get('height')}")
     keep["ss_joiner"] = joiner
     keep["ss_state"] = new_state.bytes()
+    keep["ss_new_state"] = new_state
     synced = range(snap_h + 1, top)
     step = [(rec["saved"][h] - rec["saved"][h - 1]) * 1e3 for h in synced]
     per = [rec["launches"][h] - rec["launches"][h - 1] for h in synced]
@@ -6261,12 +6365,1125 @@ def _statesync_phases(seed, card, keep, device=None):
     finally:
         logging.disable(logging.NOTSET)
         loop.close()
+    keep["ss_src"] = src
     _log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
     n, top = EXEC_VALIDATORS, SS_HEIGHTS
     return ({f"statesync_source_{n}x{top}": src["launches"],
              f"statesync_{n}x{top}": sync,
              "statesync_reject": reject},
             {f"statesync_{n}_cuda8": reject8})
+
+
+class _StoreNode:
+    """A chain's stores behind an RPCServer, with the JAX Node's attribute
+    names (rpc/core reads them); parts a store server lacks are None, so
+    the routes that need them answer as a JAX node without them."""
+
+    moniker = "anonymous"
+    mempool = consensus_state = switch = event_bus = app_conns = None
+    tx_indexer = block_indexer = pruner = None
+    consensus_reactor = blocksync_reactor = None
+
+    def __init__(self, chain, evidence_pool=None):
+        from cometbft_tpu_torch.config import Config
+        self.block_store, self.state_store = chain.block_store, \
+            chain.state_store
+        self.genesis_doc, self.config = chain.doc, Config()
+        self.evidence_pool = evidence_pool
+
+
+class _RpcCount:
+    """Route calls by name and response bytes of the port's RPC servers
+    while installed: the servers' module ``json`` is swapped for one whose
+    ``dumps`` counts what it returns, and each server's ``_call`` records
+    its method."""
+
+    def __init__(self, servers):
+        from cometbft_tpu_torch.rpc import server as rpc_server
+        self.mod, self.servers = rpc_server, servers
+        self.calls, self.bytes = collections.Counter(), 0
+
+    def __enter__(self):
+        count = self
+
+        class _Json:
+            JSONDecodeError = json.JSONDecodeError
+            loads = staticmethod(json.loads)
+
+            @staticmethod
+            def dumps(obj, **kw):
+                out = json.dumps(obj, **kw)
+                count.bytes += len(out)
+                return out
+        self.mod.json = _Json
+        for srv in self.servers:
+            real = srv._call
+
+            async def call(name, params, rpc_id, real=real):
+                count.calls[name] += 1
+                return await real(name, params, rpc_id)
+            srv._call = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.json = json
+        for srv in self.servers:
+            del srv._call
+        return False
+
+    def take(self):
+        out = (dict(self.calls), self.bytes)
+        self.calls, self.bytes = collections.Counter(), 0
+        return out
+
+
+def _rpc_light_client(chain, device, primary, witnesses, mode):
+    """A light client over ``primary`` and ``witnesses`` from the trust root
+    SS_TRUST, its hash read from the source's block store."""
+    from cometbft_tpu_torch.config import StateSyncConfig
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.store import TrustedStore
+    trust_hash = chain.block_store.load_block_meta(SS_TRUST).block_id.hash
+    return Client(chain.chain_id,
+                  TrustOptions(period_ns=StateSyncConfig().trust_period_ns,
+                               height=SS_TRUST, header_hash=trust_hash),
+                  primary, witnesses, TrustedStore(MemDB()),
+                  verification_mode=mode, device=device)
+
+
+def _unproposed(vals) -> bytes:
+    """A validator set's bytes but its proposer, which /validators does
+    not carry (the codec derives it as the reference's
+    findPreviousProposer does)."""
+    from cometbft_tpu_torch.wire import encode, pb
+    d = vals.to_proto()
+    d.pop("proposer", None)
+    return encode(pb.VALIDATOR_SET, d)
+
+
+def _rpc_light(seed, card, ek, tracing, device, loop, src, urls, count):
+    """16a rpc-light-150x105: a light client over two RPC servers (primary
+    and witness, HttpProviders) from the trust root to the source's top,
+    sequentially and skipping, against the same syncs over NodeProviders;
+    every light block the HTTP path brings held to the stores' own bytes.
+    Returns B1's launches over HTTP."""
+    from cometbft_tpu_torch.light.client import SEQUENTIAL, SKIPPING
+    from cometbft_tpu_torch.light.provider import HttpProvider, NodeProvider
+    from cometbft_tpu_torch.wire import encode, pb
+    chain, n, top = src["chain"], EXEC_VALIDATORS, SS_HEIGHTS
+    _phase(f"16a rpc-light-{n}x{top}: a light client over two RPCServers on "
+           f"127.0.0.1 (primary and witness) serving the {n}-validator "
+           f"source, HttpProviders from the trust root {SS_TRUST} to {top}, "
+           f"sequentially ({top - SS_TRUST} hops) and skipping, against the "
+           f"same syncs over NodeProviders")
+    _clear_memos()
+    out = {}
+
+    def node_provider():
+        return NodeProvider(chain.block_store, chain.state_store,
+                            chain.chain_id)
+
+    def http_provider(url):
+        return HttpProvider(url, chain.chain_id)
+
+    async def sync(make, mode):
+        lc = _rpc_light_client(chain, device, make(0), [make(1)], mode)
+        await lc.initialize()
+        gap, ms, l0 = _LoopGap(), [], ek.launches
+        gap_task = asyncio.ensure_future(gap.run())
+        try:
+            heights = range(SS_TRUST + 1, top + 1) if mode == SEQUENTIAL \
+                else [top]
+            for h in heights:
+                t = time.perf_counter()
+                await lc.verify_light_block_at_height(h)
+                ms.append((time.perf_counter() - t) * 1e3)
+        finally:
+            gap.stop = True
+            await gap_task
+        return lc, ms, ek.launches - l0, gap.worst
+
+    def http(i):
+        return http_provider(urls[i])
+
+    def node(i):
+        return node_provider()
+
+    async def run():
+        for mode in (SEQUENTIAL, SKIPPING):
+            _clear_memos()
+            out[("node", mode)] = await sync(node, mode)
+            _clear_memos()
+            tracing.clear()
+            count.take()
+            out[("http", mode)] = await sync(http, mode)
+            out[("http_lanes", mode)] = [
+                ev["attrs"]["batch"]
+                for ev in tracing.snapshot(category=tracing.CRYPTO)
+                if ev["name"] == "batch_verify"]
+            out[("rpc", mode)] = count.take()
+        # the codec's round trip: each light block over HTTP as stored
+        per, prov, npv = [], http_provider(urls[0]), node_provider()
+        for h in range(SS_TRUST, top + 1):
+            got = await prov.light_block(h)
+            per.append(count.take())
+            want = await npv.light_block(h)
+            if encode(pb.SIGNED_HEADER, got.signed_header.to_proto()) != \
+                    encode(pb.SIGNED_HEADER, want.signed_header.to_proto()) \
+                    or _unproposed(got.validator_set) != \
+                    _unproposed(want.validator_set) or \
+                    got.validator_set.hash() != \
+                    want.signed_header.header.validators_hash:
+                raise AssertionError(f"16a: the light block at {h} over "
+                                     f"HTTP != the stores' own")
+        out["per_block"] = per
+
+    loop.run_until_complete(run())
+    want_hash = chain.block_store.load_block_meta(top).block_id.hash
+    for mode in (SEQUENTIAL, SKIPPING):
+        for via in ("node", "http"):
+            lc = out[(via, mode)][0]
+            latest = lc.store.latest()
+            if latest.height != top or \
+                    latest.signed_header.header.hash() != want_hash:
+                raise AssertionError(f"16a: the {via} {mode} sync ends at "
+                                     f"{latest.height}, not {top} with the "
+                                     f"source's hash")
+    launches = sum(out[("http", m)][2] for m in (SEQUENTIAL, SKIPPING))
+    seq_calls, seq_bytes = out[("rpc", SEQUENTIAL)]
+    first_calls, first_bytes = out["per_block"][0]
+    rest = out["per_block"][1:]
+    _log(f"rpc_light_{n}x{top} sequential {top - SS_TRUST} hops, ms a hop "
+         f"over HTTP {_p50_p90(out[('http', SEQUENTIAL)][1])} against "
+         f"NodeProvider {_p50_p90(out[('node', SEQUENTIAL)][1])}; skipping "
+         f"{SS_TRUST}->{top} over HTTP "
+         f"{out[('http', SKIPPING)][1][0]:.1f} ms against NodeProvider "
+         f"{out[('node', SKIPPING)][1][0]:.1f} ms; B1 launches over HTTP "
+         f"{out[('http', SEQUENTIAL)][2]} sequential + "
+         f"{out[('http', SKIPPING)][2]} skipping (NodeProvider "
+         f"{out[('node', SEQUENTIAL)][2]} + {out[('node', SKIPPING)][2]}), "
+         f"lanes a launch {sorted(collections.Counter(out[('http_lanes', SEQUENTIAL)] + out[('http_lanes', SKIPPING)]).items())}; "
+         f"the loop's longest stall {out[('http', SEQUENTIAL)][3] * 1e3:.1f} "
+         f"ms sequential, {out[('http', SKIPPING)][3] * 1e3:.1f} ms skipping "
+         f"(NodeProvider {out[('node', SEQUENTIAL)][3] * 1e3:.1f}); card: "
+         f"{card}")
+    _log(f"rpc_light_{n}x{top} HTTP a light block (a fresh HttpProvider): "
+         f"first {sum(first_calls.values())} round trips {first_calls}, "
+         f"{first_bytes} response bytes; then "
+         f"{sorted(collections.Counter(sum(c.values()) for c, _ in rest).items())} "
+         f"round trips, {_p50_p90([b for _, b in rest])} bytes a block; the "
+         f"sequential sync in all {seq_calls}, {seq_bytes} bytes "
+         f"(primary and witness, one TCP connection a call); every light "
+         f"block {SS_TRUST}-{top} over HTTP equals the stores' own (signed "
+         f"header bytes, the validator set's but its proposer), both "
+         f"syncs trust {top} at the source's hash")
+    return launches
+
+
+def _unproposed_state(state) -> bytes:
+    """A State's bytes with its three validator sets' proposers left out."""
+    st = state.copy()
+    for name in ("last_validators", "validators", "next_validators"):
+        vs = getattr(st, name)
+        if vs is not None:
+            vs = vs.copy()
+            vs.proposer = None
+            setattr(st, name, vs)
+    return st.bytes()
+
+
+def _rpc_statesync(seed, card, ek, oe, device, loop, src, keep, urls, count):
+    """16b rpc-statesync-150x105: 15a's joiner with the state provider the
+    JAX node builds when statesync.rpc_servers is set (node.py:599-606):
+    new_rpc_state_provider over 16a's two servers; the snapshot over p2p.
+    The run stops at the bootstrap, whose rows are held to 15a's.  Returns
+    the state provider's B1 launches."""
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.abci.client import AppConns
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from cometbft_tpu_torch.p2p import NodeKey, Switch
+    from cometbft_tpu_torch.statesync.syncer import new_rpc_state_provider
+    chain, n, top = src["chain"], EXEC_VALIDATORS, SS_HEIGHTS
+    snap_h = max(chain.app._snapshots)
+    _phase(f"16b rpc-statesync-{n}x{top}: 15a's joiner with "
+           f"new_rpc_state_provider(chain_id, genesis, [primary, witness], "
+           f"{SS_TRUST}, hash) over 16a's servers, the snapshot at {snap_h} "
+           f"over p2p; stops at the bootstrap")
+    cfg = Config()
+    cfg.statesync.discovery_time_ns = SS_DISCOVERY_NS
+    trust_hash = chain.block_store.load_block_meta(SS_TRUST).block_id.hash
+    stages = _Stages(ek)
+    _clear_memos()
+    log = {}
+
+    async def run():
+        good = await _ss_snapshot_server(AppConns(chain.app),
+                                         _seed(seed + 162, 0), chain.chain_id)
+        node = await _CsNode.make(chain.doc, device)
+        node.switch = Switch(NodeKey(Ed25519PrivKey(_seed(seed + 162, 1))),
+                             chain.chain_id, listen_addr="127.0.0.1:0")
+        try:
+            count.take()
+            with stages.stage("new_rpc_state_provider (trust root over HTTP)"):
+                sp = await new_rpc_state_provider(
+                    chain.chain_id, chain.doc, urls, SS_TRUST, trust_hash,
+                    cfg.statesync.trust_period_ns, device=device)
+            stages.wrap(sp, "app_hash", "app_hash(H): light block H+1")
+            stages.wrap(sp, "state", "state(H): light blocks H, H+1, H+2")
+            stages.wrap(sp, "commit", "commit(H): light block H")
+            stages.wrap(sp.light_client, "verify_light_block_at_height",
+                        lambda h, *a, **kw: f"light block {h}")
+            for r in _ss_syncer(node, sp, cfg):
+                node.switch.add_reactor(r)
+            stages.wrap(node.conns.snapshot, "offer_snapshot", "offer")
+            stages.wrap(node.conns.snapshot, "apply_snapshot_chunk",
+                        "apply_snapshot_chunk")
+            await node.switch.start()
+            await asyncio.wait_for(node.switch.dial_peer(good.listen_addr),
+                                   30)
+            t0 = time.perf_counter()
+            new_state, commit = await _ss_bootstrap(node, cfg)
+            log["sync_ms"] = (time.perf_counter() - t0) * 1e3
+            log["rpc"] = count.take()
+            info = await node.conns.query.info(abci.InfoRequest())
+        finally:
+            await node.switch.stop()
+            await good.stop()
+        return node, new_state, commit, info
+
+    ek.launches = 0
+    with stages.batches(oe):
+        node, new_state, commit, info = loop.run_until_complete(run())
+    launches = ek.launches
+    app_hash = chain.block_store.load_block_meta(snap_h + 1).header.app_hash
+    if info.last_block_height != snap_h or \
+            info.last_block_app_hash != app_hash or \
+            new_state.app_hash != app_hash:
+        raise AssertionError(f"16b: the restored app is at "
+                             f"{info.last_block_height} with app hash "
+                             f"{info.last_block_app_hash.hex()}, header "
+                             f"{snap_h + 1} says {app_hash.hex()}")
+    rows, want = _db_rows(node), keep["ss_rows"]
+    if rows["block"] != want["block"]:
+        raise AssertionError("16b: the bootstrapped block-store rows != "
+                             "15a's joiner's")
+    # the state store: byte for byte, but the validator sets' proposer,
+    # which /validators does not carry
+    ref_state = keep["ss_new_state"]
+    same_rows = sum(a == b for a, b in zip(rows["state"], want["state"]))
+    if [k for k, _ in rows["state"]] != [k for k, _ in want["state"]] or \
+            _unproposed_state(new_state) != _unproposed_state(ref_state) or \
+            any(_unproposed(node.state_store.load_validators(h)) !=
+                _unproposed(chain.state_store.load_validators(h))
+                for h in (snap_h, snap_h + 1, snap_h + 2)):
+        raise AssertionError("16b: the bootstrapped state-store rows != "
+                             "15a's joiner's but the sets' proposer")
+    proposers = sum(
+        a.proposer.address != b.proposer.address
+        for a, b in ((new_state.last_validators, ref_state.last_validators),
+                     (new_state.validators, ref_state.validators),
+                     (new_state.next_validators, ref_state.next_validators)))
+    calls, nbytes = log["rpc"]
+    _log(f"rpc_statesync_{n}x{top} stages: " + "; ".join(
+        stages.line(k) for k in (
+            "new_rpc_state_provider (trust root over HTTP)",
+            "app_hash(H): light block H+1", "offer", "apply_snapshot_chunk",
+            "state(H): light blocks H, H+1, H+2",
+            "commit(H): light block H")))
+    _log(f"rpc_statesync_{n}x{top} light verifications: " + "; ".join(
+        stages.line(k) for k in sorted(
+            (k for k in stages.rows if k.startswith("light block")),
+            key=lambda k: int(k.split()[-1]))))
+    _log(f"rpc_statesync_{n}x{top} sync_any {log['sync_ms']:.1f} ms "
+         f"(discovery {cfg.statesync.discovery_time_ns / 1e9:.1f} s "
+         f"included); the state provider's B1 launches {launches}; HTTP "
+         f"round trips {sum(calls.values())} {calls}, {nbytes} response "
+         f"bytes; the restored app hash is header {snap_h + 1}'s; the "
+         f"bootstrapped block-store rows equal 15a's joiner's byte for byte, "
+         f"its state-store rows {same_rows} of {len(rows['state'])} byte "
+         f"for byte and the rest but the sets' proposer ({proposers} of "
+         f"the state's three sets name another proposer than 15a's: "
+         f"/validators does not carry it); card: {card}")
+    return launches
+
+
+def _forked_header(chain, h):
+    """A lunatic fork of the source's header h (another app hash) and its
+    commit, signed by every validator of h's set."""
+    import dataclasses
+    from cometbft_tpu_torch.types.block_id import BlockID
+    meta = chain.block_store.load_block_meta(h)
+    header = dataclasses.replace(meta.header, app_hash=b"\x66" * 32)
+    bid = BlockID(hash=header.hash(),
+                  part_set_header=meta.block_id.part_set_header)
+    return header, chain.sign_commit(chain.state_store.load_validators(h),
+                                     h, bid)
+
+
+def _rpc_reject(seed, card, ek, ek8, oe, device, loop, src, servers, urls):
+    """16e rpc-reject (the RPC half): a lying server's corrupted commit
+    signature (under B1, then cuda8), a witness serving a forked header
+    (divergence, evidence to both servers, verified by the primary's pool on
+    B1), the unsafe routes, an unknown method, a bad parameter, a body over
+    max_body_bytes, the lightserve routes, a raising stand-in kernel under
+    an HTTP hop.  Returns (lines, B1 launches, B2 launches)."""
+    import base64
+    from cometbft_tpu_torch.config import RPCConfig
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.light.client import (
+        SEQUENTIAL, SKIPPING, DivergenceError)
+    from cometbft_tpu_torch.light.provider import HttpProvider
+    from cometbft_tpu_torch.rpc import core as rpc_core
+    from cometbft_tpu_torch.rpc.client import HTTPClient, RPCClientError
+    from cometbft_tpu_torch.rpc.server import RPCServer
+    chain, top = src["chain"], SS_HEIGHTS
+    lie_h = SS_TRUST + 5
+    lines, l0 = [], ek.launches
+    primary, witness = servers
+
+    async def liar_server(patch):
+        srv = RPCServer(_StoreNode(chain), RPCConfig(laddr="tcp://127.0.0.1:0"))
+        await srv.start()
+        patch(srv)
+        return srv
+
+    def lie(srv):
+        real = srv.routes["commit"]
+
+        async def commit(height="0"):
+            res = await real(height=height)
+            if int(height) == lie_h:
+                sig = res["signed_header"]["commit"]["signatures"][0]
+                raw = base64.b64decode(sig["signature"])
+                sig["signature"] = base64.b64encode(
+                    bytes([raw[0] ^ 1]) + raw[1:]).decode()
+            return res
+        srv.routes["commit"] = commit
+
+    fork_header, fork_commit = _forked_header(chain, top)
+
+    def fork(srv):
+        real = srv.routes["commit"]
+
+        async def commit(height="0"):
+            if int(height) == top:
+                return {"signed_header": {
+                    "header": rpc_core._header_json(fork_header),
+                    "commit": rpc_core._commit_json(fork_commit)},
+                    "canonical": True}
+            return await real(height=height)
+        srv.routes["commit"] = commit
+
+    async def http_sync(primary_url, witness_urls, mode, height):
+        lc = _rpc_light_client(chain, device,
+                               HttpProvider(primary_url, chain.chain_id),
+                               [HttpProvider(u, chain.chain_id)
+                                for u in witness_urls], mode)
+        await lc.initialize()
+        try:
+            await lc.verify_light_block_at_height(height)
+        except Exception as e:  # noqa: BLE001 — the case's outcome
+            return e
+        return None
+
+    async def expect_rpc(call, code, text):
+        try:
+            await call
+        except RPCClientError as e:
+            got = str(e)
+        else:
+            raise AssertionError(f"16e: no refusal for {text!r}")
+        if f"({code})" not in got or text not in got:
+            raise AssertionError(f"16e: {got!r} is not {text!r} ({code})")
+        return got
+
+    async def run():
+        out = {}
+        srv = await liar_server(lie)
+        try:
+            url = f"http://127.0.0.1:{srv.port}"
+            # (i) the lying commit under B1, then cuda8
+            _clear_memos()
+            l1 = ek.launches
+            out["lie"] = (await http_sync(url, [urls[1]], SEQUENTIAL, lie_h),
+                          ek.launches - l1)
+            _clear_memos()
+            b1, ek8.launches = ek.launches, 0
+            os.environ[oe.KERNEL_ENV] = "cuda8"
+            try:
+                out["lie8"] = (await http_sync(url, [urls[1]], SEQUENTIAL,
+                                               lie_h), ek8.launches,
+                               ek.launches - b1)
+            finally:
+                os.environ.pop(oe.KERNEL_ENV, None)
+        finally:
+            await srv.stop()
+        # (ii) a witness forking the top: divergence and evidence
+        evpools = [EvidencePool(MemDB(), chain.state_store, chain.block_store,
+                                device=device) for _ in range(2)]
+        fsrv = await liar_server(fork)
+        fsrv.node.evidence_pool = evpools[1]
+        primary.node.evidence_pool = evpools[0]
+        try:
+            _clear_memos()
+            l1 = ek.launches
+            evs = []
+            real_add = evpools[0].add_evidence
+
+            def add_evidence(ev):
+                t = time.perf_counter()
+                a = ek.launches
+                real_add(ev)
+                evs.append(((time.perf_counter() - t) * 1e3,
+                            ek.launches - a))
+            evpools[0].add_evidence = add_evidence
+            out["fork"] = (await http_sync(
+                urls[0], [f"http://127.0.0.1:{fsrv.port}"], SKIPPING, top),
+                ek.launches - l1, evs,
+                [len(p.pending_evidence(1 << 20)[0]) for p in evpools])
+        finally:
+            primary.node.evidence_pool = None
+            await fsrv.stop()
+        # (iii)-(vii) the server's refusals
+        cli = HTTPClient(urls[0])
+        out["unsafe"] = await expect_rpc(cli.call("dial_seeds", seeds="a"),
+                                         -32601, "unsafe RPC commands disabled"
+                                         " (enable with rpc.unsafe)")
+        out["unknown"] = await expect_rpc(cli.call("no_such_method"), -32601,
+                                          "Method not found")
+        out["bad_param"] = await expect_rpc(cli.call("block", bogus="1"),
+                                            -32602, "Invalid params")
+        big = "x" * (primary.config.max_body_bytes + 1)
+        try:
+            await cli.call("broadcast_tx_sync", tx=big)
+        except (RPCClientError, OSError) as e:
+            # the server closes unanswered: an empty answer, or a reset
+            # when the unread body is still in flight
+            out["body"] = f"{type(e).__name__} {str(e)!r}"
+        out["lightserve"] = [
+            await expect_rpc(cli.call(m), -32601, "Method not found")
+            for m in ("light_block", "multiproof", "abci_query_batch")]
+        # (viii) a raising stand-in kernel under an HTTP hop
+        real_kernel = ek.verify_cols
+
+        def raising(*a, **kw):
+            raise RuntimeError("stand-in kernel failure (16e)")
+        _clear_memos()
+        ek.verify_cols = raising
+        try:
+            out["raising"] = await http_sync(urls[0], [urls[1]], SEQUENTIAL,
+                                             SS_TRUST + 1)
+        finally:
+            ek.verify_cols = real_kernel
+        return out
+
+    out = loop.run_until_complete(run())
+    err, launches = out["lie"]
+    if err is None or "signature" not in str(err) or not launches:
+        raise AssertionError(f"16e: the lying commit gave {err!r}")
+    lines.append(f"a lying server's commit at {lie_h} (one signature bit): "
+                 f"B1 ({launches} launch(es)) refused it, the HTTP sync "
+                 f"raised {type(err).__name__} {str(err)[:60]!r}")
+    err8, launches8, b1_in_8 = out["lie8"]
+    if type(err8) is not type(err) or str(err8) != str(err) or \
+            not launches8 or b1_in_8:
+        raise AssertionError(f"16e: under cuda8 the lying commit gave "
+                             f"{err8!r} with {launches8} B2 and {b1_in_8} "
+                             f"B1 launches")
+    lines.append(f"the same under cuda8: {launches8} B2 launch(es), 0 B1, "
+                 f"the same text")
+    ferr, flaunches, evs, pending = out["fork"]
+    fwant = f"witness http{{http://127.0.0.1:"
+    if not isinstance(ferr, DivergenceError) or \
+            not str(ferr).startswith(fwant) or \
+            not str(ferr).endswith("} diverges from primary") or \
+            len(evs) != 1 or pending != [1, 1]:
+        raise AssertionError(f"16e: the forked witness gave {ferr!r}, "
+                             f"evidence added {evs}, pending {pending}")
+    lines.append(f"a witness forking {top}: DivergenceError {str(ferr)!r}; "
+                 f"light-client-attack evidence reported to both servers "
+                 f"over broadcast_evidence, the primary's pool verified it "
+                 f"in {evs[0][0]:.1f} ms with {evs[0][1]} B1 launch(es) "
+                 f"({flaunches} in the case), one pending in each pool")
+    for key, what in (("unsafe", "dial_seeds with rpc.unsafe off"),
+                      ("unknown", "an unknown method"),
+                      ("bad_param", "a bad parameter")):
+        lines.append(f"{what}: {out[key][:90]!r}")
+    if out.get("body") not in ('RPCClientError "HTTP error: b\'\'"',
+                               "ConnectionResetError "
+                               "'[Errno 104] Connection reset by peer'"):
+        raise AssertionError(f"16e: a body over max_body_bytes gave "
+                             f"{out.get('body')!r}")
+    lines.append(f"a body over max_body_bytes "
+                 f"({primary.config.max_body_bytes} bytes): the connection "
+                 f"closed unanswered, the client raised {out['body']}")
+    lines.append("light_block, multiproof, abci_query_batch: -32601 Method "
+                 "not found each (lightserve waits for A.7b')")
+    r = out["raising"]
+    if not isinstance(r, RuntimeError) or \
+            str(r) != "stand-in kernel failure (16e)":
+        raise AssertionError(f"16e: the raising kernel was hidden: {r!r}")
+    lines.append("a raising stand-in kernel under an HTTP hop: RuntimeError "
+                 "'stand-in kernel failure (16e)' surfaced, no fallback")
+    return lines, ek.launches - l0 - b1_in_8, launches8
+
+
+def _signer_proc(addr, chain_id, key_file, state_file):
+    """The port's remote signer process dialing ``addr``."""
+    import subprocess
+    return subprocess.Popen(
+        [sys.executable, "-m", "cometbft_tpu_torch.privval.signer",
+         "--address", addr, "--chain-id", chain_id, "--key-file", key_file,
+         "--state-file", state_file],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+
+
+def _privval_net(seed, card, ek, tracing, device, loop, sig):
+    """16c privval-4x20 and 16d rpc-tx-4x20: config 1 over sockets as 13a
+    wires it, validators 1-3 signing with FilePVs on disk and validator 0
+    through the port's signer process (SignerListenerEndpoint and
+    RetrySignerClient, as node.py:243-251 wires them), each node with a
+    mempool, kv indexers, an IndexerService and an RPCServer; 13a's MockPV
+    net as the control.  After PV_HEIGHTS heights, loadtime.generate over
+    HTTP, broadcast_tx_commit and a WebSocket client; then the signer is
+    killed and restarted from its files.  Returns (B1 launches of the 16c
+    heights, what 16d measured, the signer's 16e line)."""
+    import copy
+    from cometbft_tpu_torch.config import Config, RPCConfig, test_config
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.indexer import (
+        BlockIndexer, IndexerService, TxIndexer)
+    from cometbft_tpu_torch.privval import file as pvfile
+    from cometbft_tpu_torch.privval.file import FilePV, LastSignState
+    from cometbft_tpu_torch.privval.signer import RemoteSignerError
+    from cometbft_tpu_torch.rpc.client import WSClient
+    from cometbft_tpu_torch.rpc.server import RPCServer
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    from cometbft_tpu_torch.types.part_set import PartSetHeader
+    from cometbft_tpu_torch.types.proposal import Proposal
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    n, top = PV_VALIDATORS, PV_HEIGHTS
+    _phase(f"16c privval-{n}x{top}: config 1 over sockets (13a's wiring, "
+           f"test_config timeouts), validators 1-{n - 1} with FilePVs on "
+           f"disk, validator 0 through `python -m "
+           f"cometbft_tpu_torch.privval.signer` over TCP; 13a's MockPV net "
+           f"for {top} heights as the control")
+    doc, pvs = _net_doc(seed + 160, n, "privval-chip")
+    tcfg, cfg = test_config(), Config()
+    chain_id = doc.chain_id
+    ep, client, proc0, tmp = sig["ep"], sig["client"], sig["proc"], sig["dir"]
+    _clear_memos()
+
+    async def run_net(make_pv, heights, rpc):
+        nodes = [await _sock_node(doc, device, _seed(seed + 161, i),
+                                  pv=make_pv(i), config=tcfg.consensus,
+                                  mempool_config=cfg.mempool if rpc else None)
+                 for i in range(n)]
+        extra = {}
+        try:
+            if rpc:
+                for node in nodes:
+                    node.tx_indexer = TxIndexer(MemDB())
+                    node.block_indexer = BlockIndexer(MemDB())
+                    node.indexer = IndexerService(
+                        node.tx_indexer, node.block_indexer, node.bus)
+                    await node.indexer.start()
+                    node.rpc = RPCServer(node, RPCConfig(
+                        laddr="tcp://127.0.0.1:0"))
+                    await node.rpc.start()
+                extra["urls"] = [f"http://127.0.0.1:{nd.rpc.port}"
+                                 for nd in nodes]
+                ws = WSClient(extra["urls"][0])
+                await ws.connect()
+                extra["ws"] = ws
+                extra["ws_blocks"] = await ws.subscribe(
+                    "tm.event = 'NewBlock'")
+                extra["ws_txs"] = await ws.subscribe("tm.event = 'Tx'")
+            await _sock_mesh(nodes)
+            sub = nodes[0].bus.subscribe("chip-smoke-pv",
+                                         EVENT_QUERY_NEW_BLOCK,
+                                         out_capacity=100_000)
+            stamps = [time.perf_counter()]
+            l0 = ek.launches
+            for node in nodes:
+                await node.cs.start()
+            for h in range(1, heights + 1):
+                for node in nodes:
+                    node.cs.raise_if_failed()
+                await _cs_new_block(nodes[0], sub, h)
+                stamps.append(time.perf_counter())
+            extra["launches"] = ek.launches - l0
+            if rpc:
+                l1 = ek.launches
+                extra.update(await _rpc_tx(nodes, extra, heights))
+                extra["tx_launches"] = ek.launches - l1
+        finally:
+            if rpc:
+                await extra["ws"].close()
+                for node in nodes:
+                    await node.indexer.stop()
+                    await node.rpc.stop()
+            await _sock_stop(nodes)
+        return nodes, stamps, extra
+
+    # the FilePVs of validators 1..n-1 on disk; validator 0's key and state
+    # live with the signer process
+    file_pvs = {}
+    for i in range(1, n):
+        pv = FilePV(pvs[i].priv_key, os.path.join(tmp, f"key{i}.json"),
+                    os.path.join(tmp, f"state{i}.json"))
+        pv.save()
+        file_pvs[i] = pv
+    signed = []                  # what validator 0's signer signed last
+    remote_ms, local_ms = [], []
+    for name in ("sign_vote_async", "sign_proposal_async"):
+        real = getattr(client, name)
+
+        async def timed(chain, obj, *a, real=real):
+            t = time.perf_counter()
+            await real(chain, obj, *a)
+            remote_ms.append((time.perf_counter() - t) * 1e3)
+            signed.append(copy.deepcopy(obj))
+        setattr(client, name, timed)
+    with _timed(FilePV, "sign_vote") as sv, \
+            _timed(FilePV, "sign_proposal") as sp_:
+        nodes, stamps, extra = loop.run_until_complete(run_net(
+            lambda i: client if i == 0 else file_pvs[i], top, rpc=True))
+    local_ms = [s * 1e3 for s in list(sv) + list(sp_)]
+    launches16c = extra["launches"]
+    # kill the signer and restart it from its files; 13a's MockPV net, the
+    # control, runs while the new process loads
+    proc0.kill()
+    proc0.wait(30)
+    ep._drop_conn()
+    sig["t_restart"] = time.perf_counter()
+    proc = _signer_proc(ep.listen_addr, chain_id, sig["key_file"],
+                        sig["state_file"])
+    sig["proc"] = proc
+    nodes_c, stamps_c, extra_c = loop.run_until_complete(
+        run_net(lambda i: pvs[i], top, rpc=False))
+    ms = [(b - a) * 1e3 for a, b in zip(stamps[1:top + 1],
+                                        stamps[2:top + 1])]
+    ms_c = [(b - a) * 1e3 for a, b in zip(stamps_c[1:], stamps_c[2:])]
+    _log(f"privval_{n}x{top} ms a height (NewBlock to NewBlock on node 0, "
+         f"heights 2-{top}) {_p50_p90(ms)} against the MockPV net's "
+         f"{_p50_p90(ms_c)} in this call; sign ms a local FilePV "
+         f"({len(local_ms)} signs, the fsync'd state file each) "
+         f"{_p50_p90(local_ms)}, the remote signer ({len(remote_ms)} "
+         f"round trips over TCP) {_p50_p90(remote_ms)}; B1 launches "
+         f"{launches16c} ({launches16c / top:.2f} a height; MockPV net "
+         f"{extra_c['launches']}); the signer process reached the node "
+         f"{sig['connected'][0] - sig['t0']:.2f} s after its start; card: "
+         f"{card}")
+    # the FilePVs' state files: parse, and hold the last signed height
+    for i, pv in file_pvs.items():
+        with open(pv.state_file_path) as f:
+            lss = LastSignState.from_json(json.load(f))
+        if lss != pv.last_sign_state or lss.height < top:
+            raise AssertionError(f"16c: validator {i}'s state file says "
+                                 f"{lss.height}, it signed "
+                                 f"{pv.last_sign_state.height}")
+    loop.run_until_complete(ep.wait_for_signer(120))
+    restart_s = sig["connected"][1] - sig["t_restart"]
+    with open(sig["state_file"]) as f:
+        lss = LastSignState.from_json(json.load(f))
+    # the file is at or past the last signature node 0 received: a request
+    # in flight when the net stopped may be signed and never received
+    seen = signed[-1]
+    seen_hrs = (seen.height, seen.round, pvfile.STEP_PROPOSE
+                if isinstance(seen, Proposal)
+                else pvfile._STEP_BY_VOTE_TYPE[seen.type])
+    if (lss.height, lss.round, lss.step) < seen_hrs or \
+            ((lss.height, lss.round, lss.step) == seen_hrs and
+             lss.signature != seen.signature):
+        raise AssertionError(f"16c: the signer's state file holds "
+                             f"{lss.height}/{lss.round}/{lss.step}, node 0 "
+                             f"received {seen_hrs}")
+    last = _signed_from_state(lss, chain_id, seen)
+    inner = client.client
+    attempts = []
+    real_vote = inner.sign_vote_async
+    real_prop = inner.sign_proposal_async
+
+    async def counted_vote(*a):
+        attempts.append(1)
+        return await real_vote(*a)
+
+    async def counted_prop(*a):
+        attempts.append(1)
+        return await real_prop(*a)
+    inner.sign_vote_async, inner.sign_proposal_async = counted_vote, \
+        counted_prop
+    is_prop = isinstance(last, Proposal)
+    conflict = copy.deepcopy(last)
+    conflict.block_id = BlockID(hash=b"\x99" * 32,
+                                part_set_header=PartSetHeader(1, b"\x98" * 32))
+    conflict.signature = b""
+    stamp = copy.deepcopy(last)
+    stamp.timestamp = Timestamp(last.timestamp.seconds + 1,
+                                last.timestamp.nanos)
+    stamp.signature = b""
+
+    async def sign(obj):
+        if is_prop:
+            await client.sign_proposal_async(chain_id, obj)
+        else:
+            await client.sign_vote_async(chain_id, obj, False)
+    step = lss.step
+    want = (f"conflicting proposal data at {last.height}/{last.round}"
+            if is_prop else f"conflicting vote data at "
+            f"{last.height}/{last.round}/{step}")
+    try:
+        loop.run_until_complete(sign(conflict))
+        got = None
+    except pvfile.DoubleSignError as e:
+        got = str(e)
+    if got != want or len(attempts) != 1:
+        raise AssertionError(f"16c: the conflicting request gave {got!r} "
+                             f"after {len(attempts)} attempt(s)")
+    loop.run_until_complete(sign(stamp))
+    if stamp.signature != lss.signature or \
+            stamp.timestamp != last.timestamp:
+        raise AssertionError("16c: the timestamp-only request was re-signed")
+    lines = [f"the restarted signer (up in {restart_s:.2f} s) refused "
+             f"{'a proposal' if is_prop else 'a vote'} at the last signed "
+             f"{last.height}/{last.round}/{step} with another block: "
+             f"DoubleSignError {got!r}, in 1 attempt (not retried); the same "
+             f"request differing only in its timestamp got back the stored "
+             f"signature and timestamp"]
+    # the signer gone: RetrySignerClient gives up after its retries
+    proc.kill()
+    proc.wait(30)
+    attempts.clear()
+    try:
+        loop.run_until_complete(sign(copy.deepcopy(stamp)))
+        gone = None
+    except RemoteSignerError as e:
+        gone = str(e)
+    if gone != "no signer connected" or len(attempts) != client.retries:
+        raise AssertionError(f"16c: with the signer gone the client gave "
+                             f"{gone!r} after {len(attempts)} attempts")
+    lines.append(f"the signer gone: RetrySignerClient gave up after "
+                 f"{len(attempts)} attempts with RemoteSignerError {gone!r}")
+    _log(f"privval_{n}x{top} gates held: each FilePV state file parses and "
+         f"holds its validator's last signed height; the signer's state file "
+         f"holds {lss.height}/{lss.round}/{lss.step}, at or past the last "
+         f"signature node 0 received ({'/'.join(map(str, seen_hrs))}; a "
+         f"request in flight at the stop can be signed and not received); "
+         + "; ".join(lines[:1]))
+    return launches16c, extra, lines[1:]
+
+
+def _signed_from_state(lss, chain_id, like):
+    """The vote or proposal whose sign bytes a LastSignState holds, rebuilt
+    from its canonical form (validator fields from ``like``, a vote node 0
+    signed); raises unless its sign bytes are the stored ones."""
+    import copy
+    from cometbft_tpu_torch.privval import file as pvfile
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.part_set import PartSetHeader
+    from cometbft_tpu_torch.types.proposal import Proposal
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import Vote
+    from cometbft_tpu_torch.wire import pb, unmarshal_delimited
+    is_prop = lss.step == pvfile.STEP_PROPOSE
+    d, _ = unmarshal_delimited(
+        pb.CANONICAL_PROPOSAL if is_prop else pb.CANONICAL_VOTE,
+        lss.sign_bytes)
+    bid = d.get("block_id") or {}
+    psh = bid.get("part_set_header") or {}
+    block_id = BlockID(hash=bid.get("hash", b""), part_set_header=PartSetHeader(
+        psh.get("total", 0), psh.get("hash", b"")))
+    ts = Timestamp.from_proto(d.get("timestamp") or {})
+    if is_prop:
+        obj = Proposal(height=d.get("height", 0), round=d.get("round", 0),
+                       pol_round=d.get("pol_round", 0), block_id=block_id,
+                       timestamp=ts)
+    else:
+        base = like if isinstance(like, Vote) else Vote()
+        obj = copy.deepcopy(base)
+        obj.type, obj.height, obj.round = d.get("type", 0), \
+            d.get("height", 0), d.get("round", 0)
+        obj.block_id, obj.timestamp = block_id, ts
+        obj.extension = obj.non_rp_extension = b""
+    obj.signature = lss.signature
+    if obj.sign_bytes(chain_id) != lss.sign_bytes:
+        raise AssertionError("16c: the signer's last sign bytes do not "
+                             "decode to a vote or proposal")
+    return obj
+
+
+async def _rpc_tx(nodes, extra, start):
+    """16d's load over the running privval net: loadtime.generate over HTTP
+    round-robin, broadcast_tx_commit, then every tx looked up over RPC."""
+    import base64
+    import inspect
+    from cometbft_tpu_torch.types.events import EventBus
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.tools import loadtime
+    from cometbft_tpu_torch.types.tx import tx_hash
+    urls, exp = extra["urls"], "chip-smoke-rpc"
+    sent = []
+    real_payload = loadtime.payload_bytes
+
+    def recording(*a, **kw):
+        tx = real_payload(*a, **kw)
+        sent.append(tx)
+        return tx
+    loadtime.payload_bytes = recording
+    t0 = time.perf_counter()
+    try:
+        res = await loadtime.generate(
+            urls, rate=RPC_LOAD_RATE, connections=1,
+            duration_s=RPC_LOAD_SECONDS, size=RPC_TX_BYTES,
+            experiment_id=exp, method="async")
+    finally:
+        loadtime.payload_bytes = real_payload
+    commits = [loadtime.payload_bytes(exp, size=RPC_TX_BYTES,
+                                      rate=RPC_LOAD_RATE)
+               for _ in range(RPC_COMMIT_TXS)]
+    answers = await asyncio.gather(*(
+        HTTPClient(urls[i % len(urls)]).broadcast_tx_commit(tx)
+        for i, tx in enumerate(commits)))
+    if any(int(a["check_tx"].get("code", 0)) or
+           int(a["tx_result"].get("code", 0)) for a in answers):
+        raise AssertionError(f"16d: a broadcast_tx_commit failed: {answers}")
+    want = sent + commits
+    deadline = time.perf_counter() + 120
+    while not all(nd.mempool.size() == 0 for nd in nodes) or \
+            nodes[0].block_store.height < start + RPC_TX_HEIGHTS:
+        for nd in nodes:
+            nd.cs.raise_if_failed()
+        if time.perf_counter() > deadline:
+            raise AssertionError(
+                f"16d: the pools hold "
+                f"{[nd.mempool.size() for nd in nodes]} txs at height "
+                f"{nodes[0].block_store.height} after 120 s")
+        await asyncio.sleep(0.01)
+    done_s = time.perf_counter() - t0
+    top = min(nd.block_store.height for nd in nodes)
+    await asyncio.sleep(0.05)                   # the indexers' last events
+    # every acknowledged tx by /tx and by tx_search at its block's height
+    where = {}
+    for h in range(1, top + 1):
+        for tx in nodes[0].block_store.load_block(h).data.txs:
+            where[tx] = h
+    missing = [tx for tx in want if tx not in where]
+    if missing or res.errors or res.accepted != len(sent):
+        raise AssertionError(f"16d: {len(missing)} of {len(want)} acked txs "
+                             f"not committed ({res.accepted} of {len(sent)} "
+                             f"generate sends acked)")
+    calls = collections.Counter()
+    by_height = collections.defaultdict(set)
+    for i, tx in enumerate(want):
+        cli = HTTPClient(urls[i % len(urls)])
+        got = await cli.tx(tx_hash(tx))
+        calls["tx"] += 1
+        if int(got["height"]) != where[tx] or \
+                base64.b64decode(got["tx"]) != tx:
+            raise AssertionError(f"16d: /tx gave height {got['height']} for "
+                                 f"a tx of {where[tx]}")
+        by_height[where[tx]].add(tx_hash(tx).hex().upper())
+    for h, hashes in by_height.items():
+        found, page = set(), 1
+        while True:
+            r = await HTTPClient(urls[h % len(urls)]).call(
+                "tx_search", query=f"tx.height={h}", page=str(page),
+                per_page="100")
+            calls["tx_search"] += 1
+            found |= {t["hash"] for t in r["txs"]}
+            if len(found) >= int(r["total_count"]) or not r["txs"]:
+                break
+            page += 1
+        if not hashes <= found:
+            raise AssertionError(f"16d: tx_search tx.height={h} misses "
+                                 f"{len(hashes - found)} txs")
+    heights, page = set(), 1
+    while True:
+        r = await HTTPClient(urls[0]).call(
+            "block_search", query="block.height >= 1", page=str(page),
+            per_page="100")
+        calls["block_search"] += 1
+        heights |= {int(b["block"]["header"]["height"]) for b in r["blocks"]}
+        if len(heights) >= int(r["total_count"]) or not r["blocks"]:
+            break
+        page += 1
+    if not set(range(1, top + 1)) <= heights:
+        raise AssertionError(f"16d: block_search misses heights "
+                             f"{sorted(set(range(1, top + 1)) - heights)[:5]}")
+    # the WebSocket saw every height and every committed tx
+    ws_heights, ws_txs = set(), set()
+    while True:
+        try:
+            item = await extra["ws_blocks"].next(0.01)
+        except asyncio.TimeoutError:
+            break
+        ws_heights.add(int(item["data"]["value"]["block"]["header"]["height"]))
+    while True:
+        try:
+            item = await extra["ws_txs"].next(0.01)
+        except asyncio.TimeoutError:
+            break
+        ws_txs.add(base64.b64decode(item["data"]["value"]["tx"]))
+    # a block of more Tx events than the session's subscription holds
+    # cancels it (the JAX WsSession's buffer, EventBus.subscribe's, as
+    # the reference cancels a subscriber past its buffer): from that block
+    # on the WebSocket sees no Tx
+    cap = inspect.signature(EventBus.subscribe).parameters[
+        "out_capacity"].default
+    per_block = {h: len(nodes[0].block_store.load_block(h).data.txs)
+                 for h in range(1, top + 1)}
+    over = [h for h in sorted(per_block) if per_block[h] > cap]
+    seen_before = {tx for tx, h in where.items() if not over or h < over[0]}
+    if not set(range(1, top + 1)) <= ws_heights or \
+            not seen_before <= ws_txs or not ws_txs <= set(where):
+        raise AssertionError(f"16d: the WebSocket saw {len(ws_heights)} of "
+                             f"{top} heights, {len(ws_txs)} of {len(where)} "
+                             f"txs")
+    rep = await loadtime.report(urls[0], exp)
+    calls["report"] = rep.heights + 1
+    if rep.latency.count != len(want):
+        raise AssertionError(f"16d: report counts {rep.latency.count}, "
+                             f"{len(want)} committed")
+    return {"load": res, "report": rep, "want": len(want), "calls": calls,
+            "ws_txs": len(ws_txs), "ws_cut": (over[0], per_block[over[0]],
+                                              cap) if over else None,
+            "max_block": max(per_block.values()),
+            "done_s": done_s, "tx_top": top, "commit_answers": answers}
+
+
+def _rpc_phases(seed, card, keep, device=None):
+    """Phases 16a-16e: privval and the JSON-RPC (privval/, indexer/, rpc/,
+    light/provider.HttpProvider, statesync/syncer.new_rpc_state_provider,
+    tools/loadtime.generate / report) over 15a's source.  Returns B1's
+    launches by part and B2's."""
+    import tempfile
+    from cometbft_tpu_torch.config import RPCConfig
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    from cometbft_tpu_torch.privval.file import FilePV
+    from cometbft_tpu_torch.privval.signer import (
+        RetrySignerClient, SignerClient, SignerListenerEndpoint)
+    from cometbft_tpu_torch.rpc.server import RPCServer
+    t_phase = time.perf_counter()
+    src, n, top = keep["ss_src"], EXEC_VALIDATORS, SS_HEIGHTS
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    tmp = tempfile.TemporaryDirectory()
+    sig = {"dir": tmp.name, "proc": None}
+    servers = []
+    try:
+        # validator 0's signer process starts first (torch's import and the
+        # host ed25519 library's load), and dials in while 16a-16b run
+        key0 = Ed25519PrivKey(_seed(seed + 160, 0))
+        sig["key_file"] = os.path.join(tmp.name, "signer_key.json")
+        sig["state_file"] = os.path.join(tmp.name, "signer_state.json")
+        FilePV(key0, sig["key_file"], sig["state_file"]).save()
+        ep = SignerListenerEndpoint("tcp://127.0.0.1:0")
+        real_on_connect = ep._on_connect
+
+        async def on_connect(reader, writer):
+            sig.setdefault("connected", []).append(time.perf_counter())
+            await real_on_connect(reader, writer)
+        ep._on_connect = on_connect
+        loop.run_until_complete(ep.start())
+        sig["t0"] = time.perf_counter()
+        sig["proc"] = _signer_proc(ep.listen_addr, "privval-chip",
+                                   sig["key_file"], sig["state_file"])
+        sig["ep"] = ep
+        for _ in range(2):
+            srv = RPCServer(_StoreNode(src["chain"]),
+                            RPCConfig(laddr="tcp://127.0.0.1:0"))
+            loop.run_until_complete(srv.start())
+            servers.append(srv)
+        urls = [f"http://127.0.0.1:{s.port}" for s in servers]
+        with _RpcCount(servers) as count:
+            light = _rpc_light(seed, card, ek, tracing, device, loop, src,
+                               urls, count)
+            ss = _rpc_statesync(seed, card, ek, oe, device, loop, src, keep,
+                                urls, count)
+        reject_lines, reject, reject8 = _rpc_reject(
+            seed, card, ek, ek8, oe, device, loop, src, servers, urls)
+        for srv in servers:
+            loop.run_until_complete(srv.stop())
+        servers = []
+        loop.run_until_complete(ep.wait_for_signer(120))
+        client = RetrySignerClient(SignerClient(ep, "privval-chip"))
+        loop.run_until_complete(client.fetch_pub_key())
+        if client.get_pub_key() != key0.pub_key():
+            raise AssertionError("16c: the signer serves another key")
+        sig["client"] = client
+        pv_launches, extra, signer_lines = _privval_net(
+            seed, card, ek, tracing, device, loop, sig)
+        _phase(f"16d rpc-tx-{PV_VALIDATORS}x{RPC_TX_HEIGHTS}: 16c's net, "
+               f"each node with an RPCServer, kv indexers and an "
+               f"IndexerService; loadtime.generate {RPC_LOAD_RATE} tx/s of "
+               f"{RPC_TX_BYTES}-byte payloads over HTTP (broadcast_tx_async, "
+               f"round-robin) for {RPC_LOAD_SECONDS:.0f} s, "
+               f"{RPC_COMMIT_TXS} broadcast_tx_commit, a WebSocket on "
+               f"NewBlock and Tx, then report over RPC")
+        res, rep = extra["load"], extra["report"]
+        lat = rep.latency
+        _log(f"rpc_tx_{PV_VALIDATORS}x{RPC_TX_HEIGHTS} generate sent "
+             f"{res.sent} (acked {res.accepted}, errors {res.errors}, "
+             f"dropped {res.dropped}) in {res.duration_s:.2f} s; "
+             f"{extra['want']} txs committed by height {extra['tx_top']}, "
+             f"{extra['want'] / extra['done_s']:.1f} tx/s from the first "
+             f"send to the last pool drained ({extra['done_s']:.2f} s); "
+             f"report: latency p50 {lat.p50_s * 1e3:.1f} ms, p90 "
+             f"{lat.p90_s * 1e3:.1f} ms, max {lat.max_s * 1e3:.1f} ms over "
+             f"{lat.count} txs, {rep.heights} heights, block interval p50 "
+             f"{rep.block_interval.p50_s * 1e3:.1f} ms; RPC calls "
+             f"{dict(extra['calls'])} plus {res.sent} broadcast_tx_async and "
+             f"{RPC_COMMIT_TXS} broadcast_tx_commit; card: {card}")
+        cut = extra["ws_cut"]
+        ws = ("every committed tx" if cut is None else
+              f"every tx committed before height {cut[0]}, whose {cut[1]} "
+              f"Tx events overflowed its subscription's {cut[2]} and "
+              f"canceled it, as the JAX and reference servers cancel a "
+              f"subscriber past its buffer ({extra['ws_txs']} txs seen)")
+        _log(f"rpc_tx_{PV_VALIDATORS}x{RPC_TX_HEIGHTS} gates held: every "
+             f"acknowledged tx found by /tx and by tx_search tx.height=H at "
+             f"its block's height (the largest block {extra['max_block']} "
+             f"txs), block_search finds every height, the WebSocket saw "
+             f"every height and {ws}, report's count is the txs committed")
+        _phase(f"16e rpc-reject (run before 16c, and after it for the "
+               f"signer): a lying server's commit at {SS_TRUST + 5} (one "
+               f"signature bit) under B1 and cuda8; a witness forking {top}; "
+               f"the unsafe routes, an unknown method, a bad parameter, a "
+               f"body over max_body_bytes, the lightserve routes; a raising "
+               f"stand-in kernel under an HTTP hop; the signer gone")
+        for line in reject_lines + signer_lines:
+            _log(f"rpc_reject {line}")
+        _log(f"rpc_reject all {len(reject_lines) + len(signer_lines)} "
+             f"outcomes as the JAX package decides them; card: {card}")
+    finally:
+        for srv in servers:
+            loop.run_until_complete(srv.stop())
+        if sig.get("proc") is not None and sig["proc"].poll() is None:
+            sig["proc"].kill()
+            sig["proc"].wait(30)
+        if "ep" in sig:
+            loop.run_until_complete(sig["ep"].stop())
+        logging.disable(logging.NOTSET)
+        loop.close()
+        tmp.cleanup()
+    _log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return ({f"rpc_light_{n}x{top}": light,
+             f"rpc_statesync_{n}x{top}": ss,
+             f"privval_{PV_VALIDATORS}x{PV_HEIGHTS}": pv_launches,
+             f"rpc_tx_{PV_VALIDATORS}x{RPC_TX_HEIGHTS}":
+                 extra["tx_launches"],
+             "rpc_reject": reject},
+            {"rpc_reject_cuda8": reject8})
 
 
 def main() -> int:
@@ -6861,6 +8078,7 @@ def main() -> int:
     p2p_launches = _p2p_phases(args.seed, card, keep)
     sync_launches, sync_launches8 = _sync_phases(args.seed, card, keep)
     ss_launches, ss_launches8 = _statesync_phases(args.seed, card, keep)
+    rpc_launches, rpc_launches8 = _rpc_phases(args.seed, card, keep)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -6881,7 +8099,8 @@ def main() -> int:
                                 if k != "vote_burst_cuda8"},
                              **light_launches, **exec_launches,
                              **cs_launches, **p2p_launches,
-                             **sync_launches, **ss_launches},
+                             **sync_launches, **ss_launches,
+                             **rpc_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -6910,7 +8129,7 @@ def main() -> int:
                                  vote_launches["vote_burst_cuda8"],
                              **light_launches8, **exec_launches8,
                              **cs_launches8, **sync_launches8,
-                             **ss_launches8},
+                             **ss_launches8, **rpc_launches8},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

@@ -1,16 +1,17 @@
-"""Node configuration: the consensus, p2p, mempool, block-sync, state-sync
-and storage sections.
+"""Node configuration: the consensus, RPC, p2p, mempool, block-sync,
+state-sync and storage sections.
 
 Reference: config/config.go — P2PConfig (:588), MempoolConfig,
 StateSyncConfig, BlockSyncConfig, ConsensusConfig (:1218), StorageConfig
 and TestConfig (:128) — through cometbft_tpu/config.py, whose
 ``ConsensusConfig`` (:173-234) and the consensus part of ``test_config``
 (:411-417) this copy keeps, with the same field names, defaults and
-timeout arithmetic, and of whose ``P2PConfig`` (:86-104),
+timeout arithmetic, and of whose ``RPCConfig`` (:55-69),
+``P2PConfig`` (:86-104),
 ``MempoolConfig`` (:108-152), ``StateSyncConfig`` (:155-164),
 ``BlockSyncConfig`` (:168) and ``StorageConfig`` (:238-240) it keeps the
 fields the port reads, with their defaults.  The other sections (base,
-RPC, instrumentation) come with the node, ROADMAP.md A.7e-6.
+gRPC, instrumentation) come with the node, ROADMAP.md A.7e-6.
 """
 from __future__ import annotations
 
@@ -18,6 +19,21 @@ from dataclasses import dataclass, field
 
 _MS = 1_000_000
 _S = 1_000_000_000
+
+
+@dataclass
+class RPCConfig:
+    """What rpc/server.RPCServer and rpc/core's routes read, with the JAX
+    defaults: the listen address, the limits on connections, header and
+    body bytes, broadcast_tx_commit's wait and the unsafe routes' gate.
+    The subscription limits and the lightserve cache's budget come with
+    their readers (the latter with A.7b')."""
+    laddr: str = "tcp://127.0.0.1:26657"
+    max_open_connections: int = 900
+    timeout_broadcast_tx_commit_ns: int = 10 * _S
+    max_body_bytes: int = 1_000_000
+    max_header_bytes: int = 1 << 20
+    unsafe: bool = False
 
 
 @dataclass
@@ -143,8 +159,9 @@ class StorageConfig:
 
 @dataclass
 class Config:
-    """The configuration tree, holding its p2p, mempool, state-sync,
+    """The configuration tree, holding its RPC, p2p, mempool, state-sync,
     block-sync, consensus and storage sections."""
+    rpc: RPCConfig = field(default_factory=RPCConfig)
     p2p: P2PConfig = field(default_factory=P2PConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     statesync: StateSyncConfig = field(default_factory=StateSyncConfig)

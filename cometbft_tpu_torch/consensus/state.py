@@ -750,6 +750,10 @@ class ConsensusState:
         self.wal.write({"type": "round_state",
                         **self.rs.event_summary()})
         self.n_steps += 1
+        # height context first and unconditionally: other categories
+        # (crypto/p2p/abci) rely on it even when the consensus
+        # category itself is filtered out
+        tracing.set_height(self.rs.height)
         if tracing.enabled(tracing.CONSENSUS):
             self._trace_step_transition()
         self.event_bus.publish_new_round_step(self.rs.event_summary())

@@ -7,8 +7,8 @@ escaping, and one process-global registry, ``DEFAULT``, that the
 verification path records into (it has no node to hand it a registry).
 Family names and help strings are the reference's, so the rendered text
 reads the same.  Not kept: exemplars, the label-cardinality ceiling
-(the port's label values come from a closed set), ``collect`` and
-``render_merged``.
+(the port's label values come from a closed set) and ``collect``;
+``render_merged`` renders the text format only.
 """
 from __future__ import annotations
 
@@ -246,6 +246,23 @@ class Registry:
 
     def render(self) -> str:
         return "\n".join(m.render() for m in self.families()) + "\n"
+
+
+def render_merged(*registries: Registry) -> str:
+    """One exposition page over several registries (node registry first,
+    then the process-global DEFAULT); a family name already emitted is
+    skipped so the page never carries duplicate TYPE lines."""
+    seen: set[str] = set()
+    out: list[str] = []
+    for reg in registries:
+        if reg is None:
+            continue
+        for m in reg.families():
+            if m.name in seen:
+                continue
+            seen.add(m.name)
+            out.append(m.render())
+    return "\n".join(out) + "\n"
 
 
 # The process-global registry that the verification path records into.

@@ -504,10 +504,12 @@ class BlockExecutor:
         bus = self.event_bus
         bus.publish_new_block(block, block_id, abci_response)
         bus.publish_new_block_header(block.header)
-        if abci_response.events:
-            bus.publish_new_block_events(block.header.height,
-                                         abci_response.events,
-                                         len(block.data.txs))
+        # every height, events or none (reference: execution.go
+        # fireEvents), so the block indexer can find every height; the
+        # JAX executor publishes only when FinalizeBlock returned events
+        bus.publish_new_block_events(block.header.height,
+                                     abci_response.events,
+                                     len(block.data.txs))
         for ev in block.evidence:
             bus.publish_new_evidence(ev, block.header.height)
         for i, tx in enumerate(block.data.txs):

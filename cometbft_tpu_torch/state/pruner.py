@@ -1,14 +1,14 @@
 """Pruner: background service driving block and state pruning.
 
-Reference: state/pruner.go — the application's retain height (set via the
-Commit response's retain_height), persisted so it survives restarts; the
-service prunes up to it on an interval.  A copy of
-cometbft_tpu/state/pruner.py with the companion disabled: the same db
-rows and texts.  The data companion's knobs (its block retain
-height and the ABCI-results, tx- and block-indexer retain heights that
-the pruning RPC service sets) come with that service and the indexers,
-ROADMAP A.7e-5.  The pruner touches no kernel, so its loop keeps the
-reference's log-and-retry.
+Reference: state/pruner.go — two retain-height knobs, the application's
+(set via the Commit response's retain_height) and the data companion's
+(set over the pruning RPC routes, which also switch the companion on);
+the service prunes up to the MINIMUM of the enabled knobs on an
+interval.  Retain heights are persisted so they survive restarts.  A
+copy of cometbft_tpu/state/pruner.py: the same db rows and texts.  The
+ABCI-results, tx- and block-indexer retain heights are set only by the
+gRPC pruning service, and come with it (ROADMAP A.7e-5b).  The pruner
+touches no kernel, so its loop keeps the reference's log-and-retry.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from typing import Optional
 from ..libs.log import Logger, new_logger
 
 _APP_RETAIN_KEY = b"prune/app_retain_height"
+_COMPANION_RETAIN_KEY = b"prune/companion_retain_height"
 
 
 class Pruner:
@@ -33,6 +34,8 @@ class Pruner:
         self.block_store = block_store
         self._db = db                       # persistence for retain heights
         self.interval_s = interval_s
+        # switched on by the pruning RPC routes (rpc/core.py)
+        self.companion_enabled = False
         self.logger = logger or new_logger("pruner")
         self._task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
@@ -57,8 +60,35 @@ class Pruner:
         self.metrics.application_block_retain_height.set(height)
         self._wake.set()
 
+    def set_companion_retain_height(self, height: int) -> None:
+        """Reference: SetCompanionBlockRetainHeight (pruning RPC)."""
+        if height <= 0:
+            raise ValueError("retain height must be positive")
+        if height > self.block_store.height:
+            raise ValueError("retain height beyond store height")
+        if height < self._get(_COMPANION_RETAIN_KEY):
+            raise ValueError("retain height cannot move backwards")
+        self._set(_COMPANION_RETAIN_KEY, height)
+        self._wake.set()
+        self.metrics.pruning_service_block_retain_height.set(height)
+
     def get_application_retain_height(self) -> int:
         return self._get(_APP_RETAIN_KEY)
+
+    def get_companion_retain_height(self) -> int:
+        return self._get(_COMPANION_RETAIN_KEY)
+
+    def effective_retain_height(self) -> int:
+        """min of the enabled knobs (reference: findMinRetainHeight).
+        With the companion enabled, nothing is pruned until BOTH knobs
+        have been set — the companion must explicitly release data."""
+        app = self._get(_APP_RETAIN_KEY)
+        if not self.companion_enabled:
+            return app
+        comp = self._get(_COMPANION_RETAIN_KEY)
+        if app == 0 or comp == 0:
+            return 0
+        return min(app, comp)
 
     # -- service -----------------------------------------------------------
     async def start(self) -> None:
@@ -90,7 +120,7 @@ class Pruner:
 
     def prune_once(self) -> tuple[int, int]:
         """One pruning pass; returns (blocks_pruned, new_base)."""
-        retain = self.get_application_retain_height()
+        retain = self.effective_retain_height()
         # a buggy app can return a retain height beyond the chain tip;
         # clamp instead of erroring forever (prune_blocks would raise)
         retain = min(retain, self.block_store.height)

@@ -359,16 +359,28 @@ class Syncer:
 async def new_rpc_state_provider(chain_id: str, genesis_doc,
                                  servers: list[str],
                                  trust_height: int, trust_hash: bytes,
-                                 trust_period_ns: int = 168 * 3600 * 10**9
-                                 ) -> StateProvider:
-    """StateProvider backed by a light client over RPC servers
+                                 trust_period_ns: int = 168 * 3600 * 10**9,
+                                 device=None) -> StateProvider:
+    """StateProvider backed by a light client over real RPC servers
     (reference: stateprovider.go:29 NewLightClientStateProvider — the
-    config.statesync rpc_servers + trust height/hash path).  It needs the
-    light client's HttpProvider, which comes with the RPC client (ROADMAP
-    A.7e-5); until then build the light ``Client`` over other providers
-    (``light.provider.NodeProvider``) and pass it to ``StateProvider``."""
+    config.statesync rpc_servers + trust height/hash path).  The first
+    server is the primary, the rest are witnesses.  The light client
+    resolves ``device`` as the port does (None is the card), so each
+    light block it verifies runs on B1 unless the caller asks for the
+    CPU."""
+    from ..db.db import MemDB
+    from ..light.client import Client as LightClient, TrustOptions
+    from ..light.provider import HttpProvider
+    from ..light.store import TrustedStore
+
     if not servers:
         raise StatesyncError("statesync needs at least one RPC server")
-    raise NotImplementedError(
-        "the RPC state provider needs the light client's HttpProvider, "
-        "which is not ported yet (ROADMAP A.7e-5)")
+    providers = [HttpProvider(addr, chain_id) for addr in servers]
+    client = LightClient(
+        chain_id,
+        TrustOptions(period_ns=trust_period_ns, height=trust_height,
+                     header_hash=trust_hash),
+        providers[0], providers[1:], TrustedStore(MemDB()),
+        device=device)
+    await client.initialize()
+    return StateProvider(client, chain_id, genesis_doc)

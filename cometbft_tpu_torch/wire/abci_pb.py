@@ -3,8 +3,8 @@ and the results hash covers.
 
 The port's trimmed copy of cometbft_tpu/wire/abci_pb.py (which mirrors
 the reference's proto/cometbft/abci/v2/types.proto): ``ExecTxResult``
-(the leaves of LastResultsHash) and ``FinalizeBlockResponse`` with what
-it nests.  The socket protocol's Request/Response envelope waits for the
+(the leaves of LastResultsHash), ``TxResult`` (the kv tx indexer's
+records) and ``FinalizeBlockResponse`` with what it nests.  The socket protocol's Request/Response envelope waits for the
 socket client (ROADMAP A.7e).
 """
 from .proto import F, Msg
@@ -37,6 +37,14 @@ EXEC_TX_RESULT = Msg(
     # upstream fields): app-reported state keys for the mempool's
     # incremental recheck; outside the results hash like log and events
     F(100, "recheck_keys", "bytes", repeated=True),
+)
+
+TX_RESULT = Msg(
+    "cometbft.abci.v2.TxResult",
+    F(1, "height", "int64"),
+    F(2, "index", "uint32"),
+    F(3, "tx", "bytes"),
+    F(4, "result", "msg", msg=EXEC_TX_RESULT, always=True),
 )
 
 VALIDATOR_UPDATE = Msg(

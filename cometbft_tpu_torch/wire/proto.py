@@ -343,3 +343,12 @@ def marshal_delimited(desc: Msg, d: dict) -> bytes:
     body = encode(desc, d)
     return encode_uvarint(len(body)) + body
 
+
+def unmarshal_delimited(desc: Msg, data: bytes) -> tuple[dict, int]:
+    """Decode one length-prefixed message; returns (msg, bytes consumed)."""
+    ln, pos = decode_uvarint(data, 0)
+    raw = data[pos:pos + ln]
+    if len(raw) != ln:
+        raise ValueError("truncated delimited message")
+    return decode(desc, raw), pos + ln
+

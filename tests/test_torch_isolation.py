@@ -11,12 +11,17 @@
     reactor and metrics, the node provider and the load generator's
     payloads; state sync's syncer, reactor and metrics, the pruner and
     rollback, with the stores, the state tree and the kvstore they
-    extend) loads neither jax nor anything of cometbft_tpu;
+    extend; privval's FilePV and remote signer, the kv indexers and
+    their service, the RPC server, routes, WebSocket and client, the
+    HTTP provider, the RPC state provider, the load generator and the
+    flight recorder the trace route reads) loads neither jax nor
+    anything of cometbft_tpu;
   * importing the p2p stack and the reactor, and running a secret
     connection's handshake, loads no ``cryptography`` either: the port
     seals every frame in its own host library;
   * the entry points resolve ``device=None`` to CUDA and raise where
-    CUDA is absent — no silent CPU fallback;
+    CUDA is absent — no silent CPU fallback; a light client over
+    HttpProviders and ``new_rpc_state_provider`` included;
   * the kernel wrapper rejects wrong dtypes, shapes, devices and
     layouts before any pointer reaches native code.
 """
@@ -82,6 +87,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert set(P2P_MODULES) <= set(mods)
     assert set(SYNC_MODULES) <= set(mods)
     assert set(STATESYNC_MODULES) <= set(mods)
+    assert set(RPC_MODULES) <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -138,6 +144,46 @@ STATESYNC_MODULES = ("cometbft_tpu_torch.statesync",
                      "cometbft_tpu_torch.statetree.tree",
                      "cometbft_tpu_torch.abci.kvstore",
                      "cometbft_tpu_torch.config")
+
+
+RPC_MODULES = ("cometbft_tpu_torch.privval",
+               "cometbft_tpu_torch.privval.file",
+               "cometbft_tpu_torch.privval.signer",
+               "cometbft_tpu_torch.wire.privval_pb",
+               "cometbft_tpu_torch.crypto.encoding",
+               "cometbft_tpu_torch.indexer",
+               "cometbft_tpu_torch.indexer.kv",
+               "cometbft_tpu_torch.indexer.service",
+               "cometbft_tpu_torch.rpc",
+               "cometbft_tpu_torch.rpc.client",
+               "cometbft_tpu_torch.rpc.core",
+               "cometbft_tpu_torch.rpc.server",
+               "cometbft_tpu_torch.rpc.ws",
+               "cometbft_tpu_torch.light.provider",
+               "cometbft_tpu_torch.statesync.syncer",
+               "cometbft_tpu_torch.libs.tracing",
+               "cometbft_tpu_torch.libs.metrics",
+               "cometbft_tpu_torch.state.pruner",
+               "cometbft_tpu_torch.tools.loadtime",
+               "cometbft_tpu_torch.config")
+
+
+def test_privval_indexer_and_rpc_load_no_jax_or_reference():
+    """privval, the indexers, the RPC server, routes, WebSocket and
+    client, the HTTP provider, the RPC state provider and the load
+    generator, imported in a fresh interpreter, load nothing of jax, of
+    the JAX package or of ``cryptography``."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {RPC_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'cryptography'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_statesync_and_pruning_load_no_jax_or_reference():
@@ -311,6 +357,29 @@ def test_state_sync_raises_without_cuda():
                     device="cpu")
     assert StateProvider(client, "c", None).light_client.device == \
         torch.device("cpu")
+
+
+def test_rpc_light_client_and_state_provider_raise_without_cuda():
+    """A light client over HttpProviders and ``new_rpc_state_provider``
+    left at device=None raise where CUDA is absent, before any request
+    leaves; device="cpu" builds the client."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import asyncio
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.provider import HttpProvider
+    from cometbft_tpu_torch.light.store import TrustedStore
+    from cometbft_tpu_torch.statesync.syncer import new_rpc_state_provider
+    primary = HttpProvider("http://127.0.0.1:1", "c")
+    trust = TrustOptions(period_ns=10**9, height=1, header_hash=b"h" * 32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Client("c", trust, primary, [], TrustedStore(MemDB()))
+    assert Client("c", trust, primary, [], TrustedStore(MemDB()),
+                  device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        asyncio.run(new_rpc_state_provider(
+            "c", None, ["http://127.0.0.1:1"], 1, b"h" * 32))
 
 
 def _cols(n=4, dtype=torch.int32):

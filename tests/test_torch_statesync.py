@@ -715,14 +715,23 @@ def test_raising_kernel_surfaces_with_nothing_bootstrapped(chains,
 
 
 def test_rpc_state_provider_waits_for_the_http_provider():
+    """No server: the JAX text.  A server that refuses the connection:
+    the HttpProvider's error at the trust root, as the JAX package's (the
+    provider itself is held to the JAX one in test_torch_rpc.py)."""
     with pytest.raises(p_syncer.StatesyncError) as got:
         run(p_syncer.new_rpc_state_provider("c", None, [], 1, b"h"))
     with pytest.raises(r_syncer.StatesyncError) as want:
         run(r_syncer.new_rpc_state_provider("c", None, [], 1, b"h"))
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A.7e-5"):
-        run(p_syncer.new_rpc_state_provider("c", None, ["tcp://x:1"], 1,
-                                            b"h"))
+    outs = []
+    for call in (lambda: p_syncer.new_rpc_state_provider(
+            "c", None, ["http://127.0.0.1:1"], 1, b"h", device="cpu"),
+            lambda: r_syncer.new_rpc_state_provider(
+                "c", None, ["http://127.0.0.1:1"], 1, b"h")):
+        with pytest.raises(Exception) as e:
+            run(call())
+        outs.append((type(e.value).__name__, str(e.value)))
+    assert outs[0] == outs[1] and outs[0][0] == "ProviderError"
 
 
 # -- chip_smoke.py's phase 15, rehearsed ------------------------------------------
