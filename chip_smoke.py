@@ -171,10 +171,24 @@ against 13a's MockPV net, then loadtime over HTTP, broadcast_tx_commit
 and a WebSocket client with every tx found by /tx and tx_search; the
 signer killed and restarted from its files (a conflicting vote refused
 with the JAX text, a timestamp-only one given the stored signature); and
-the refusals: a lying server's commit (B1, then cuda8), a forked witness
-(divergence and evidence over broadcast_evidence), the unsafe routes, an
-unknown method, a bad parameter, a body over max_body_bytes, the
-lightserve routes, the signer gone, a raising stand-in kernel.
+the refusals: a lying server's light block and commit (B1, then cuda8),
+a forked witness (divergence and evidence over broadcast_evidence), the
+unsafe routes, an unknown method, a bad parameter, a body over
+max_body_bytes, bad lightserve parameters, the signer gone, a raising
+stand-in kernel.
+Phases 17a-17e drive the proof-serving light path (lightserve/, the
+state tree's prove and pins, light/state_proof, light/proxy) over 15a's
+source: 16a's syncs over servers serving light_block with a response
+cache (one round trip a light block, no /commit or /validators, B1's
+launches and lanes equal to NodeProvider's, a second client's pass
+served from the cache) against NodeProviders and servers without the
+lightserve routes; a proven abci_query_batch of 256 present and 16
+absent keys and multiproofs over a block's txs, checked against a header
+the light client verified on B1 (and under cuda8), tampered ones refused;
+a cached height kept provable past the tree's pruning horizon; the
+light proxy over the two servers, every answer held to the stores and a
+forged tx refused; and the repairs of ROADMAP C.1-C.4 on config 1's
+in-process net, an evidence reactor and an RPC server.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -183,6 +197,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import base64
 import collections
 import contextlib
 import hashlib
@@ -395,6 +410,14 @@ RPC_LOAD_SECONDS = 3.0    # 16d: the submission window
 RPC_TX_BYTES = 1024       # 16d: CometBFT's QA tx size
 RPC_COMMIT_TXS = 10       # 16d: txs sent by broadcast_tx_commit
 RPC_TX_HEIGHTS = 20       # 16d: the heights the net commits at least after 16c
+LS_VERSION = 100          # 17b: the tree version proven (header 101)
+LS_PRESENT = 256          # 17b: present keys a proven batch asks
+LS_ABSENT = 16            # 17b: absent keys beside them
+LS_MP_PICK = 16           # 17b: txs of one block a seeded multiproof proves
+LS_PIN = 60               # 17c: the cached height below the next horizon
+LS_PIN_HEIGHTS = 10       # 17c: the commits that move the horizon past it
+LS_PROXY_HEIGHTS = (92, 100, 105)   # 17d: commit and block through the proxy
+REPAIR_HEIGHTS = 3        # 17e: the heights config 1 commits past C.1-C.2
 
 
 def _mixed_kind(i: int) -> str:
@@ -6375,21 +6398,29 @@ def _statesync_phases(seed, card, keep, device=None):
 
 
 class _StoreNode:
-    """A chain's stores behind an RPCServer, with the JAX Node's attribute
-    names (rpc/core reads them); parts a store server lacks are None, so
-    the routes that need them answer as a JAX node without them."""
+    """A chain's stores and app connections behind an RPCServer, with the
+    JAX Node's attribute names (rpc/core reads them); parts a store server
+    lacks are None, so the routes that need them answer as a JAX node
+    without them.  With ``cache`` (a lightserve ResponseCache) the routes
+    serve settled heights from it, and the chain's kvstore keeps the
+    cached heights' tree versions past its pruning horizon, as the JAX
+    Node wires them (cometbft_tpu/node/node.py:190-206)."""
 
     moniker = "anonymous"
-    mempool = consensus_state = switch = event_bus = app_conns = None
+    mempool = consensus_state = switch = event_bus = None
     tx_indexer = block_indexer = pruner = None
     consensus_reactor = blocksync_reactor = None
 
-    def __init__(self, chain, evidence_pool=None):
+    def __init__(self, chain, evidence_pool=None, cache=None):
         from cometbft_tpu_torch.config import Config
         self.block_store, self.state_store = chain.block_store, \
             chain.state_store
         self.genesis_doc, self.config = chain.doc, Config()
+        self.app_conns = chain.conns
         self.evidence_pool = evidence_pool
+        self.lightserve_cache = cache
+        if cache is not None:
+            chain.app.version_pin = cache.heights
 
 
 class _RpcCount:
@@ -6452,6 +6483,29 @@ def _rpc_light_client(chain, device, primary, witnesses, mode):
                   verification_mode=mode, device=device)
 
 
+async def _light_sync(chain, device, ek, providers, mode, top):
+    """A light client over ``providers`` (primary first) from the trust
+    root SS_TRUST to ``top``: every height sequentially, or ``top`` alone
+    skipping.  Returns (client, ms a hop, B1 launches, the loop's longest
+    stall in seconds)."""
+    from cometbft_tpu_torch.light.client import SEQUENTIAL
+    lc = _rpc_light_client(chain, device, providers[0], providers[1:], mode)
+    await lc.initialize()
+    gap, ms, l0 = _LoopGap(), [], ek.launches
+    gap_task = asyncio.ensure_future(gap.run())
+    try:
+        heights = range(SS_TRUST + 1, top + 1) if mode == SEQUENTIAL \
+            else [top]
+        for h in heights:
+            t = time.perf_counter()
+            await lc.verify_light_block_at_height(h)
+            ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        gap.stop = True
+        await gap_task
+    return lc, ms, ek.launches - l0, gap.worst
+
+
 def _unproposed(vals) -> bytes:
     """A validator set's bytes but its proposer, which /validators does
     not carry (the codec derives it as the reference's
@@ -6462,6 +6516,30 @@ def _unproposed(vals) -> bytes:
     return encode(pb.VALIDATOR_SET, d)
 
 
+async def _stored_light_blocks(chain, provider, count, what):
+    """Fetch every light block from the trust root to the top through
+    ``provider``, each held to the stores' own (signed header bytes, the
+    validator set's but its proposer, its hash the header's); returns the
+    (calls, response bytes) of each fetch."""
+    from cometbft_tpu_torch.light.provider import NodeProvider
+    from cometbft_tpu_torch.wire import encode, pb
+    npv = NodeProvider(chain.block_store, chain.state_store, chain.chain_id)
+    per = []
+    for h in range(SS_TRUST, SS_HEIGHTS + 1):
+        got = await provider.light_block(h)
+        per.append(count.take())
+        want = await npv.light_block(h)
+        if encode(pb.SIGNED_HEADER, got.signed_header.to_proto()) != \
+                encode(pb.SIGNED_HEADER, want.signed_header.to_proto()) \
+                or _unproposed(got.validator_set) != \
+                _unproposed(want.validator_set) or \
+                got.validator_set.hash() != \
+                want.signed_header.header.validators_hash:
+            raise AssertionError(f"{what}: the light block at {h} over "
+                                 f"HTTP != the stores' own")
+    return per
+
+
 def _rpc_light(seed, card, ek, tracing, device, loop, src, urls, count):
     """16a rpc-light-150x105: a light client over two RPC servers (primary
     and witness, HttpProviders) from the trust root to the source's top,
@@ -6470,7 +6548,6 @@ def _rpc_light(seed, card, ek, tracing, device, loop, src, urls, count):
     Returns B1's launches over HTTP."""
     from cometbft_tpu_torch.light.client import SEQUENTIAL, SKIPPING
     from cometbft_tpu_torch.light.provider import HttpProvider, NodeProvider
-    from cometbft_tpu_torch.wire import encode, pb
     chain, n, top = src["chain"], EXEC_VALIDATORS, SS_HEIGHTS
     _phase(f"16a rpc-light-{n}x{top}: a light client over two RPCServers on "
            f"127.0.0.1 (primary and witness) serving the {n}-validator "
@@ -6488,21 +6565,8 @@ def _rpc_light(seed, card, ek, tracing, device, loop, src, urls, count):
         return HttpProvider(url, chain.chain_id)
 
     async def sync(make, mode):
-        lc = _rpc_light_client(chain, device, make(0), [make(1)], mode)
-        await lc.initialize()
-        gap, ms, l0 = _LoopGap(), [], ek.launches
-        gap_task = asyncio.ensure_future(gap.run())
-        try:
-            heights = range(SS_TRUST + 1, top + 1) if mode == SEQUENTIAL \
-                else [top]
-            for h in heights:
-                t = time.perf_counter()
-                await lc.verify_light_block_at_height(h)
-                ms.append((time.perf_counter() - t) * 1e3)
-        finally:
-            gap.stop = True
-            await gap_task
-        return lc, ms, ek.launches - l0, gap.worst
+        return await _light_sync(chain, device, ek, [make(0), make(1)],
+                                 mode, top)
 
     def http(i):
         return http_provider(urls[i])
@@ -6524,20 +6588,8 @@ def _rpc_light(seed, card, ek, tracing, device, loop, src, urls, count):
                 if ev["name"] == "batch_verify"]
             out[("rpc", mode)] = count.take()
         # the codec's round trip: each light block over HTTP as stored
-        per, prov, npv = [], http_provider(urls[0]), node_provider()
-        for h in range(SS_TRUST, top + 1):
-            got = await prov.light_block(h)
-            per.append(count.take())
-            want = await npv.light_block(h)
-            if encode(pb.SIGNED_HEADER, got.signed_header.to_proto()) != \
-                    encode(pb.SIGNED_HEADER, want.signed_header.to_proto()) \
-                    or _unproposed(got.validator_set) != \
-                    _unproposed(want.validator_set) or \
-                    got.validator_set.hash() != \
-                    want.signed_header.header.validators_hash:
-                raise AssertionError(f"16a: the light block at {h} over "
-                                     f"HTTP != the stores' own")
-        out["per_block"] = per
+        out["per_block"] = await _stored_light_blocks(
+            chain, http_provider(urls[0]), count, "16a")
 
     loop.run_until_complete(run())
     want_hash = chain.block_store.load_block_meta(top).block_id.hash
@@ -6750,23 +6802,35 @@ def _rpc_reject(seed, card, ek, ek8, oe, device, loop, src, servers, urls):
         patch(srv)
         return srv
 
+    def flip(commit_json):
+        sig = commit_json["signatures"][0]
+        raw = base64.b64decode(sig["signature"])
+        sig["signature"] = base64.b64encode(bytes([raw[0] ^ 1]) +
+                                            raw[1:]).decode()
+
     def lie(srv):
-        real = srv.routes["commit"]
+        # both routes a light block comes by: light_block, and /commit of
+        # the fallback
+        real, real_lb = srv.routes["commit"], srv.routes["light_block"]
 
         async def commit(height="0"):
             res = await real(height=height)
             if int(height) == lie_h:
-                sig = res["signed_header"]["commit"]["signatures"][0]
-                raw = base64.b64decode(sig["signature"])
-                sig["signature"] = base64.b64encode(
-                    bytes([raw[0] ^ 1]) + raw[1:]).decode()
+                flip(res["signed_header"]["commit"])
+            return res
+
+        async def light_block(height="0"):
+            res = await real_lb(height=height)
+            if int(height) == lie_h:
+                flip(res["light_block"]["signed_header"]["commit"])
             return res
         srv.routes["commit"] = commit
+        srv.routes["light_block"] = light_block
 
     fork_header, fork_commit = _forked_header(chain, top)
 
     def fork(srv):
-        real = srv.routes["commit"]
+        real, real_lb = srv.routes["commit"], srv.routes["light_block"]
 
         async def commit(height="0"):
             if int(height) == top:
@@ -6775,7 +6839,16 @@ def _rpc_reject(seed, card, ek, ek8, oe, device, loop, src, servers, urls):
                     "commit": rpc_core._commit_json(fork_commit)},
                     "canonical": True}
             return await real(height=height)
+
+        async def light_block(height="0"):
+            res = await real_lb(height=height)
+            if int(height) == top:
+                res["light_block"]["signed_header"] = {
+                    "header": rpc_core._header_json(fork_header),
+                    "commit": rpc_core._commit_json(fork_commit)}
+            return res
         srv.routes["commit"] = commit
+        srv.routes["light_block"] = light_block
 
     async def http_sync(primary_url, witness_urls, mode, height):
         lc = _rpc_light_client(chain, device,
@@ -6864,8 +6937,13 @@ def _rpc_reject(seed, card, ek, ek8, oe, device, loop, src, servers, urls):
             # when the unread body is still in flight
             out["body"] = f"{type(e).__name__} {str(e)!r}"
         out["lightserve"] = [
-            await expect_rpc(cli.call(m), -32601, "Method not found")
-            for m in ("light_block", "multiproof", "abci_query_batch")]
+            await expect_rpc(cli.call("light_block", height=str(top + 50)),
+                             -32603, f"no light block at height {top + 50}"),
+            await expect_rpc(cli.call("multiproof", height=str(top),
+                                      indices="x"),
+                             -32602, "invalid indices 'x'"),
+            await expect_rpc(cli.call("abci_query_batch", data=""), -32602,
+                             "no keys provided")]
         # (viii) a raising stand-in kernel under an HTTP hop
         real_kernel = ek.verify_cols
 
@@ -6920,8 +6998,8 @@ def _rpc_reject(seed, card, ek, ek8, oe, device, loop, src, servers, urls):
     lines.append(f"a body over max_body_bytes "
                  f"({primary.config.max_body_bytes} bytes): the connection "
                  f"closed unanswered, the client raised {out['body']}")
-    lines.append("light_block, multiproof, abci_query_batch: -32601 Method "
-                 "not found each (lightserve waits for A.7b')")
+    lines.append(f"light_block above the top, multiproof with indices 'x', "
+                 f"abci_query_batch with no keys: {out['lightserve']!r}")
     r = out["raising"]
     if not isinstance(r, RuntimeError) or \
             str(r) != "stand-in kernel failure (16e)":
@@ -7484,6 +7562,736 @@ def _rpc_phases(seed, card, keep, device=None):
                  extra["tx_launches"],
              "rpc_reject": reject},
             {"rpc_reject_cuda8": reject8})
+
+
+LIGHTSERVE_ROUTES = ("light_block", "multiproof", "abci_query_batch")
+
+
+def _ls_servers(loop, chain, lightserve=True):
+    """Primary and witness RPCServers over the source's stores.  With
+    ``lightserve`` each keeps a ResponseCache of the JAX default budget
+    (the JAX Node's wiring) and the source's kvstore pins the heights
+    either cache holds; without, the route table lacks the three
+    lightserve routes (a server from before them: HttpProvider falls back
+    to /commit and paged /validators)."""
+    from cometbft_tpu_torch.config import RPCConfig
+    from cometbft_tpu_torch.lightserve import ResponseCache
+    from cometbft_tpu_torch.rpc import core as rpc_core
+    from cometbft_tpu_torch.rpc.server import RPCServer
+    servers = []
+    for _ in range(2):
+        if lightserve:
+            node = _StoreNode(chain, cache=ResponseCache(
+                RPCConfig().cache_max_bytes))
+            routes = None
+        else:
+            node = _StoreNode(chain)
+            routes = {k: v for k, v in rpc_core.routes(
+                rpc_core.Environment(node)).items()
+                if k not in LIGHTSERVE_ROUTES}
+        srv = RPCServer(node, RPCConfig(laddr="tcp://127.0.0.1:0"),
+                        routes=routes)
+        loop.run_until_complete(srv.start())
+        servers.append(srv)
+    if lightserve:
+        caches = [srv.node.lightserve_cache for srv in servers]
+        chain.app.version_pin = lambda: set().union(
+            *(c.heights() for c in caches))
+    return servers
+
+
+def _ls_cache_stats(servers):
+    return {k: sum(srv.node.lightserve_cache.stats()[k] for srv in servers)
+            for k in ("hits", "misses", "entries", "bytes", "evictions")}
+
+
+def _ls_light(card, ek, tracing, device, loop, src, servers, fallback):
+    """17a rpc-lightserve: 16a's syncs from the trust root to the top over
+    servers that serve light_block, against NodeProviders and against
+    servers without the lightserve routes, in one run; then a second
+    client's pass over the lightserve servers.  Returns B1's launches
+    over the lightserve servers."""
+    from cometbft_tpu_torch.light.client import SEQUENTIAL, SKIPPING
+    from cometbft_tpu_torch.light.provider import HttpProvider, NodeProvider
+    chain, n, top = src["chain"], EXEC_VALIDATORS, SS_HEIGHTS
+    _phase(f"17a rpc-lightserve-{n}x{top}: 16a's syncs from the trust root "
+           f"{SS_TRUST} to {top} ({top - SS_TRUST} sequential hops, one "
+           f"skip) over two RPCServers serving light_block with a response "
+           f"cache, against NodeProviders and against two servers without "
+           f"the lightserve routes; then a second client's pass")
+    urls = {via: [f"http://127.0.0.1:{s.port}" for s in srvs]
+            for via, srvs in (("lightserve", servers),
+                              ("fallback", fallback))}
+    out = {}
+
+    def providers(via):
+        if via == "node":
+            return [NodeProvider(chain.block_store, chain.state_store,
+                                 chain.chain_id) for _ in range(2)]
+        return [HttpProvider(u, chain.chain_id) for u in urls[via]]
+
+    async def run():
+        with _RpcCount(servers + fallback) as count:
+            for mode in (SEQUENTIAL, SKIPPING):
+                for via in ("node", "lightserve", "fallback"):
+                    _clear_memos()
+                    tracing.clear()
+                    count.take()
+                    out[(via, mode)] = await _light_sync(
+                        chain, device, ek, providers(via), mode, top)
+                    out[(via, "lanes", mode)] = sorted(
+                        ev["attrs"]["batch"]
+                        for ev in tracing.snapshot(category=tracing.CRYPTO)
+                        if ev["name"] == "batch_verify")
+                    out[(via, "rpc", mode)] = count.take()
+            # round trips and bytes a light block, a fresh provider each
+            for via in ("lightserve", "fallback"):
+                out[(via, "per_block")] = await _stored_light_blocks(
+                    chain, providers(via)[0], count, f"17a ({via})")
+            # a second client's pass over the same heights
+            before = _ls_cache_stats(servers)
+            _clear_memos()
+            out["second"] = await _light_sync(
+                chain, device, ek, providers("lightserve"), SEQUENTIAL, top)
+            after = _ls_cache_stats(servers)
+            out["second_cache"] = {k: after[k] - before[k]
+                                   for k in ("hits", "misses")}
+            out["cache"] = after
+            out["second_rpc"] = count.take()
+
+    loop.run_until_complete(run())
+    want_hash = chain.block_store.load_block_meta(top).block_id.hash
+    for key in [(via, mode) for via in ("node", "lightserve", "fallback")
+                for mode in (SEQUENTIAL, SKIPPING)] + ["second"]:
+        latest = out[key][0].store.latest()
+        if latest.height != top or \
+                latest.signed_header.header.hash() != want_hash:
+            raise AssertionError(f"17a: the {key} sync ends at "
+                                 f"{latest.height}, not {top} with the "
+                                 f"source's hash")
+    # the gates
+    for mode in (SEQUENTIAL, SKIPPING):
+        calls, _ = out[("lightserve", "rpc", mode)]
+        if set(calls) != {"light_block"}:
+            raise AssertionError(f"17a: the {mode} sync over the lightserve "
+                                 f"servers called {calls}")
+        if out[("lightserve", mode)][2] != out[("node", mode)][2] or \
+                out[("lightserve", "lanes", mode)] != \
+                out[("node", "lanes", mode)]:
+            raise AssertionError(
+                f"17a: {mode} B1 launches / lanes over lightserve "
+                f"{out[('lightserve', mode)][2]} / "
+                f"{out[('lightserve', 'lanes', mode)]} != NodeProvider's "
+                f"{out[('node', mode)][2]} / {out[('node', 'lanes', mode)]}")
+    per = out[("lightserve", "per_block")]
+    if any(c != {"light_block": 1} for c, _ in per):
+        raise AssertionError(f"17a: a light block over lightserve took "
+                             f"{[c for c, _ in per]}")
+    if set(out["second_rpc"][0]) != {"light_block"} or \
+            out["second_cache"]["hits"] <= 0:
+        raise AssertionError(f"17a: the second pass called "
+                             f"{out['second_rpc'][0]} with cache "
+                             f"{out['second_cache']}")
+    launches = sum(out[("lightserve", m)][2] for m in (SEQUENTIAL, SKIPPING))
+    fper = out[("fallback", "per_block")]
+    for mode in (SEQUENTIAL, SKIPPING):
+        row = ", ".join(
+            f"{via} " + (_p50_p90(out[(via, mode)][1])
+                         if mode == SEQUENTIAL else
+                         f"{out[(via, mode)][1][0]:.1f}") +
+            f" ms, {out[(via, mode)][2]} B1 launch(es), stall "
+            f"{out[(via, mode)][3] * 1e3:.1f} ms" +
+            ("" if via == "node" else
+             f", {sum(out[(via, 'rpc', mode)][0].values())} calls "
+             f"{out[(via, 'rpc', mode)][1]} bytes")
+            for via in ("lightserve", "node", "fallback"))
+        _log(f"rpc_lightserve_{n}x{top} {mode} "
+             f"({top - SS_TRUST if mode == SEQUENTIAL else 1} hop(s), ms a "
+             f"hop): {row}; B1 lanes a launch over lightserve "
+             f"{sorted(collections.Counter(out[('lightserve', 'lanes', mode)]).items())}"
+             f" (NodeProvider the same); card: {card}")
+    _log(f"rpc_lightserve_{n}x{top} a light block over lightserve: "
+         f"{sorted(collections.Counter(sum(c.values()) for c, _ in per).items())}"
+         f" round trips (light_block only), bytes "
+         f"{_p50_p90([b for _, b in per])}; over the fallback: first "
+         f"{sum(fper[0][0].values())} round trips {fper[0][0]}, "
+         f"{fper[0][1]} bytes, then "
+         f"{sorted(collections.Counter(sum(c.values()) for c, _ in fper[1:]).items())}"
+         f" round trips, bytes {_p50_p90([b for _, b in fper[1:]])}; no "
+         f"/commit or /validators reached a light_block server")
+    second = out["second"]
+    _log(f"rpc_lightserve_{n}x{top} second client's sequential pass: ms a "
+         f"hop {_p50_p90(second[1])}, {second[2]} B1 launches, cache hits "
+         f"{out['second_cache']['hits']} misses "
+         f"{out['second_cache']['misses']} (the tip {top} is never cached); "
+         f"the two caches hold {out['cache']['entries']} entries, "
+         f"{out['cache']['bytes']} bytes, {out['cache']['evictions']} "
+         f"evictions; every sync trusts {top} at the source's hash")
+    return launches + second[2]
+
+
+def _ls_proofs(seed, card, ek, ek8, oe, device, loop, src, servers, count):
+    """17b state-proofs: abci_query_batch with prove=true at LS_VERSION
+    (LS_PRESENT present keys, LS_ABSENT absent) checked against the
+    app_hash of the header at LS_VERSION + 1, which the light client
+    verifies on B1 (and again under cuda8); multiproof over every tx of
+    that block and over LS_MP_PICK of them against its data_hash; the
+    tampered checks.  Returns (B1 launches, B2 launches)."""
+    import numpy as np
+    from cometbft_tpu_torch.crypto.merkle import Multiproof
+    from cometbft_tpu_torch.light.client import SKIPPING
+    from cometbft_tpu_torch.light.provider import HttpProvider
+    from cometbft_tpu_torch.light.state_proof import verify_state_proof
+    from cometbft_tpu_torch.lightserve.core import verify_kv_multiproof
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    chain, n, v = src["chain"], EXEC_VALIDATORS, LS_VERSION
+    _phase(f"17b state-proofs-{n}x{SS_HEIGHTS}: abci_query_batch prove=true "
+           f"at version {v} ({LS_PRESENT} present keys, {LS_ABSENT} absent) "
+           f"against the app_hash of header {v + 1}, verified by the light "
+           f"client on B1; multiproof over block {v + 1}'s {EXEC_TXS} txs "
+           f"and over {LS_MP_PICK} of them")
+    rng = np.random.default_rng(seed + 171)
+    # every keyed tx's key up to v, but the val= txs' slots
+    pool_keys = [b"%d.%d" % (h, j) for h in range(1, v + 1)
+                 for j in range(EXEC_TXS)
+                 if not (h in EXEC_UPDATES and j == EXEC_TXS - 1)]
+    present = [pool_keys[i] for i in sorted(rng.choice(
+        len(pool_keys), min(LS_PRESENT, len(pool_keys)), replace=False))]
+    absent = [b"absent.%d" % i for i in range(LS_ABSENT)]
+    urls = [f"http://127.0.0.1:{s.port}" for s in servers]
+    out = {}
+
+    async def verified_header(kernel_env):
+        _clear_memos()
+        if kernel_env:
+            os.environ[oe.KERNEL_ENV] = kernel_env
+        try:
+            lc = _rpc_light_client(
+                chain, device, HttpProvider(urls[0], chain.chain_id),
+                [HttpProvider(urls[1], chain.chain_id)], SKIPPING)
+            await lc.initialize()
+            lb = await lc.verify_light_block_at_height(v + 1)
+        finally:
+            os.environ.pop(oe.KERNEL_ENV, None)
+        return lb.signed_header.header
+
+    async def run():
+        cli = HTTPClient(urls[0], timeout=60.0)
+        l0 = ek.launches
+        out["hdr"] = await verified_header(None)
+        out["b1"] = ek.launches - l0
+        b1, ek8.launches = ek.launches, 0
+        out["hdr8"] = await verified_header("cuda8")
+        out["b2"], out["b1_in_8"] = ek8.launches, ek.launches - b1
+        count.take()
+        data = ",".join("0x" + k.hex() for k in present + absent)
+        t = time.perf_counter()
+        out["batch"] = await cli.call("abci_query_batch", data=data,
+                                      height=str(v), prove=True)
+        out["batch_ms"] = (time.perf_counter() - t) * 1e3
+        out["batch_rpc"] = count.take()
+        t = time.perf_counter()
+        out["singles"] = [await cli.abci_query("", k, height=v)
+                          for k in present]
+        out["singles_ms"] = (time.perf_counter() - t) * 1e3
+        out["singles_rpc"] = count.take()
+        picks = sorted(rng.choice(EXEC_TXS, min(LS_MP_PICK, EXEC_TXS),
+                                  replace=False).tolist())
+        for name, idx in (("all", list(range(EXEC_TXS))), ("pick", picks)):
+            t = time.perf_counter()
+            out[name] = await cli.call(
+                "multiproof", height=str(v + 1),
+                indices=",".join(map(str, idx)))
+            out[name + "_ms"] = (time.perf_counter() - t) * 1e3
+            out[name + "_rpc"] = count.take()
+            out[name + "_idx"] = idx
+
+    loop.run_until_complete(run())
+    hdr = out["hdr"]
+    want = chain.block_store.load_block_meta(v + 1).header
+    if hdr.hash() != want.hash() or out["hdr8"].hash() != want.hash() or \
+            not out["b1"] or not out["b2"] or out["b1_in_8"]:
+        raise AssertionError(f"17b: header {v + 1} over the light client: "
+                             f"{out['b1']} B1, {out['b2']} B2 and "
+                             f"{out['b1_in_8']} B1 under cuda8 launches")
+    res = out["batch"]
+    proof = res["proof"]
+    kv = [(base64.b64decode(r["key"]), base64.b64decode(r["value"]))
+          for r in res["responses"][:len(present)]]
+    logs = [r["log"] for r in res["responses"]]
+    if [k for k, _ in kv] != present or \
+            logs != ["exists"] * len(present) + \
+            ["does not exist"] * len(absent) or \
+            int(proof["version"]) != v or \
+            int(proof["header_height"]) != v + 1:
+        raise AssertionError(f"17b: the batch answered {logs[:3]}... at "
+                             f"version {proof.get('version')}")
+    verify_kv_multiproof(proof, kv, absent, verified_header=hdr)
+    verify_state_proof(hdr, proof, present=kv, absent=absent)
+    # the tampered ones, refused with the JAX texts
+    bad = json.loads(json.dumps(proof))
+    x = bad["values"][0]
+    bad["values"][0] = ("0" if x[0] != "0" else "1") + x[1:]
+    refusals = []
+    for pr, kw, text in (
+            (bad, {"present": kv, "absent": absent},
+             "invalid multiproof: root mismatch"),
+            (proof, {"present": kv + [(absent[0], b"")],
+                     "absent": absent[1:]},
+             f"key {absent[0].hex()} not covered by proof")):
+        try:
+            verify_state_proof(hdr, pr, **kw)
+        except ValueError as e:
+            if str(e) != text:
+                raise AssertionError(f"17b: refused with {e!r}, not "
+                                     f"{text!r}")
+            refusals.append(str(e))
+        else:
+            raise AssertionError(f"17b: no refusal for {text!r}")
+    block = chain.block_store.load_block(v + 1)
+    for name in ("all", "pick"):
+        mp = Multiproof.from_dict(out[name]["multiproof"])
+        txs = [base64.b64decode(t) for t in out[name]["txs"]]
+        if txs != [block.data.txs[i] for i in out[name + "_idx"]]:
+            raise AssertionError(f"17b: multiproof {name} brought other txs")
+        mp.verify(hdr.data_hash, [hashlib.sha256(t).digest() for t in txs])
+    singles_bytes = out["singles_rpc"][1]
+    _log(f"state_proofs_{n}x{SS_HEIGHTS} abci_query_batch prove=true at "
+         f"{v}: {len(present)} present + {len(absent)} absent keys in "
+         f"{out['batch_ms']:.1f} ms, {out['batch_rpc'][1]} response bytes, "
+         f"{len(proof['indices'])} proven leaves of {proof['total']}, "
+         f"{len(proof['multiproof']['aunts'])} aunts; {len(present)} single "
+         f"abci_query calls: {out['singles_ms']:.1f} ms, {singles_bytes} "
+         f"bytes and no proof; verify_kv_multiproof and verify_state_proof "
+         f"hold it to header {v + 1}'s app_hash (header verified over "
+         f"HTTP with {out['b1']} B1 launch(es); under cuda8 "
+         f"{out['b2']} B2, 0 B1); card: {card}")
+    _log(f"state_proofs_{n}x{SS_HEIGHTS} multiproof of block {v + 1}: all "
+         f"{EXEC_TXS} txs {out['all_ms']:.1f} ms {out['all_rpc'][1]} bytes "
+         f"({len(out['all']['multiproof']['aunts'])} aunts), "
+         f"{len(out['pick_idx'])} seeded txs {out['pick_ms']:.1f} ms "
+         f"{out['pick_rpc'][1]} bytes "
+         f"({len(out['pick']['multiproof']['aunts'])} aunts), both verify "
+         f"against its data_hash; refused with the JAX texts: {refusals}")
+    return out["b1"], out["b2"]
+
+
+def _ls_pins(seed, card, loop, src, servers):
+    """17c pins: a proven batch cached at LS_PIN, below the retain horizon
+    that LS_PIN_HEIGHTS more commits move the tree to; the pinned version
+    stays provable, unpinned ones below the horizon are gone."""
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.light.state_proof import verify_state_proof
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    chain, tree, pin = src["chain"], src["chain"].app.tree, LS_PIN
+    top = chain.block_store.height
+    new_top = top + LS_PIN_HEIGHTS
+    horizon = new_top - SS_RETAIN
+    _phase(f"17c pins: a proven batch cached at {pin}, then {LS_PIN_HEIGHTS} "
+           f"commits ({top + 1}-{new_top}) move the tree's horizon from "
+           f"{tree.base_version} to {horizon}")
+    keys = [b"%d.%d" % (h, 0) for h in range(pin - 4, pin + 1)] + \
+        [b"absent.pin"]
+    data = json.dumps({"keys": [k.hex() for k in keys]}).encode()
+
+    async def run():
+        cli = HTTPClient(f"http://127.0.0.1:{servers[0].port}")
+        res = await cli.call(
+            "abci_query_batch", data=",".join("0x" + k.hex() for k in keys),
+            height=str(pin), prove=True)
+        header = chain.block_store.load_block_meta(pin + 1).header
+        cached = pin in servers[0].node.lightserve_cache.heights()
+        before = tree.versions()
+        ms = []
+        for h in range(top + 1, new_top + 1):
+            t = time.perf_counter()
+            await chain.astep([_keyed_tx(seed, h, j)
+                               for j in range(EXEC_TXS)])
+            ms.append((time.perf_counter() - t) * 1e3)
+        after = tree.versions()
+        q = await chain.conns.query.query(abci.QueryRequest(
+            path="/multistore", data=data, height=pin, prove=True))
+        pinned = chain.app.version_pin()
+        gone = [x for x in before if x < horizon and x not in pinned]
+        g = await chain.conns.query.query(abci.QueryRequest(
+            path="/multistore", data=data, height=gone[-1], prove=True)) \
+            if gone else None
+        return res, header, cached, before, after, q, gone, g, ms
+
+    res, header, cached, before, after, q, gone, g, ms = \
+        loop.run_until_complete(run())
+    env = json.loads(q.value) if q.code == 0 else None
+    if not cached or pin not in after or env is None or \
+            any(env[k] != res["proof"][k] for k in
+                ("root", "version", "keys", "values", "multiproof")):
+        raise AssertionError(f"17c: version {pin} after the commits: "
+                             f"cached {cached}, kept {pin in after}, query "
+                             f"{q.code} {q.log!r}")
+    present = [(k, chain.app.tree.get(k, pin)) for k in keys[:-1]]
+    verify_state_proof(header, env, present=present, absent=keys[-1:])
+    want = f"multistore: 'state tree has no version {gone[-1]}'" \
+        if gone else None
+    if not gone or any(x in after for x in gone) or g.code == 0 or \
+            g.log != want:
+        raise AssertionError(f"17c: unpinned versions {gone} below "
+                             f"{horizon}: kept {sorted(set(gone) & set(after))}"
+                             f", query {g and (g.code, g.log)!r}")
+    _log(f"pins {LS_PIN_HEIGHTS} commits past the horizon ({top + 1}-"
+         f"{new_top}, ms a height {_p50_p90(ms)}): the tree holds "
+         f"{len(after)} versions, {horizon}-{new_top} and the pinned "
+         f"{sorted(x for x in after if x < horizon)} below the horizon; "
+         f"the {len(gone)} unpinned below it ({gone[0]}-{gone[-1]}) are "
+         f"gone; version {pin}'s proof from the app equals the cached one "
+         f"and verifies against header {pin + 1}'s app_hash; version "
+         f"{gone[-1]} answers {g.log!r}; card: {card}")
+
+
+def _ls_proxy(card, ek, device, loop, src, servers):
+    """17d light-proxy: a LightProxy over the two lightserve servers; an
+    HTTPClient to it asks commit and block at LS_PROXY_HEIGHTS and both
+    pages of validators at LS_PROXY_HEIGHTS[1]; every answer equals the
+    stores'; a primary that attaches a forged tx is refused.  Returns B1's
+    launches."""
+    from cometbft_tpu_torch.config import StateSyncConfig
+    from cometbft_tpu_torch.light.proxy import LightProxy, LightProxyError
+    from cometbft_tpu_torch.rpc import core as rpc_core
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    chain, n = src["chain"], EXEC_VALIDATORS
+    hs, vh = LS_PROXY_HEIGHTS, LS_PROXY_HEIGHTS[1]
+    _phase(f"17d light-proxy-{n}x{SS_HEIGHTS}: a LightProxy (trust root "
+           f"{SS_TRUST}) over the two servers; commit and block at "
+           f"{', '.join(map(str, hs))}, validators at {vh} in pages of 100; "
+           f"a primary attaching a forged tx")
+    trust = chain.block_store.load_block_meta(SS_TRUST).block_id.hash
+    urls = [f"http://127.0.0.1:{s.port}" for s in servers]
+    env = rpc_core.Environment(_StoreNode(chain))
+    period = StateSyncConfig().trust_period_ns
+
+    async def forged_server():
+        from cometbft_tpu_torch.config import RPCConfig
+        from cometbft_tpu_torch.rpc.server import RPCServer
+        srv = RPCServer(_StoreNode(chain),
+                        RPCConfig(laddr="tcp://127.0.0.1:0"))
+        await srv.start()
+        real = srv.routes["block"]
+
+        async def block(height="0"):
+            res = await real(height=height)
+            res["block"]["data"]["txs"].append(
+                base64.b64encode(b"forged=1").decode())
+            return res
+        srv.routes["block"] = block
+        return srv
+
+    async def run():
+        _clear_memos()
+        l0 = ek.launches
+        proxy = LightProxy(chain.chain_id, urls[0], urls[1:], SS_TRUST,
+                           trust, "tcp://127.0.0.1:0",
+                           trust_period_ns=period, device=device)
+        fsrv = await forged_server()
+        forged = LightProxy(chain.chain_id, f"http://127.0.0.1:{fsrv.port}",
+                            urls[1:], SS_TRUST, trust, "tcp://127.0.0.1:0",
+                            trust_period_ns=period, device=device)
+        calls, err = [], None
+        try:
+            await proxy.start()
+            await forged.start()
+            cli = HTTPClient(f"http://{proxy.rpc_listen_addr}", timeout=60.0)
+            todo = [("commit", {"height": str(h)}) for h in hs] + \
+                [("block", {"height": str(h)}) for h in hs] + \
+                [("validators", {"height": str(vh), "page": str(p),
+                                 "per_page": "100"})
+                 for p in range(1, (n + 99) // 100 + 1)]
+            for method, params in todo:
+                t = time.perf_counter()
+                res = await cli.call(method, **params)
+                calls.append((method, params, res,
+                              (time.perf_counter() - t) * 1e3))
+            try:
+                await forged.client.block(hs[1])
+            except LightProxyError as e:
+                err = str(e)
+        finally:
+            await proxy.stop()
+            await forged.stop()
+            await fsrv.stop()
+        return calls, err, ek.launches - l0
+
+    calls, err, launches = loop.run_until_complete(run())
+
+    async def stores(method, params):
+        h = int(params["height"])
+        if method == "commit":
+            return (await rpc_core._build_commit(env, h))["signed_header"]
+        if method == "block":
+            return await rpc_core._build_block(env, h)
+        return await rpc_core._validators(env, h, params["page"], "100")
+    for method, params, res, _ in calls:
+        got = res["signed_header"] if method == "commit" else res
+        want = json.loads(json.dumps(loop.run_until_complete(
+            stores(method, params))))
+        if got != want:
+            raise AssertionError(f"17d: the proxy's {method} {params} != "
+                                 f"the stores'")
+    want_err = f"block {hs[1]} data does not hash to the verified data_hash"
+    if err != want_err or not launches:
+        raise AssertionError(f"17d: the forged primary gave {err!r} "
+                             f"({launches} B1 launches)")
+    _log(f"light_proxy_{n}x{SS_HEIGHTS} ms a call: " + ", ".join(
+        f"{m} {p['height']}" + (f" p{p['page']}" if m == "validators"
+                                else "") + f" {ms:.1f}"
+        for m, p, _, ms in calls) + f"; every answer equals the stores' "
+        f"(signed headers, blocks, validator pages with the stores' "
+        f"priorities); B1 launches {launches}; the forged primary: "
+        f"LightProxyError {err!r}; card: {card}")
+    return launches
+
+
+def _ls_repairs(seed, card, ek, device, loop, src):
+    """17e repairs on the card: ROADMAP C.1's signed garbage proposal and
+    C.2's mutated prevote into 12c's in-process net (config 1), C.3's
+    three evidence inputs into an evidence reactor on its node 0 and the
+    third through validate_block, C.4's zero limits.  The byzantine
+    proposer's node is replaced by its messages: the three honest
+    validators hold 30 of 40 power, so each commit needs all three, and
+    none can be left without a block the others committed (the
+    in-process net has no gossip to send it again).  Returns B1's
+    launches."""
+    from types import SimpleNamespace
+    from cometbft_tpu_torch.config import RPCConfig, test_config
+    from cometbft_tpu_torch.consensus.messages import (
+        BlockPartMessage, ProposalMessage, VoteMessage, decode_p2p,
+        encode_p2p)
+    from cometbft_tpu_torch.evidence.reactor import (
+        EVIDENCE_LIST_MSG, EvidenceReactor)
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.rpc.server import RPCServer
+    from cometbft_tpu_torch.state import make_genesis_state
+    from cometbft_tpu_torch.state.validation import BlockValidationError
+    from cometbft_tpu_torch.types.block import LightBlock, SignedHeader
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.canonical import PREVOTE_TYPE
+    from cometbft_tpu_torch.types.evidence import (
+        LightClientAttackEvidence, evidence_from_proto_wrapped)
+    from cometbft_tpu_torch.types.part_set import PartSet, PartSetHeader
+    from cometbft_tpu_torch.types.proposal import Proposal
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import Vote
+    from cometbft_tpu_torch.wire import encode
+    n, heights = NET_VALIDATORS, REPAIR_HEIGHTS
+    _phase(f"17e repairs: C.1's signed garbage proposal and C.2's mutated "
+           f"prevote into config 1's in-process net ({n} validators, "
+           f"{heights} heights); C.3's three evidence inputs into an "
+           f"evidence reactor and validate_block; C.4's zero RPC limits")
+    doc, pvs = _net_doc(seed + 170, n, "repair-chip")
+    proposer = make_genesis_state(doc).validators.get_proposer()
+    byz = next(i for i, pv in enumerate(pvs)
+               if pv.get_pub_key().address() == proposer.address)
+    parts = PartSet.from_data(b"\xff\xff\xff")
+    prop = Proposal(height=1, round=0, pol_round=-1,
+                    block_id=BlockID(hash=bytes(range(32)),
+                                     part_set_header=parts.header()),
+                    timestamp=Timestamp.now())
+    pvs[byz].sign_proposal(doc.chain_id, prop)
+    garbage = [encode_p2p(ProposalMessage(prop)),
+               encode_p2p(BlockPartMessage(1, 0, parts.get_part(0)))]
+    vals = make_genesis_state(doc).validators
+    honest = next(i for i in range(n) if i != byz)
+    idx, val = vals.get_by_address(pvs[honest].get_pub_key().address())
+    vote = Vote(type=PREVOTE_TYPE, height=1, round=0,
+                block_id=BlockID(hash=bytes(range(32)),
+                                 part_set_header=PartSetHeader(
+                                     total=1, hash=bytes(range(32, 64)))),
+                timestamp=Timestamp.now(), validator_address=val.address,
+                validator_index=idx)
+    pvs[honest].sign_vote(doc.chain_id, vote, False)
+    raw = encode_p2p(VoteMessage(vote))
+    at = raw.index(b"\x22\x48\x0a\x20")
+    mutated = raw[:at + 1] + b"\x22" + raw[at + 2:]
+    out = {"refused": [], "decode_errors": 0}
+
+    class _Errors:
+        """The node's logger, counting the undecodable proposal blocks."""
+
+        def __init__(self, real):
+            self.real = real
+
+        def __getattr__(self, name):
+            return getattr(self.real, name)
+
+        def error(self, msg, **kw):
+            if msg == "failed to decode proposal block":
+                out["decode_errors"] += 1
+            self.real.error(msg, **kw)
+
+    def deliver(node, raw_msg, peer):
+        # the consensus reactor's receive: a message that does not decode
+        # is dropped there (consensus/reactor.py)
+        try:
+            msg = decode_p2p(raw_msg)
+        except ValueError as e:
+            out["refused"].append(str(e))
+            return
+        node.cs.send_peer(msg, peer)
+
+    async def run():
+        nodes = [await _CsNode.make(doc, device, pv=pv,
+                                    config=test_config().consensus,
+                                    evidence=(i == honest))
+                 for i, pv in enumerate(pvs) if i != byz]
+        for i, node in enumerate(nodes):
+            node.cs.logger = _Errors(node.cs.logger)
+
+            def hook(msg, i=i):
+                if isinstance(msg, (ProposalMessage, BlockPartMessage,
+                                    VoteMessage)):
+                    msg_raw = encode_p2p(msg)
+                    for j, other in enumerate(nodes):
+                        if j != i:
+                            other.cs.send_peer(decode_p2p(msg_raw),
+                                               f"node{i}")
+            node.cs.broadcast_hooks.append(hook)
+        for node in nodes:
+            for m in garbage + [mutated]:
+                deliver(node, m, "byzantine")
+        t0 = time.perf_counter()
+        for node in nodes:
+            await node.cs.start()
+        try:
+            await _cs_until(nodes[0], lambda: all(
+                x.block_store.height >= heights for x in nodes),
+                f"every node at height {heights}")
+            for node in nodes:
+                node.cs.raise_if_failed()
+        finally:
+            for node in nodes:
+                await node.cs.stop()
+        out["net_s"] = time.perf_counter() - t0
+        out["failures"] = [node.cs.failure for node in nodes]
+        bs = nodes[0].block_store
+        out["rounds"] = [(bs.load_block_commit(h) or
+                          bs.load_seen_commit(h)).round
+                         for h in range(1, heights + 1)]
+        out["hashes"] = {h: {x.block_store.load_block(h).hash()
+                             for x in nodes}
+                         for h in range(1, heights + 1)}
+        # C.3
+        node = nodes[0]
+        reactor = EvidenceReactor(node.evpool)
+        meta = node.block_store.load_block_meta(2)
+        attack = LightClientAttackEvidence(
+            conflicting_block=LightBlock(
+                signed_header=SignedHeader(
+                    header=meta.header,
+                    commit=node.block_store.load_block_commit(2)),
+                validator_set=node.state_store.load_validators(2)),
+            common_height=1, byzantine_validators=[],
+            total_voting_power=10 * n, timestamp=meta.header.time)
+        raw_attack = encode(EVIDENCE_LIST_MSG,
+                            {"evidence": [attack.to_proto_wrapped()]})
+        k = raw_attack.index(b"ed25519")
+        flipped = raw_attack[:k + 3] + bytes([raw_attack[k + 3] ^ 1]) + \
+            raw_attack[k + 4:]
+        headless = {"light_client_attack_evidence": {"common_height": 2}}
+        inputs = [bytes.fromhex("0a0612041a002a00"), flipped,
+                  encode(EVIDENCE_LIST_MSG, {"evidence": [headless]})]
+        peer = SimpleNamespace(id="ab" * 20)
+        for m in inputs:
+            await reactor.receive(0x38, peer, m)
+        reactor.raise_if_failed()
+        out["evidence"] = (reactor.failure, len(node.evpool.all_pending()))
+        block = node.block_store.load_block(heights)
+        block.evidence = [evidence_from_proto_wrapped(headless)]
+        node.exec._last_validated_hash = block.hash()
+        try:
+            node.exec.validate_block(node.state_store.load(), block)
+        except BlockValidationError as e:
+            out["validate"] = str(e)
+        # C.4
+        srv = RPCServer(_StoreNode(src["chain"]), RPCConfig(
+            laddr="tcp://127.0.0.1:0", max_open_connections=0,
+            max_header_bytes=0))
+        await srv.start()
+        try:
+            out["health"] = await HTTPClient(
+                f"http://127.0.0.1:{srv.port}").health()
+        finally:
+            await srv.stop()
+
+    _clear_memos()
+    l0 = ek.launches
+    loop.run_until_complete(run())
+    launches = ek.launches - l0
+    if any(out["failures"]) or \
+            any(len(v) != 1 for v in out["hashes"].values()) or \
+            out["decode_errors"] != n - 1 or \
+            out["refused"] != ["cometbft.types.v2.Vote.height: bad wire "
+                               "type 2"] * (n - 1):
+        raise AssertionError(f"17e: failures {out['failures']}, decode "
+                             f"errors {out['decode_errors']}, refused "
+                             f"{out['refused']}")
+    if out["evidence"] != (None, 0) or out.get("validate") != \
+            "invalid evidence: conflicting block missing header" or \
+            (out.get("health") or {}).get("status") != "ok":
+        raise AssertionError(f"17e: evidence {out['evidence']}, "
+                             f"validate_block {out.get('validate')!r}, "
+                             f"health {out.get('health')!r}")
+    _log(f"repairs net_{n}x{heights}: the {n - 1} honest validators (the "
+         f"byzantine proposer's node replaced by its messages) dropped the "
+         f"garbage proposal block with a log line each, {n - 1} mutated "
+         f"prevotes "
+         f"refused at decode ({out['refused'][0]!r}); the net committed "
+         f"{heights} heights in {out['net_s']:.2f} s (commit rounds "
+         f"{out['rounds']}), every node's failure None, {launches} B1 "
+         f"launches; C.3's three inputs dropped by the evidence reactor "
+         f"(failure None, nothing pending), the headless attack in a block: "
+         f"BlockValidationError {out['validate']!r}; an RPCServer with "
+         f"max_open_connections=0 and max_header_bytes=0 answers /health "
+         f"(status {out['health']['status']!r}); card: {card}")
+    return launches
+
+
+def _lightserve_phases(seed, card, keep, device=None):
+    """Phases 17a-17e: the proof-serving light path (lightserve/, the
+    state tree's prove and pins, light/state_proof.py, light/proxy.py,
+    the lightserve routes) over 15a's source, and the repairs of ROADMAP
+    C.1-C.4.  Returns B1's launches by part and B2's."""
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    t_phase = time.perf_counter()
+    src, n, top = keep["ss_src"], EXEC_VALIDATORS, SS_HEIGHTS
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    servers, fallback = [], []
+    try:
+        servers = _ls_servers(loop, src["chain"])
+        fallback = _ls_servers(loop, src["chain"], lightserve=False)
+        light = _ls_light(card, ek, tracing, device, loop, src, servers,
+                          fallback)
+        for srv in fallback:
+            loop.run_until_complete(srv.stop())
+        fallback = []
+        with _RpcCount(servers) as count:
+            proofs, proofs8 = _ls_proofs(seed, card, ek, ek8, oe, device,
+                                         loop, src, servers, count)
+        _ls_pins(seed, card, loop, src, servers)
+        proxy = _ls_proxy(card, ek, device, loop, src, servers)
+        repairs = _ls_repairs(seed, card, ek, device, loop, src)
+    finally:
+        for srv in servers + fallback:
+            loop.run_until_complete(srv.stop())
+        src["chain"].app.version_pin = None
+        logging.disable(logging.NOTSET)
+        loop.close()
+    _log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return ({f"rpc_lightserve_{n}x{top}": light,
+             f"state_proofs_{n}x{top}": proofs,
+             f"light_proxy_{n}x{top}": proxy,
+             f"repairs_{NET_VALIDATORS}x{REPAIR_HEIGHTS}": repairs},
+            {f"state_proofs_{n}_cuda8": proofs8})
 
 
 def main() -> int:
@@ -8079,6 +8887,7 @@ def main() -> int:
     sync_launches, sync_launches8 = _sync_phases(args.seed, card, keep)
     ss_launches, ss_launches8 = _statesync_phases(args.seed, card, keep)
     rpc_launches, rpc_launches8 = _rpc_phases(args.seed, card, keep)
+    ls_launches, ls_launches8 = _lightserve_phases(args.seed, card, keep)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -8100,7 +8909,7 @@ def main() -> int:
                              **light_launches, **exec_launches,
                              **cs_launches, **p2p_launches,
                              **sync_launches, **ss_launches,
-                             **rpc_launches},
+                             **rpc_launches, **ls_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -8129,7 +8938,8 @@ def main() -> int:
                                  vote_launches["vote_burst_cuda8"],
                              **light_launches8, **exec_launches8,
                              **cs_launches8, **sync_launches8,
-                             **ss_launches8, **rpc_launches8},
+                             **ss_launches8, **rpc_launches8,
+                             **ls_launches8},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

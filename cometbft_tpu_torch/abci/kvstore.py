@@ -13,16 +13,17 @@ so queries serve versioned (historical) reads.  Every
 ``snapshot_interval`` heights Commit keeps a one-chunk snapshot of the
 whole state (a bounded window of 5), which a state-syncing node restores
 through the snapshot connection; with ``retain_blocks`` set, Commit
-answers a retain height and prunes the tree's versions below it.  Not
-ported: the /multistore proof query and the lightserve ``version_pin``
-(ROADMAP A.7b'; until then the tree prunes with no pinned versions),
-artificial call delays, and the import of pre-tree stores.
+answers a retain height and prunes the tree's versions below it,
+except those ``version_pin`` names (the heights the lightserve cache
+still serves).  The ``/multistore`` query answers a batch of keys with
+the tree's proof envelope (statetree/proof.py).  Not ported: artificial
+call delays and the import of pre-tree stores.
 """
 from __future__ import annotations
 
 import base64
 import json
-from typing import Optional
+from typing import Callable, Iterable, Optional
 
 from .. import version as _version
 from ..crypto import encoding as crypto_encoding
@@ -158,6 +159,9 @@ class KVStoreApplication(abci.Application):
         self._val_addr_to_pubkey: dict[bytes, tuple[str, bytes]] = {}
         self._height = 0
         self._size = 0
+        # versions the tree keeps past the pruning horizon: the holder
+        # of a lightserve ResponseCache points it at ``cache.heights``
+        self.version_pin: Optional[Callable[[], Iterable[int]]] = None
         self.tree = StateTree(PrefixDB(self.db, _TREE_PREFIX))
         self._load_state()
 
@@ -362,8 +366,11 @@ class KVStoreApplication(abci.Application):
         resp = abci.CommitResponse()
         if self.retain_blocks > 0 and self._height >= self.retain_blocks:
             resp.retain_height = self._height - self.retain_blocks + 1
-            # prune tree versions below the retention horizon
-            self.tree.prune(resp.retain_height - 1)
+            # prune tree versions below the retention horizon, except
+            # any the lightserve cache still serves: a cached height
+            # stays provable
+            pinned = self.version_pin() if self.version_pin else ()
+            self.tree.prune(resp.retain_height - 1, pinned=pinned)
         return resp
 
     def _dedup_val_updates(self) -> list[abci.ValidatorUpdate]:
@@ -479,11 +486,29 @@ class KVStoreApplication(abci.Application):
     # ------------------------------------------------------------------
     def _multistore_query(self, req: abci.QueryRequest
                           ) -> abci.QueryResponse:
-        """The batched provable lookup waits for the state tree's proofs
-        (ROADMAP A.7b')."""
-        raise NotImplementedError(
-            "the /multistore proof query is not ported yet (ROADMAP "
-            "A.7b')")
+        """Batched provable lookup (lightserve.core.MULTISTORE_PATH): the
+        request data is JSON {"keys": [hex...]}; the answer's value is
+        the state tree's proof envelope, whose root is the app_hash of
+        the header at version + 1."""
+        try:
+            keys = [bytes.fromhex(k)
+                    for k in json.loads(req.data)["keys"]]
+        except (ValueError, KeyError, TypeError) as e:
+            return abci.QueryResponse(
+                code=CODE_TYPE_ENCODING_ERROR,
+                log=f"bad multistore request: {e}")
+        try:
+            v = self._resolve_version(req.height)
+            envelope = self.tree.prove(keys, v)
+        except (ValueError, KeyError) as e:
+            return abci.QueryResponse(
+                code=CODE_TYPE_ENCODING_ERROR,
+                log=f"multistore: {e}", height=self._height)
+        return abci.QueryResponse(
+            key=req.data,
+            value=json.dumps(envelope).encode(),
+            height=int(envelope["version"]),
+        )
 
     # ------------------------------------------------------------------
     def _stage_validator(self, v: abci.ValidatorUpdate) -> None:

@@ -25,15 +25,20 @@ _S = 1_000_000_000
 class RPCConfig:
     """What rpc/server.RPCServer and rpc/core's routes read, with the JAX
     defaults: the listen address, the limits on connections, header and
-    body bytes, broadcast_tx_commit's wait and the unsafe routes' gate.
-    The subscription limits and the lightserve cache's budget come with
-    their readers (the latter with A.7b')."""
+    body bytes (a zero connection or header limit means none and 1 MiB,
+    as in the reference), broadcast_tx_commit's wait, the unsafe routes'
+    gate and the lightserve response cache's budget (0 disables it).
+    The subscription limits come with their readers."""
     laddr: str = "tcp://127.0.0.1:26657"
     max_open_connections: int = 900
     timeout_broadcast_tx_commit_ns: int = 10 * _S
     max_body_bytes: int = 1_000_000
     max_header_bytes: int = 1 << 20
     unsafe: bool = False
+    # lightserve response cache budget: immutable height-keyed RPC
+    # responses (blocks, commits, light blocks, multiproofs below the
+    # tip) held in RAM; 0 disables
+    cache_max_bytes: int = 32 * 1024 * 1024
 
 
 @dataclass

@@ -45,6 +45,7 @@ import time
 from typing import Callable, Optional
 
 from ..config import ConsensusConfig
+from ..crypto.encoding import EncodingError
 from ..device import resolve
 from ..libs import fail
 from ..libs import tracing
@@ -57,6 +58,7 @@ from ..types.block import Block
 from ..types.block_id import BlockID
 from ..types.commit import AggregateCommit, Commit, ExtendedCommit
 from ..types.events import EventBus, NopEventBus
+from ..types.evidence import EvidenceError
 from ..types.params import MAX_BLOCK_SIZE_BYTES, BLOCK_PART_SIZE_BYTES
 from ..types.part_set import PartSet, PartSetError, PartSetHeader
 from ..types.priv_validator import PrivValidator
@@ -96,6 +98,13 @@ class ConsensusError(Exception):
 _PROTOCOL_ERRORS = (ConsensusError, RoundState.TransitionError,
                     BlockValidationError, VoteSetError, HeightVoteSetError,
                     PartSetError, VoteError)
+
+
+# what decoding or converting a peer's proposal block may raise: the
+# block is dropped, as the reference's addProposalBlockPart returns
+# BlockFromProto's error (state.go:2160-2170); no kernel runs there
+_UNDECODABLE_BLOCK = (ValueError, TypeError, KeyError, AttributeError,
+                      EncodingError, EvidenceError)
 
 
 def is_fatal(exc: BaseException) -> bool:
@@ -1055,8 +1064,17 @@ class ConsensusState:
                 f"{max_bytes})")
         if rs.proposal_block_parts.is_complete():
             raw = rs.proposal_block_parts.assemble()
-            rs.complete_proposal_block(
-                Block.from_proto(decode(pb.BLOCK, raw)))
+            try:
+                block = Block.from_proto(decode(pb.BLOCK, raw))
+            except _UNDECODABLE_BLOCK as e:
+                # the proposer signed bytes that are no block: the
+                # reference's BlockFromProto error goes back to
+                # handleMsg, which logs it; the block stays unset
+                self.logger.error("failed to decode proposal block",
+                                  err=repr(e), peer=peer_id,
+                                  height=msg.height)
+                return added
+            rs.complete_proposal_block(block)
             tracing.instant(tracing.CONSENSUS, "proposal_complete",
                             height=msg.height,
                             bytes=rs.proposal_block_parts.byte_size)

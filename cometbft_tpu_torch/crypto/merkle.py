@@ -1,13 +1,14 @@
-"""RFC-6962-style binary merkle root with domain-separated hashing, and
-inclusion proofs.
+"""RFC-6962-style binary merkle root with domain-separated hashing,
+inclusion proofs, compact multiproofs and chained proof operators.
 
 Reference: crypto/merkle/tree.go (HashFromByteSlices, leaf/inner
-prefixes, getSplitPoint) and proof.go (Proof, ProofsFromByteSlices),
-through cometbft_tpu/crypto/merkle.py:17-135; the root over leaf hashes
-the state tree keeps (:292) and the ValueOp leaf binding (:359).  The
-plain hashlib recursion only: the reference's native shortcut is left
-out.  Multiproofs and proof operators wait for the state tree's proofs
-(ROADMAP A.7b').
+prefixes, getSplitPoint), proof.go (Proof, ProofsFromByteSlices) and
+proof_op.go / proof_value.go (ProofOperators, ValueOp), through
+cometbft_tpu/crypto/merkle.py: Proof, the root over leaf hashes the
+state tree keeps, ``Multiproof`` with its builders (one proof over many
+leaves of one tree, the lightserve routes' wire form) and the ValueOp
+leaf binding.  The plain hashlib recursion only: the reference's native
+shortcut is left out.
 """
 from __future__ import annotations
 
@@ -74,6 +75,17 @@ class Proof:
     def compute_root_hash(self) -> bytes:
         return _compute_from_aunts(self.index, self.total, self.leaf_hash,
                                    self.aunts)
+
+    def to_dict(self) -> dict:
+        return {"total": self.total, "index": self.index,
+                "leaf_hash": self.leaf_hash.hex(),
+                "aunts": [a.hex() for a in self.aunts]}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Proof":
+        return cls(total=d["total"], index=d["index"],
+                   leaf_hash=bytes.fromhex(d["leaf_hash"]),
+                   aunts=[bytes.fromhex(a) for a in d["aunts"]])
 
 
 def _compute_from_aunts(index: int, total: int, lh: bytes,
@@ -161,10 +173,196 @@ def root_from_leaf_hashes(hashes: Sequence[bytes]) -> bytes:
     return _root_from_leaf_hashes(hashes)
 
 
+# -- compact multiproofs ----------------------------------------------------
+# One proof covering many leaves of one tree.  Its layout is the proven
+# leaf positions (``indices``, sorted and unique) and the roots of every
+# maximal subtree holding no proven leaf (``aunts``), in the order a
+# pre-order walk of the split-point tree visits them.  The verifier
+# replays the same walk, so no aunt needs a position tag.
+
+
+@dataclass
+class Multiproof:
+    """Compact inclusion proof for several leaves of one merkle tree:
+    ints for total and indices, hex hashes in to_dict / from_dict.
+    ``verify`` takes the raw items in ``indices`` order and raises
+    ValueError on any mismatch, as Proof.verify does."""
+    total: int
+    indices: list[int] = field(default_factory=list)
+    aunts: list[bytes] = field(default_factory=list)
+
+    def validate_basic(self) -> None:
+        if self.total < 0:
+            raise ValueError("multiproof total must be >= 0")
+        prev = -1
+        for i in self.indices:
+            if i <= prev:
+                raise ValueError(
+                    "multiproof indices must be sorted and unique")
+            prev = i
+        if self.indices and self.indices[-1] >= self.total:
+            raise ValueError("multiproof index out of range")
+
+    def verify(self, root: bytes, leaves: Sequence[bytes]) -> None:
+        """Verify the tree items ``leaves`` (aligned with ``indices``)
+        against ``root``; each gets the leaf prefix hash here.  For the
+        tx tree the items are the per-tx sha256 digests."""
+        self.verify_hashes(root, [leaf_hash(leaf) for leaf in leaves])
+
+    def verify_hashes(self, root: bytes,
+                      leaf_hashes: Sequence[bytes]) -> None:
+        if self.compute_root_hash(leaf_hashes) != root:
+            raise ValueError("invalid multiproof: root mismatch")
+
+    def compute_root_hash(self, leaf_hashes: Sequence[bytes]) -> bytes:
+        self.validate_basic()
+        if len(leaf_hashes) != len(self.indices):
+            raise ValueError(
+                f"multiproof expects {len(self.indices)} leaves, "
+                f"got {len(leaf_hashes)}")
+        aunts = iter(self.aunts)
+        hashes = iter(leaf_hashes)
+        pos = 0                       # the next unconsumed index
+
+        def walk(lo: int, hi: int) -> bytes:
+            nonlocal pos
+            if pos >= len(self.indices) or self.indices[pos] >= hi:
+                # no proven leaf in [lo, hi): one aunt covers it
+                try:
+                    return next(aunts)
+                except StopIteration:
+                    raise ValueError(
+                        "invalid multiproof: missing aunts") from None
+            if hi - lo == 1:
+                pos += 1
+                return next(hashes)
+            k = lo + _split_point(hi - lo)
+            left = walk(lo, k)
+            return inner_hash(left, walk(k, hi))
+
+        if self.total == 0:
+            if self.aunts or self.indices:
+                raise ValueError(
+                    "unexpected aunts/indices for empty tree")
+            return empty_hash()
+        out = walk(0, self.total)
+        if pos != len(self.indices):
+            raise ValueError("invalid multiproof: unconsumed indices")
+        if next(aunts, None) is not None:
+            raise ValueError("invalid multiproof: unconsumed aunts")
+        return out
+
+    def to_dict(self) -> dict:
+        return {"total": self.total, "indices": list(self.indices),
+                "aunts": [a.hex() for a in self.aunts]}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Multiproof":
+        return cls(total=d["total"], indices=list(d["indices"]),
+                   aunts=[bytes.fromhex(a) for a in d["aunts"]])
+
+
+def multiproof_from_byte_slices(
+        items: Sequence[bytes],
+        indices: Sequence[int]) -> tuple[bytes, Multiproof]:
+    """Root and one compact proof for the leaves at ``indices``, which
+    may come unsorted or repeated: the proof carries them sorted and
+    unique, and callers give leaves in that order.  Each untargeted
+    subtree is hashed once."""
+    return multiproof_from_leaf_hashes([leaf_hash(it) for it in items],
+                                       indices)
+
+
+def multiproof_from_leaf_hashes(
+        hashes: Sequence[bytes],
+        indices: Sequence[int]) -> tuple[bytes, Multiproof]:
+    """Multiproof over pre-hashed leaves (tx digests, kv bindings)."""
+    total = len(hashes)
+    idx = sorted(set(indices))
+    if idx and (idx[0] < 0 or idx[-1] >= total):
+        raise ValueError(
+            f"multiproof index out of range [0, {total})")
+    if total == 0:
+        return empty_hash(), Multiproof(total=0)
+    aunts: list[bytes] = []
+    pos = 0
+
+    def build(lo: int, hi: int) -> bytes:
+        nonlocal pos
+        if pos >= len(idx) or idx[pos] >= hi:
+            h = _root_from_leaf_hashes(hashes[lo:hi])
+            aunts.append(h)
+            return h
+        if hi - lo == 1:
+            pos += 1
+            return hashes[lo]
+        k = lo + _split_point(hi - lo)
+        left = build(lo, k)
+        return inner_hash(left, build(k, hi))
+
+    root = build(0, total)
+    return root, Multiproof(total=total, indices=idx, aunts=aunts)
+
+
+# -- chained proof operators (reference: crypto/merkle/proof_op.go) ---------
+
+def _uvarint(n: int) -> bytes:
+    """Uvarint length prefix (reference: crypto/merkle/types.go:30
+    encodeByteSlice)."""
+    return encode_uvarint(n)
+
+
 def value_op_leaf(key: bytes, value: bytes) -> bytes:
     """The <key, value-hash> leaf binding of ValueOp proofs and the
     kvstore's state tree (reference: proof_value.go:89-102 —
     encodeByteSlice(key) + encodeByteSlice(sha256(value)))."""
     vhash = _sha256(value)
-    return (encode_uvarint(len(key)) + key + encode_uvarint(len(vhash)) +
-            vhash)
+    return _uvarint(len(key)) + key + _uvarint(len(vhash)) + vhash
+
+
+class ProofOperator:
+    def run(self, values: list[bytes]) -> list[bytes]:
+        raise NotImplementedError
+
+    def get_key(self) -> bytes:
+        raise NotImplementedError
+
+
+@dataclass
+class ValueOp(ProofOperator):
+    """Proves a leaf value's inclusion under a root (reference:
+    proof_value.go)."""
+    key: bytes
+    proof: Proof
+
+    def run(self, values: list[bytes]) -> list[bytes]:
+        if len(values) != 1:
+            raise ValueError("ValueOp expects one value")
+        if leaf_hash(value_op_leaf(self.key, values[0])) != \
+                self.proof.leaf_hash:
+            raise ValueError("leaf hash mismatch")
+        return [self.proof.compute_root_hash()]
+
+    def get_key(self) -> bytes:
+        return self.key
+
+
+class ProofOperators(list):
+    def verify(self, root: bytes, keypath: Sequence[bytes],
+               args: list[bytes]) -> None:
+        keys = list(keypath)
+        for op in self:
+            key = op.get_key()
+            if key:
+                if not keys or keys[-1] != key:
+                    raise ValueError(f"key mismatch on {key!r}")
+                keys.pop()
+            args = op.run(args)
+        if args[0] != root:
+            raise ValueError("root mismatch after proof chain")
+        if keys:
+            raise ValueError("unconsumed keypath")
+
+    def verify_value(self, root: bytes, keypath: Sequence[bytes],
+                     value: bytes) -> None:
+        self.verify(root, keypath, [value])

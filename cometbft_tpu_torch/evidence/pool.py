@@ -15,7 +15,11 @@ of the conflicting set signed).  A duplicate vote is verified by
 ``EvidenceError``; a kernel that does not build or launch raises as it
 is.  ``EvidenceError`` is a kind of ``types.evidence.EvidenceError``, so
 the block executor can tell an invalid piece of evidence (an invalid
-block) from a failing device.
+block) from a failing device.  A light-client attack that lacks its
+conflicting block, signed header or validator set is refused with an
+``EvidenceError`` before anything reads them (``_check_shape``), in
+``add_evidence`` and ``check_evidence`` alike: the reference's
+``LightBlockFromProto`` and ``ValidateBasic`` refuse it at decode.
 """
 from __future__ import annotations
 
@@ -53,6 +57,20 @@ class EvidenceError(ev_types.EvidenceError):
     pass
 
 
+def _check_shape(ev: Evidence) -> None:
+    """Refuse a light-client attack whose conflicting block is not whole,
+    with LightClientAttackEvidence.validate_basic's texts."""
+    if not isinstance(ev, LightClientAttackEvidence):
+        return
+    cb = ev.conflicting_block
+    if cb is None or cb.signed_header is None or \
+            cb.signed_header.header is None or \
+            cb.signed_header.commit is None:
+        raise EvidenceError("conflicting block missing header")
+    if cb.validator_set is None:
+        raise EvidenceError("conflicting block missing validator set")
+
+
 class EvidencePool:
     def __init__(self, db: DB, state_store, block_store,
                  logger: Optional[Logger] = None, device=None):
@@ -80,6 +98,7 @@ class EvidencePool:
     def add_evidence(self, ev: Evidence) -> None:
         """Verify and keep gossiped or submitted evidence (reference:
         AddEvidence)."""
+        _check_shape(ev)
         if self._is_pending(ev) or self._is_committed(ev):
             return
         self.verify(ev)
@@ -248,6 +267,7 @@ class EvidencePool:
         CheckEvidence)."""
         seen = set()
         for ev in evidence:
+            _check_shape(ev)
             h = ev.hash()
             if h in seen:
                 raise EvidenceError("duplicate evidence in block")

@@ -7,20 +7,24 @@ and texts this copy keeps.
 
 One departure (ROADMAP.md §C): the JAX ``receive`` logs and drops every
 exception as "bad evidence message".  The port drops only what a peer
-can be at fault for — a message that does not decode, evidence the pool
-refuses (``EvidenceError``) and votes that do not validate or verify
-(``VoteError``).  Anything else, a kernel that does not build or launch
-among them, lands in ``failure`` (``raise_if_failed()`` raises it) and
-is raised, which drops the link it came on.
+can be at fault for — a message that does not decode, evidence that
+does not convert (``EncodingError``: a key of an unknown type;
+``BlockError``: a signed header with both commit forms), evidence the
+pool refuses (``EvidenceError``) and votes that do not validate or
+verify (``VoteError``).  Anything else, a kernel that does not build or
+launch among them, lands in ``failure`` (``raise_if_failed()`` raises
+it) and is raised, which drops the link it came on.
 """
 from __future__ import annotations
 
 import asyncio
 from typing import Optional
 
+from ..crypto.encoding import EncodingError
 from ..libs.log import Logger
 from ..p2p.conn import ChannelDescriptor
 from ..p2p.switch import Peer, Reactor
+from ..types.block import BlockError
 from ..types.evidence import EvidenceError as EvidenceTypeError
 from ..types.evidence import evidence_from_proto_wrapped
 from ..types.vote import VoteError
@@ -77,7 +81,8 @@ class EvidenceReactor(Reactor):
                 except EvidenceError as e:
                     self.logger.info("rejected evidence from peer",
                                      peer=peer.id[:12], err=str(e))
-        except (ValueError, EvidenceTypeError, VoteError) as e:
+        except (ValueError, EncodingError, BlockError, EvidenceTypeError,
+                VoteError) as e:
             self.logger.error("bad evidence message", err=str(e))
         except Exception as e:
             if self.failure is None:

@@ -11,13 +11,17 @@ does, as JSON, over a node with the same rows.  The routes read the JAX
 ``mempool``, ``consensus_state``, ``switch``, ``event_bus``,
 ``genesis_doc``, ``config``, ``app_conns``, ``tx_indexer``,
 ``block_indexer``, ``pruner``, ``evidence_pool``, ``status()`` and,
-where present, ``consensus_reactor`` / ``blocksync_reactor``), so any
-holder of them serves.  Not kept until the lightserve layer (ROADMAP
-A.7b'): the ``light_block``, ``multiproof`` and ``abci_query_batch``
-routes, which a client therefore finds missing (-32601, as from a JAX
-server from before lightserve), and the response cache.  ``tx_search``
-and ``block_search`` page over every match, as the reference does,
-where the JAX routes stop at the indexer's first 100.
+where present, ``consensus_reactor`` / ``blocksync_reactor`` and
+``lightserve_cache``), so any holder of them serves.  The lightserve
+routes ``light_block``, ``multiproof`` and ``abci_query_batch``
+(lightserve/core.py) and ``block`` and ``commit`` go through
+``_cached``: a holder with a ``lightserve_cache`` serves their answers
+below the tip from memory.  ``tx_search`` and ``block_search`` page
+over every match, as the reference does, where the JAX routes stop at
+the indexer's first 100.  A height the block store has pruned is never
+served from the cache: it is answered from the stores, with their
+error, as the reference (which has no cache) answers it; the JAX
+``_cached`` serves it from the cache.
 """
 from __future__ import annotations
 
@@ -75,6 +79,12 @@ def routes(env: Environment) -> dict:
         "num_unconfirmed_txs": lambda: _num_unconfirmed_txs(env),
         "block": lambda height="0": _block(env, height),
         "block_by_hash": lambda hash="": _block_by_hash(env, hash),
+        # lightserve: the proof-serving read surface (lightserve/)
+        "light_block": lambda height="0": _light_block(env, height),
+        "multiproof": lambda height="0", indices="":
+            _multiproof(env, height, indices),
+        "abci_query_batch": lambda path="", data="", height="0",
+        prove=False: _abci_query_batch(env, path, data, height, prove),
         "header": lambda height="0": _header(env, height),
         "header_by_hash": lambda hash="":
             _header_by_hash(env, hash),
@@ -407,8 +417,31 @@ def _normalize_height(env, height) -> int:
     return h
 
 
+async def _cached(env, method: str, height: int, extra, build):
+    """Serve ``method`` at ``height`` from the lightserve response cache
+    when the holder has one; otherwise build and, when the height is
+    below the tip (immutable), insert.  ``extra`` is the hashable rest
+    of the request key.  A height below the block store's base is built
+    from the stores."""
+    cache = getattr(env.node, "lightserve_cache", None)
+    if cache is None or height < env.block_store.base:
+        return await build()
+    hit = cache.get(method, height, extra)
+    if hit is not None:
+        return hit
+    res = await build()
+    cache.put(method, height, extra, res,
+              latest_height=env.block_store.height)
+    return res
+
+
 async def _block(env, height):
     h = _normalize_height(env, height)
+    return await _cached(env, "block", h, (),
+                         lambda: _build_block(env, h))
+
+
+async def _build_block(env, h):
     block = env.block_store.load_block(h)
     meta = env.block_store.load_block_meta(h)
     if block is None or meta is None:
@@ -416,6 +449,42 @@ async def _block(env, height):
         raise RPCError(-32603, f"block at height {h} not found")
     return {"block_id": _block_id_json(meta.block_id),
             "block": _block_json(block)}
+
+
+async def _light_block(env, height):
+    from ..lightserve import core as lightserve
+    h = _normalize_height(env, height)
+    return await _cached(env, "light_block", h, (),
+                         lambda: lightserve.light_block(env, h))
+
+
+async def _multiproof(env, height, indices):
+    from ..lightserve import core as lightserve
+    h = _normalize_height(env, height)
+    idx = tuple(sorted(set(lightserve.parse_indices(indices))))
+    return await _cached(env, "multiproof", h, idx,
+                         lambda: lightserve.tx_multiproof(env, h, idx))
+
+
+async def _abci_query_batch(env, path, data, height, prove):
+    from ..lightserve import core as lightserve
+
+    def build():
+        return lightserve.abci_query_batch(env, path, data, height,
+                                           prove)
+    try:
+        h = int(height)
+    except (TypeError, ValueError):
+        h = 0
+    if h <= 0 or not _parse_bool(prove):
+        # height 0 is the latest state, which moves, and an unproven
+        # batch reads whatever state the app serves: neither is
+        # cached.  A proven batch at an explicit height is pinned to
+        # that height's committed tree version.
+        return await build()
+    keys = tuple(k.hex() for k in lightserve._parse_keys(data))
+    return await _cached(env, "abci_query_batch", h,
+                         (str(path), keys), build)
 
 
 async def _block_by_hash(env, hash):
@@ -504,6 +573,13 @@ async def _block_results(env, height):
 
 async def _commit(env, height):
     h = _normalize_height(env, height)
+    # only heights below the tip are inserted (put refuses the rest),
+    # and below the tip the commit is canonical
+    return await _cached(env, "commit", h, (),
+                         lambda: _build_commit(env, h))
+
+
+async def _build_commit(env, h):
     meta = env.block_store.load_block_meta(h)
     commit = env.block_store.load_block_commit(h)
     canonical = True

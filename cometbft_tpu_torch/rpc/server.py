@@ -14,6 +14,12 @@ line and headers past it get a 431 and the connection is closed), which
 the JAX config carries and its server leaves unread.  The metrics page
 is the Prometheus text format only: the port's registry keeps no
 exemplars.
+
+Each limit holds only when it is > 0, as in the reference: a zero
+``max_open_connections`` means no limit (config.go, "0 - unlimited"),
+and a zero ``max_header_bytes`` takes net/http's 1 MiB default.
+``routes=`` overrides the method table: the light verifying proxy
+(light/proxy.py) serves its own routes and has no node.
 """
 from __future__ import annotations
 
@@ -35,15 +41,22 @@ class RPCError(Exception):
         self.data = data
 
 
+# net/http's DefaultMaxHeaderBytes, taken for a zero max_header_bytes
+DEFAULT_MAX_HEADER_BYTES = 1 << 20
+
+
 class RPCServer:
-    def __init__(self, node, config: RPCConfig):
+    def __init__(self, node, config: RPCConfig, routes=None):
         """``node`` is anything with the attributes rpc/core's routes
-        read (cometbft_tpu/node/node.py's Node names them)."""
+        read (cometbft_tpu/node/node.py's Node names them).  ``routes``
+        overrides the method table; a ``node=None`` server then has no
+        Environment."""
         self.node = node
         self.config = config
         self.logger = new_logger("rpc")
-        self.env = core.Environment(node)
-        self.routes = core.routes(self.env)
+        self.env = core.Environment(node) if node is not None else None
+        self.routes = routes if routes is not None \
+            else core.routes(self.env)
         self._server: Optional[asyncio.base_events.Server] = None
         self.listen_addr = ""
         self._ws_counter = 0
@@ -69,9 +82,13 @@ class RPCServer:
     # ------------------------------------------------------------------
     async def _handle_conn(self, reader: asyncio.StreamReader,
                            writer: asyncio.StreamWriter) -> None:
-        if self._open_conns >= self.config.max_open_connections:
+        max_conns = self.config.max_open_connections
+        if 0 < max_conns <= self._open_conns:
             writer.close()
             return
+        max_header = self.config.max_header_bytes
+        if max_header <= 0:
+            max_header = DEFAULT_MAX_HEADER_BYTES
         self._open_conns += 1
         try:
             while True:
@@ -88,7 +105,7 @@ class RPCServer:
                 while True:
                     line = await reader.readline()
                     header_bytes += len(line)
-                    if header_bytes > self.config.max_header_bytes:
+                    if header_bytes > max_header:
                         writer.write(
                             b"HTTP/1.1 431 Request Header Fields Too "
                             b"Large\r\nContent-Length: 0\r\n"

@@ -2,9 +2,9 @@
 
 The port's copy of cometbft_tpu/statetree/tree.py.  Leaves hash with
 ``merkle.leaf_hash`` (hashlib) only, so the roots are byte-equal to the
-reference package's on any machine; proofs (``prove``,
-statetree/proof.py) wait for ROADMAP A.7b'.  The reference's memo of
-materialized versions serves only its proofs, so this copy has none.
+reference package's on any machine.  ``prove`` builds the proof
+envelopes of statetree/proof.py; the views of past versions it proves
+against are memoised (``memo_versions``, LRU), as in the reference.
 
 Design: a sorted-kv commitment with versioned nodes.  The committed state
 at version V is the set of live (key, value) pairs; its root is the
@@ -40,6 +40,7 @@ import bisect
 import json
 import struct
 import threading
+from collections import OrderedDict
 from typing import Iterable, Optional
 
 from ..crypto import merkle
@@ -85,13 +86,14 @@ class StateTree:
     root the next ``commit(v)`` will produce (FinalizeBlock returns
     the app_hash before Commit persists, so the two are split);
     ``commit(v)`` persists one atomic batch and promotes the working
-    view.  Reads (``get``/``pairs``) always serve committed versions,
-    never the working set.
+    view.  Reads (``get``/``pairs``/``prove``) always serve committed
+    versions, never the working set.
     """
 
-    def __init__(self, db: DB):
+    def __init__(self, db: DB, memo_versions: int = 4):
         self._db = db
         self._lock = threading.RLock()
+        self._memo_versions = max(1, memo_versions)
         # committed latest view
         self._map: dict[bytes, bytes] = {}
         self._sorted: list[bytes] = []
@@ -101,6 +103,8 @@ class StateTree:
         # working_root result awaiting commit:
         # (version, sorted_keys, map, leafh, root)
         self._pending = None
+        # version -> (keys, values, leaf_hashes, index_of), LRU
+        self._memo: OrderedDict[int, tuple] = OrderedDict()
         self.latest_version: Optional[int] = None
         self.base_version: int = 0
         self._roots: dict[int, bytes] = {}
@@ -162,7 +166,7 @@ class StateTree:
         """Sorted live (key, value) pairs at ``version`` (default
         latest)."""
         with self._lock:
-            keys, values = self._view(version)
+            keys, values, _, _ = self._view(version)
             return list(zip(keys, values))
 
     def total(self, version: Optional[int] = None) -> int:
@@ -333,10 +337,11 @@ class StateTree:
 
     def prune(self, retain_from: int,
               pinned: Iterable[int] = ()) -> int:
-        """Drop versions < ``retain_from`` except ``pinned`` ones.  Node
-        records are compacted so every retained version still
-        materializes the exact same pairs.  Returns the number of
-        versions dropped.
+        """Drop versions < ``retain_from`` except ``pinned`` ones (heights
+        the lightserve cache can still serve: pruning one would break a
+        cached height's proof).  Node records are compacted so every
+        retained version still materializes the exact same pairs.
+        Returns the number of versions dropped.
 
         The rows it leaves are the reference's: a record is kept iff it
         is the newest <= some kept version, rewritten AT the pruning
@@ -393,6 +398,7 @@ class StateTree:
             for v in drop:
                 batch.delete(_VERSION + _be64(v))
                 self._roots.pop(v, None)
+                self._memo.pop(v, None)
             batch.set(_META_BASE, _be64(floor))
             batch.write()
             self.base_version = floor
@@ -415,6 +421,7 @@ class StateTree:
             self._leafh = {}
             self._working = {}
             self._pending = None
+            self._memo.clear()
             self._roots.clear()
             self.latest_version = None
             self.base_version = version
@@ -422,17 +429,44 @@ class StateTree:
                 self.set(k, v)
             return self.commit(version, extra=extra)
 
+    # -- proofs ---------------------------------------------------------------
+
     def _view(self, version: Optional[int]) -> tuple:
-        """(sorted keys, values) at ``version``: latest from the live
-        view, history from a scan."""
+        """(keys, values, leaf_hashes, index_of) at ``version``: latest
+        from the live view, history from a memoised scan."""
         if self.latest_version is None:
-            return [], []
+            return [], [], [], {}
         v = self.latest_version if version is None else version
         if v == self.latest_version:
-            return self._sorted, [self._map[k] for k in self._sorted]
+            keys = self._sorted
+            return keys, [self._map[k] for k in keys], \
+                [self._leafh[k] for k in keys], \
+                {k: i for i, k in enumerate(keys)}
+        if v in self._memo:
+            self._memo.move_to_end(v)
+            return self._memo[v]
         if v > self.latest_version or v < self.base_version or \
                 self._db.get(_VERSION + _be64(v)) is None:
             raise KeyError(f"state tree has no version {v}")
         m = self._materialize(v)
         keys = sorted(m)
-        return keys, [m[k] for k in keys]
+        view = (keys, [m[k] for k in keys],
+                _leaf_hashes([merkle.value_op_leaf(k, m[k]) for k in keys]),
+                {k: i for i, k in enumerate(keys)})
+        self._memo[v] = view
+        while len(self._memo) > self._memo_versions:
+            self._memo.popitem(last=False)
+        return view
+
+    def prove(self, request_keys: Iterable[bytes],
+              version: Optional[int] = None) -> dict:
+        """Proof envelope (proof.py) for ``request_keys``: existence for
+        present keys, non-inclusion for absent ones, at ``version``
+        (default latest)."""
+        from .proof import build_proof_envelope
+        with self._lock:
+            keys, values, hashes, index_of = self._view(version)
+            v = self.latest_version if version is None else version
+            return build_proof_envelope(
+                list(request_keys), keys, values, hashes, index_of,
+                0 if v is None else v)

@@ -8,7 +8,10 @@ Gogoproto-compatible semantics (reference: api/ generated marshalers):
     (field emitted even when the value is all-zero); otherwise a None value
     omits the field;
   * int32/int64/enum negatives encode as 10-byte two's-complement varints;
-  * unknown fields are skipped on decode (forward compatibility).
+  * unknown fields are skipped on decode (forward compatibility);
+  * a known field whose wire type is not its kind's is refused with a
+    ValueError, as gogoproto refuses a "wrong wireType"; a repeated
+    number field also reads a packed run (wire type 2).
 
 Messages are plain dicts keyed by field name; absent == default.
 """
@@ -325,12 +328,29 @@ def decode(desc: Msg, data: bytes) -> dict:
                 d.setdefault(f.name, []).append(v)
             else:
                 d[f.name] = v
-        else:
+        elif wt == _KIND_WT[f.kind]:
             v, pos = _dec_scalar(f, data, pos, wt)
             if f.repeated:
                 d.setdefault(f.name, []).append(v)
             else:
                 d[f.name] = v
+        elif wt == _WT_LEN and f.repeated:
+            # a packed run of a repeated number field, as gogoproto
+            # writes and reads it
+            ln, pos = decode_uvarint(data, pos)
+            end = pos + ln
+            if end > n:
+                raise ValueError("truncated packed field")
+            items = d.setdefault(f.name, [])
+            inner = _KIND_WT[f.kind]
+            while pos < end:
+                v, pos = _dec_scalar(f, data, pos, inner)
+                items.append(v)
+            if pos != end:
+                raise ValueError("truncated packed field")
+        else:
+            # gogoproto: "proto: wrong wireType"
+            raise ValueError(f"{desc.name}.{f.name}: bad wire type {wt}")
     # gogoproto nullable=false embedded messages decode to their zero value
     for f in desc.fields:
         if f.kind == "msg" and f.always and not f.repeated and f.name not in d:

@@ -882,3 +882,170 @@ def test_phase_12_rehearsed_at_12_validators(monkeypatch):
     assert launches["cs_reject"] == 0
     assert launches["net_4x3"] > 3
     assert launches8 == {"wal_replay_12_cuda8": 2}
+
+
+# -- malformed peer input (ROADMAP §C.1, §C.2) ---------------------------------
+
+def _mixed_genesis():
+    """C.1's genesis: four validators of power 10, keys seeds(4, 403),
+    chain "mixed"."""
+    return _make_genesis(4, chain_id="mixed", keys=[
+        p_ed.Ed25519PrivKey(s) for s in seeds(4, 403)])
+
+
+def _garbage_proposal(doc, pv, data):
+    """Height 1's proposer signs a round-0 proposal whose part set holds
+    ``data``, which is no block."""
+    from cometbft_tpu_torch.types.part_set import PartSet
+    from cometbft_tpu_torch.types.proposal import Proposal
+    parts = PartSet.from_data(data)
+    prop = Proposal(height=1, round=0, pol_round=-1,
+                    block_id=BlockID(hash=bytes(range(32)),
+                                     part_set_header=parts.header()),
+                    timestamp=Timestamp.now())
+    pv.sign_proposal(doc.chain_id, prop)
+    return [pm.encode_p2p(pm.ProposalMessage(prop)),
+            pm.encode_p2p(pm.BlockPartMessage(1, 0, parts.get_part(0)))]
+
+
+@pytest.mark.parametrize("data", [b"\xff\xff\xff", b"\x0a\x05ab"])
+def test_undecodable_proposal_block_is_dropped_and_the_net_commits(data):
+    """C.1: a signed proposal whose parts are no block reaches an observer
+    node; the block is dropped with a log line, ``failure`` stays None,
+    and the observer commits the honest proposal of a later round."""
+    async def go():
+        doc, pvs = _mixed_genesis()
+        proposer = make_genesis_state(doc).validators.get_proposer()
+        byz = next(pv for pv in pvs
+                   if pv.get_pub_key().address() == proposer.address)
+        honest = [_make_node(doc, pv)[0] for pv in pvs if pv is not byz]
+        observer = _make_node(doc, None)[0]
+        errors = []
+
+        class Recorder:
+            def __getattr__(self, name):
+                return lambda msg, **kw: None
+
+            def error(self, msg, **kw):
+                errors.append((msg, kw))
+        observer.logger = Recorder()
+        nodes = honest + [observer]
+        _wire(honest)
+        # the observer hears the validators as the consensus reactor's
+        # data gossip serves a peer: a proposal and its parts once the
+        # peer is in their round (the in-process net sends each once)
+        held = []
+
+        def relay():
+            keep = []
+            for msg, peer in held:
+                at = (msg.proposal.height, msg.proposal.round) \
+                    if isinstance(msg, pm.ProposalMessage) else \
+                    (msg.height, msg.round) \
+                    if isinstance(msg, pm.BlockPartMessage) else (0, 0)
+                if at > (observer.rs.height, observer.rs.round):
+                    keep.append((msg, peer))
+                else:
+                    observer.send_peer(msg, peer)
+            held[:] = keep
+
+        for i, node in enumerate(honest):
+            def hook(msg, i=i):
+                if isinstance(msg, GOSSIP):
+                    held.append((pm.decode_p2p(pm.encode_p2p(msg)),
+                                 f"node{i}"))
+                    relay()
+            node.broadcast_hooks.append(hook)
+
+        async def relay_loop():
+            while True:
+                relay()
+                await asyncio.sleep(0.002)
+
+        for raw in _garbage_proposal(doc, byz, data):
+            observer.send_peer(pm.decode_p2p(raw), "byzantine")
+        for node in nodes:
+            await node.start()
+        task = asyncio.ensure_future(relay_loop())
+        try:
+            await _wait_for_height(nodes, 2, timeout=60.0)
+            assert observer.failure is None
+        finally:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+            for node in nodes:
+                await node.stop()
+        assert [kw["peer"] for msg, kw in errors
+                if msg == "failed to decode proposal block"] == \
+            ["byzantine"]
+        assert len({n.block_store.load_block(1).hash() for n in nodes}) == 1
+        assert observer.block_store.load_block(1).hash() != bytes(range(32))
+    run(go())
+
+
+def _first_prevote_bytes():
+    """C.2's input: the first prevote of C.1's chain, as wire bytes."""
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.part_set import PartSetHeader
+    from cometbft_tpu_torch.types.vote import Vote
+    doc, pvs = _mixed_genesis()
+    vals = make_genesis_state(doc).validators
+    idx, val = vals.get_by_address(pvs[0].get_pub_key().address())
+    vote = Vote(type=canonical.PREVOTE_TYPE, height=1, round=0,
+                block_id=BlockID(hash=bytes(range(32)),
+                                 part_set_header=PartSetHeader(
+                                     total=1, hash=bytes(range(32, 64)))),
+                timestamp=Timestamp(1700000001, 0),
+                validator_address=val.address, validator_index=idx)
+    pvs[0].sign_vote(doc.chain_id, vote, False)
+    return pm.encode_p2p(pm.VoteMessage(vote))
+
+
+def test_mistyped_scalar_field_is_refused_at_decode():
+    """C.2: the prevote with ``Vote.block_id``'s length cut from 0x48 to
+    0x22 puts the part-set header's bytes in Vote field 2 (height) as a
+    length-delimited field; the decoder refuses it, as gogoproto refuses
+    a wrong wire type, so no ``bytes`` height reaches ``_add_vote``."""
+    raw = _first_prevote_bytes()
+    at = raw.index(b"\x22\x48\x0a\x20")
+    mutated = raw[:at + 1] + b"\x22" + raw[at + 2:]
+    assert pm.decode_p2p(raw).vote.height == 1
+    with pytest.raises(ValueError, match="bad wire type 2"):
+        pm.decode_p2p(mutated)
+
+
+def test_recorded_wire_messages_decode_as_before(twin):
+    """C.2: every message of the twin chain's feed, and every block of the
+    chain, decodes to the same dict through the port's checked decoder as
+    through the JAX package's (the port's decoder before the check)."""
+    from cometbft_tpu.wire import consensus_pb as r_consensus_pb
+    from cometbft_tpu.wire import decode as r_decode
+    from cometbft_tpu.wire import pb as r_pb
+    from cometbft_tpu_torch.wire import consensus_pb, decode, encode, pb
+    chain, _, raw = twin
+    msgs = [m for h in sorted(raw) for m in raw[h]]
+    assert len(msgs) > 4 * TOP
+    for m in msgs:
+        assert decode(consensus_pb.MESSAGE, m) == \
+            r_decode(r_consensus_pb.MESSAGE, m)
+    for h in range(1, TOP + 1):
+        block = encode(pb.BLOCK, chain.block_store.load_block(h).to_proto())
+        assert decode(pb.BLOCK, block) == r_decode(r_pb.BLOCK, block)
+
+
+def test_packed_elems_decode_to_ints_as_gogoproto_does():
+    """C.2: ``BitArray.elems`` read from a packed run (wire type 2) is a
+    list of ints, as gogoproto reads it; an unpacked run reads the same,
+    and a run that ends inside a varint is refused."""
+    from cometbft_tpu_torch.wire import consensus_pb, decode
+    from cometbft_tpu_torch.wire.proto import encode_uvarint
+    body = encode_uvarint(5) + encode_uvarint(300) + \
+        encode_uvarint((1 << 64) - 1)
+    packed = b"\x08\x0a\x12" + encode_uvarint(len(body)) + body
+    unpacked = b"\x08\x0a" + b"".join(
+        b"\x10" + encode_uvarint(v) for v in (5, 300, (1 << 64) - 1))
+    want = {"bits": 10, "elems": [5, 300, (1 << 64) - 1]}
+    assert decode(consensus_pb.BIT_ARRAY, packed) == want
+    assert decode(consensus_pb.BIT_ARRAY, unpacked) == want
+    with pytest.raises(ValueError, match="truncated"):
+        decode(consensus_pb.BIT_ARRAY, b"\x12\x02\x80\x80")

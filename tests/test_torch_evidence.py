@@ -551,6 +551,56 @@ def test_reactor_drops_bad_messages_and_refused_evidence(chains, stand_in):
     reactor.raise_if_failed()
 
 
+def _malformed_evidence_inputs(chains):
+    """ROADMAP §C.3's three inputs, as evidence list messages: a
+    conflicting set holding a validator with an empty key; one flipped
+    byte in a key type ("ed25519") of a real attack's conflicting set;
+    an attack with no conflicting block."""
+    raw = encode(p_ev_reactor.EVIDENCE_LIST_MSG,
+                 {"evidence": [_attack("port", chains).to_proto_wrapped()]})
+    at = raw.index(b"ed25519")
+    flipped = raw[:at + 3] + bytes([raw[at + 3] ^ 1]) + raw[at + 4:]
+    headless = encode(p_ev_reactor.EVIDENCE_LIST_MSG, {"evidence": [
+        {"light_client_attack_evidence": {"common_height": 2}}]})
+    return [bytes.fromhex("0a0612041a002a00"), flipped, headless]
+
+
+def test_malformed_evidence_is_dropped_not_latched(chains, stand_in):
+    """C.3: the three inputs are the peer's fault: each is dropped as a
+    bad message or refused evidence, and nothing lands in ``failure``."""
+    pool = _pool("port", chains)
+    reactor = p_ev_reactor.EvidenceReactor(pool)
+    peer = SimpleNamespace(id="ab" * 20)
+    for raw in _malformed_evidence_inputs(chains):
+        run(reactor.receive(0x38, peer, raw))
+        assert reactor.failure is None
+    reactor.raise_if_failed()
+    assert pool.all_pending() == []
+    headless = p_evidence.evidence_from_proto_wrapped(
+        {"light_client_attack_evidence": {"common_height": 2}})
+    with pytest.raises(p_pool.EvidenceError,
+                       match="conflicting block missing header"):
+        pool.add_evidence(headless)
+
+
+def test_headless_attack_in_a_block_is_an_invalid_block(chains, stand_in):
+    """C.3's third input on the block path: ``check_evidence`` refuses it
+    before ``verify``, so the executor raises BlockValidationError."""
+    chain = chains["port"]
+    pool = _pool("port", chains)
+    ex = BlockExecutor(chain.state_store, chain.conns.consensus,
+                       evpool=pool, block_store=chain.block_store,
+                       device="cpu")
+    block = chain.block_store.load_block(TOP)
+    block.evidence = [p_evidence.evidence_from_proto_wrapped(
+        {"light_client_attack_evidence": {"common_height": 2}})]
+    ex._last_validated_hash = block.hash()   # the LastCommit passed
+    with pytest.raises(BlockValidationError,
+                       match="invalid evidence: conflicting block missing "
+                             "header"):
+        ex.validate_block(chain.state_store.load(), block)
+
+
 def test_broadcast_routine_sends_each_pending_once(chains, stand_in):
     class Peer:
         id = "cd" * 20

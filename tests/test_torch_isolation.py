@@ -14,14 +14,16 @@
     extend; privval's FilePV and remote signer, the kv indexers and
     their service, the RPC server, routes, WebSocket and client, the
     HTTP provider, the RPC state provider, the load generator and the
-    flight recorder the trace route reads) loads neither jax nor
-    anything of cometbft_tpu;
+    flight recorder the trace route reads; the lightserve cache and
+    routes, the state tree's proofs, the state proof check and the light
+    proxy) loads neither jax nor anything of cometbft_tpu;
   * importing the p2p stack and the reactor, and running a secret
     connection's handshake, loads no ``cryptography`` either: the port
     seals every frame in its own host library;
   * the entry points resolve ``device=None`` to CUDA and raise where
     CUDA is absent — no silent CPU fallback; a light client over
-    HttpProviders and ``new_rpc_state_provider`` included;
+    HttpProviders, ``new_rpc_state_provider`` and the light proxy
+    included;
   * the kernel wrapper rejects wrong dtypes, shapes, devices and
     layouts before any pointer reaches native code.
 """
@@ -88,6 +90,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert set(SYNC_MODULES) <= set(mods)
     assert set(STATESYNC_MODULES) <= set(mods)
     assert set(RPC_MODULES) <= set(mods)
+    assert set(LIGHTSERVE_MODULES) <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -166,6 +169,44 @@ RPC_MODULES = ("cometbft_tpu_torch.privval",
                "cometbft_tpu_torch.state.pruner",
                "cometbft_tpu_torch.tools.loadtime",
                "cometbft_tpu_torch.config")
+
+
+LIGHTSERVE_MODULES = ("cometbft_tpu_torch.lightserve",
+                      "cometbft_tpu_torch.lightserve.cache",
+                      "cometbft_tpu_torch.lightserve.core",
+                      "cometbft_tpu_torch.statetree.proof",
+                      "cometbft_tpu_torch.light.state_proof",
+                      "cometbft_tpu_torch.light.proxy")
+
+
+def test_lightserve_loads_no_jax_or_reference():
+    """The lightserve cache and routes, the state tree's proofs, the state
+    proof check and the light proxy, imported in a fresh interpreter,
+    load nothing of jax, of the JAX package or of ``cryptography``."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {LIGHTSERVE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'cryptography'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_light_proxy_raises_without_cuda():
+    """``LightProxy`` left at device=None raises where CUDA is absent, at
+    construction, before any request leaves; device="cpu" builds it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cometbft_tpu_torch.light.proxy import LightProxy
+    args = ("c", "http://127.0.0.1:1", [], 1, b"h" * 32,
+            "tcp://127.0.0.1:0")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LightProxy(*args)
+    assert LightProxy(*args, device="cpu").device == torch.device("cpu")
 
 
 def test_privval_indexer_and_rpc_load_no_jax_or_reference():

@@ -12,7 +12,7 @@ state tree (statetree/tree.py) and the local ABCI clients
   * a restart on the same db resumes at the same height and app hash;
   * ``StateTree`` roots at 0, 1 and 1,000 leaves, with deletes and
     historical reads, equal to the JAX package's tree;
-  * /multistore proofs wait for ROADMAP A.7b': the port says so.
+  * the /multistore proof query answers as the JAX app's.
 
 Inputs come from seeded numpy generators; equality is exact.
 """
@@ -165,9 +165,16 @@ def test_unsync_client_and_multistore():
     client = UnsyncLocalClient(app)
     resp = asyncio.run(client.check_tx(abci.CheckTxRequest(tx=b"k=v")))
     assert resp.is_ok() and resp.lane_id == "default"
-    with pytest.raises(NotImplementedError, match="A.7b'"):
-        asyncio.run(app.query(abci.QueryRequest(
-            data=b'{"keys": []}', path="/multistore")))
+    # the /multistore query answers as the JAX app's (it raised naming
+    # the lightserve slice until that slice was ported)
+    r_app = RKVStore()
+    for data in (b'{"keys": []}', b'{"keys": ["6b"]}', b"nope"):
+        got = asyncio.run(app.query(abci.QueryRequest(
+            data=data, path="/multistore")))
+        want = asyncio.run(r_app.query(r_abci.QueryRequest(
+            data=data, path="/multistore")))
+        assert (got.code, got.log, got.value, got.height) == \
+            (want.code, want.log, want.value, want.height)
 
 
 @pytest.mark.parametrize("leaves", [0, 1, 1000])

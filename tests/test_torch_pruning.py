@@ -2,10 +2,11 @@
 
   * the state tree's ``prune`` and ``import_snapshot``
     (statetree/tree.py): tests/test_statetree.py ``TestPruning`` and the
-    statesync restore case run against the port (without the lightserve
-    pin, which comes with ROADMAP A.7b'), and seeded histories of sets,
-    deletes, prunes and pins whose tree rows equal the JAX tree's row for
-    row after every prune;
+    statesync restore case run against the port, and seeded histories of
+    sets, deletes, prunes and pins whose tree rows equal the JAX tree's
+    row for row after every prune;
+  * the kvstore's ``version_pin``: a height a lightserve ResponseCache
+    holds survives the kvstore's prune, and its proof still verifies;
   * the kvstore's snapshots and retain height (abci/kvstore.py): the same
     snapshot list, chunks, retain heights, pruned versions and query texts;
   * the stores' ``prune_blocks``, ``delete_latest_block``,
@@ -29,6 +30,7 @@ Equality is exact.
 """
 import asyncio
 import dataclasses
+import json
 import random
 
 import pytest
@@ -311,6 +313,47 @@ def test_kvstore_retain_blocks_prunes_the_tree():
     assert got == want
     assert got[0] == [0, 1, 2, 3, 4] and got[1] == [3, 4, 5]
     assert got[3][1] == "height 1 pruned (oldest retained 3)"
+
+
+def test_cached_height_survives_the_kvstores_prune():
+    """A proven batch cached at height 2 pins version 2: commits past the
+    retain horizon keep it, and its proof envelope still verifies against
+    the version's root, while the unpinned versions below the horizon are
+    gone.  The same rows, answers and texts as the JAX kvstore."""
+    from cometbft_tpu.lightserve.cache import ResponseCache as RCache
+    from cometbft_tpu.statetree import verify_proof_envelope as r_verify
+    from cometbft_tpu_torch.lightserve.cache import ResponseCache
+    from cometbft_tpu_torch.statetree import verify_proof_envelope
+    cache_of = {"port": ResponseCache, "jax": RCache}
+    verify_of = {"port": verify_proof_envelope, "jax": r_verify}
+    keys = json.dumps({"keys": [b"a".hex(), b"zz".hex()]}).encode()
+
+    async def go(side):
+        a = SIDES[side]["abci"]
+        app, cache = SIDES[side]["KVStore"](), cache_of[side]()
+        app.retain_blocks = 2
+        app.version_pin = cache.heights
+        blocks = [[b"a=%d" % h, b"k%d=v" % h] for h in range(1, 9)]
+        await _drive_blocks(side, app, blocks[:3])
+        q = await app.query(a.QueryRequest(path="/multistore", data=keys,
+                                           height=2, prove=True))
+        assert cache.put("abci_query_batch", 2, ("", ("61", "7a7a")),
+                         json.loads(q.value), latest_height=3)
+        await _drive_blocks(side, app, blocks[3:], start_height=4)
+        again = await app.query(a.QueryRequest(
+            path="/multistore", data=keys, height=2, prove=True))
+        env = json.loads(again.value)
+        verify_of[side](env, present=[(b"a", b"2")], absent=[b"zz"],
+                        expected_root=app.tree.root(2))
+        gone = await app.query(a.QueryRequest(
+            path="/multistore", data=keys, height=3, prove=True))
+        return (app.tree.versions(), rows(app.db), env == json.loads(q.value),
+                (gone.code, gone.log))
+
+    got, want = run(go("port")), run(go("jax"))
+    assert got == want
+    assert got[0] == [2, 6, 7, 8] and got[2]
+    assert got[3][1] == "multistore: 'state tree has no version 3'"
 
 
 # -- the stores, row for row ---------------------------------------------------

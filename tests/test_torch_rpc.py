@@ -116,7 +116,7 @@ class StubSwitch:
 class Holder:
     """A node holder with the JAX Node's attribute names."""
     moniker = "anonymous"
-    consensus_reactor = blocksync_reactor = None
+    consensus_reactor = blocksync_reactor = lightserve_cache = None
 
     def __init__(self, status, **parts):
         self.__dict__.update(parts)
@@ -323,6 +323,20 @@ def _calls(twins):
         ("dial_seeds", {"seeds": "a@127.0.0.1:1"}),
         ("dial_peers", {"peers": "a@127.0.0.1:1"}),
         ("unsafe_flush_mempool", {}),
+        *[("light_block", {"height": str(h)}) for h in (0, 1, 3, TOP, 99)],
+        ("multiproof", {"height": "3", "indices": "2,0,2"}),
+        ("multiproof", {"height": "3", "indices": ""}),
+        ("multiproof", {"height": "3", "indices": "9"}),
+        ("multiproof", {"height": "3", "indices": "x"}),
+        ("multiproof", {"height": "99", "indices": "0"}),
+        *[("abci_query_batch", {"data": keys, "height": h, "prove": prove})
+          for keys in ("0x61,0x" + b"zz".hex() + ",0x00", "0x61")
+          for h in ("0", "3", str(TOP - 1))
+          for prove in ("true", False)],
+        ("abci_query_batch", {"data": "", "prove": "true"}),
+        ("abci_query_batch", {"data": "0x61", "height": "x"}),
+        ("abci_query_batch", {"data": "0x61", "height": "99",
+                              "prove": "true"}),
     ]
 
 
@@ -342,8 +356,11 @@ def test_route_table_is_the_spec_less_lightserve_and_answers_hold_it(twins):
         spec = json.load(f)
     routes = p_core.routes(p_core.Environment(twins["pn"]))
     rroutes = r_core.routes(r_core.Environment(twins["rn"]))
-    assert sorted(routes) == sorted(set(spec["methods"]) - set(LIGHTSERVE))
-    assert sorted(routes) == sorted(set(rroutes) - set(LIGHTSERVE))
+    # the lightserve routes included (they answered -32601 until the
+    # lightserve layer was ported)
+    assert set(LIGHTSERVE) <= set(routes)
+    assert sorted(routes) == sorted(spec["methods"])
+    assert sorted(routes) == sorted(rroutes)
     loop, cfgs = twins["loop"], (twins["pn"].config, twins["rn"].config)
     seen = set()
     for cfg in cfgs:
@@ -506,15 +523,9 @@ def _servers(loop, pn, rn, jax_routes=None, **cfg):
     return ps, rs
 
 
-def _before_lightserve(rn):
-    """The JAX route table as a server from before lightserve has it."""
-    return {k: v for k, v in r_core.routes(r_core.Environment(rn)).items()
-            if k not in LIGHTSERVE}
-
-
 def test_http_parsing_error_codes_and_texts_equal_the_jax_server(twins):
     loop, pn, rn = twins["loop"], twins["pn"], twins["rn"]
-    ps, rs = _servers(loop, pn, rn, _before_lightserve(rn))
+    ps, rs = _servers(loop, pn, rn)
     try:
         for raw in HTTP_CASES:
             mine = loop.run_until_complete(_http(ps.port, raw))
@@ -563,6 +574,49 @@ def test_header_and_connection_limits(twins):
         await asyncio.sleep(0.05)
         assert (await _http(ps.port, _get("/health"))).startswith(
             b"HTTP/1.1 200 OK")
+    try:
+        loop.run_until_complete(run())
+    finally:
+        loop.run_until_complete(ps.stop())
+        loop.run_until_complete(rs.stop())
+
+
+@pytest.mark.parametrize("limit", ["max_open_connections",
+                                   "max_header_bytes"])
+def test_zero_limits_mean_no_limit_and_one_mib(twins, limit):
+    """C.4: a zero ``max_open_connections`` is no limit and a zero
+    ``max_header_bytes`` is net/http's 1 MiB, as in the reference."""
+    loop, pn, rn = twins["loop"], twins["pn"], twins["rn"]
+    ps, rs = _servers(loop, pn, rn, **{limit: 0})
+
+    async def run():
+        held = await asyncio.open_connection("127.0.0.1", ps.port)
+        await asyncio.sleep(0.05)
+        got = await _http(ps.port, _get("/health"))
+        assert got.startswith(b"HTTP/1.1 200 OK"), got
+        # a request line and headers of exactly 1 MiB are answered;
+        # one byte more gets a 431 (read whole, so the answer is not
+        # lost to a reset)
+        def sized(total):
+            raw = _get("/health")
+            need = total - len(raw)
+            pad = b""
+            while need > 0:
+                k = min(need, 4000)
+                if need - k and need - k < 16:
+                    k -= 16
+                line = b"X-P: " + b"x" * (k - 7) + b"\r\n"
+                pad += line
+                need -= len(line)
+            out = raw.replace(b"Host: x\r\n", b"Host: x\r\n" + pad)
+            assert len(out) == total
+            return out
+        got = await _http(ps.port, sized(1 << 20))
+        assert got.startswith(b"HTTP/1.1 200 OK"), got[:40]
+        if limit == "max_header_bytes":
+            assert (await _http(ps.port, sized((1 << 20) + 1))).startswith(
+                b"HTTP/1.1 431 ")
+        held[1].close()
     try:
         loop.run_until_complete(run())
     finally:
@@ -767,9 +821,9 @@ def test_http_provider_syncs_over_both_servers_as_the_jax_client(
                         r_encode(r_pb.SIGNED_HEADER,
                                  b.signed_header.to_proto())
                     assert a.validator_set.hash() == b.validator_set.hash()
-                # the port server answered light_block with -32601, the
-                # JAX one served it
-                assert provs[0]._has_light_block == (urls[0] == rurl)
+                # both servers served light_block: no fallback to /commit
+                # and /validators
+                assert provs[0]._has_light_block
                 for h in range(1, TOP + 1):
                     got = loop.run_until_complete(provs[0].light_block(h))
                     want_vals = pn.state_store.load_validators(h)
@@ -926,3 +980,60 @@ def test_phase_16_rehearsed_at_12_validators(monkeypatch):
     assert launches["privval_4x5"] > 0 and launches["rpc_reject"] > 0
     assert launches8 == {"rpc_reject_cuda8": launches8["rpc_reject_cuda8"]}
     assert launches8["rpc_reject_cuda8"] > 0
+
+
+def test_phase_17_rehearsed_at_12_validators(monkeypatch):
+    """Phase 17 at 12 validators over phase 15's 17-height source, with B1
+    replaced by the memoised golden-model check of phase 16's rehearsal
+    (15c installs a kernel named ``raising``):
+    17a's syncs over lightserve servers (one round trip a light block,
+    B1's launches equal NodeProvider's, cache hits on the second pass)
+    against NodeProviders and the fallback, 17b's proofs and refusals,
+    17c's pin, 17d's proxy and forged tx, 17e's repairs."""
+    from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    from cometbft_tpu_torch.crypto.pipeline import DEFAULT_TILE, tile_plan
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    monkeypatch.setattr(cs, "_device_busy",
+                        lambda fn: (fn(), (1.0, None, None, 0))[1])
+    for name, value in (("EXEC_VALIDATORS", 12), ("EXEC_UPDATES", (2, 3, 4)),
+                        ("EXEC_TXS", 5), ("SS_HEIGHTS", 17),
+                        ("SS_INTERVAL", 6), ("SS_RETAIN", 8),
+                        ("SS_TRUST", 10), ("SS_DISCOVERY_NS", 5 * 10**8),
+                        ("LS_VERSION", 13), ("LS_PRESENT", 64),
+                        ("LS_ABSENT", 4), ("LS_MP_PICK", 3), ("LS_PIN", 14),
+                        ("LS_PROXY_HEIGHTS", (12, 14, 17))):
+        monkeypatch.setattr(cs, name, value)
+    memo = {}
+
+    def verify_batch(items, device=None, **kw):
+        mod = ek8 if os.environ.get(oe.KERNEL_ENV) == "cuda8" else ek
+        if mod.verify_cols.__name__ == "raising":
+            mod.verify_cols()
+        mod.launches += len(tile_plan(len(items), DEFAULT_TILE))
+        mask = []
+        for item in items:
+            if item not in memo:
+                memo[item] = ref.verify(*item)
+            mask.append(memo[item])
+        return all(mask), mask
+
+    monkeypatch.setattr(oe, "verify_batch", verify_batch)
+    keep = {}
+    cs._statesync_phases(0, "CPU", keep, device="cpu")
+    launches, launches8 = cs._lightserve_phases(0, "CPU", keep,
+                                                device="cpu")
+    assert set(launches) == {"rpc_lightserve_12x17", "state_proofs_12x17",
+                             "light_proxy_12x17", "repairs_4x3"}
+    # the sequential and skipping syncs as over NodeProvider (7 + 2), and
+    # the second client's sequential pass (7)
+    assert launches["rpc_lightserve_12x17"] == 7 + 2 + 7
+    assert launches["state_proofs_12x17"] > 0
+    assert launches["light_proxy_12x17"] > 0 and launches["repairs_4x3"] > 0
+    assert launches8 == {"state_proofs_12_cuda8":
+                         launches8["state_proofs_12_cuda8"]}
+    assert launches8["state_proofs_12_cuda8"] > 0
+    src = keep["ss_src"]["chain"]
+    assert src.block_store.height == 17 + cs.LS_PIN_HEIGHTS
+    assert src.app.version_pin is None
