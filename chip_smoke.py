@@ -189,6 +189,20 @@ a cached height kept provable past the tree's pruning horizon; the
 light proxy over the two servers, every answer held to the stores and a
 forged tx refused; and the repairs of ROADMAP C.1-C.4 on config 1's
 in-process net, an evidence reactor and an RPC server.
+Phases 18a-18d drive the rest of ABCI and the gRPC surface with every
+app in a process of its own (python -m cometbft_tpu_torch.abci.server,
+reached over a unix socket through SocketAppConns with the JAX node's
+deadlines, tracing, proxy metrics and a call trace): 13a's config 1 net
+with a mempool, keyed txs through each node's mempool connection, an SQL
+event sink and a loop-lag sampler per node and a pprof listener (the app
+hashes agree, every tx committed once with one sink row, each
+LastCommit check's launches as 13a's, the call traces grammatical); 12a's
+150-validator feed replayed to a node whose app is a process (blocks,
+results and state equal the twin's, B1's launches and lanes a height
+equal 12a's, one height under cuda8); the companion services' servicers
+on those stores, pruning to four retain heights; and the rejects: an
+app raising in FinalizeBlock, an app past a deadline, an app killed
+between heights, frames over MAX_MSG_SIZE.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -208,6 +222,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 CHAIN_ID = "chip-smoke"
@@ -418,6 +433,17 @@ LS_PIN = 60               # 17c: the cached height below the next horizon
 LS_PIN_HEIGHTS = 10       # 17c: the commits that move the horizon past it
 LS_PROXY_HEIGHTS = (92, 100, 105)   # 17d: commit and block through the proxy
 REPAIR_HEIGHTS = 3        # 17e: the heights config 1 commits past C.1-C.2
+# phase 18: the rest of ABCI and the gRPC surface over out-of-process apps
+SOCKAPP_HEIGHTS = 50      # 18a: config 1's heights, each app in a process
+SOCKAPP_CS_HEIGHTS = 50   # 18b: 12a's heights replayed to a socket app
+ABCI_TIMEOUT_S = 20.0     # 18a-18b: apply_deadlines' default, the JAX node's
+ABCI_RETRIES = 2          # 18a-18b: its retries, the JAX node's
+LAG_INTERVAL_S = 0.25     # 18a: the loop-lag sampler's interval
+COMPANION_RETAIN = {      # 18c: retain heights, each below 18b's top
+    "app": 35, "block": 30, "results": 40, "tx_indexer": 20,
+    "block_indexer": 25}
+REJECT_DEADLINE_S = 0.5   # 18d: the deadline an app sleeps past
+REJECT_FAULT_HEIGHT = 3   # 18d: the height whose FinalizeBlock raises
 
 
 def _mixed_kind(i: int) -> str:
@@ -3268,12 +3294,16 @@ class _CsNode:
 
     @classmethod
     async def make(cls, doc, device, dbs=None, wal_path=None, config=None,
-                   pv=None, mempool_config=None, evidence=False, app=None):
+                   pv=None, mempool_config=None, evidence=False, app=None,
+                   conns=None):
         """``mempool_config`` gives the node a CListMempool on the app's
         lanes, ``evidence`` an EvidencePool over MemDB; both reach the
         BlockExecutor (otherwise it runs its no-op ones).  ``app`` is a
         kvstore app over ``dbs["app"]`` to keep (its snapshots live in
-        memory); by default the node opens a new one."""
+        memory); by default the node opens a new one.  ``conns`` are the
+        started app connections of an app in another process (abci/
+        client.SocketAppConns, wrapped or not): the node then holds no
+        app of its own (``node.app`` is None)."""
         from cometbft_tpu_torch.abci import types as abci
         from cometbft_tpu_torch.abci.client import AppConns
         from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
@@ -3297,9 +3327,12 @@ class _CsNode:
         if state is None:
             state = make_genesis_state(doc)
             self.state_store.save(state)
-        self.app = app if app is not None else \
-            KVStoreApplication(db=self.dbs["app"])
-        self.conns = AppConns(self.app)
+        if conns is not None:
+            self.app, self.conns = None, conns
+        else:
+            self.app = app if app is not None else \
+                KVStoreApplication(db=self.dbs["app"])
+            self.conns = AppConns(self.app)
         await Handshaker(self.state_store, state, self.block_store, doc,
                          device=device).handshake(self.conns)
         self.bus = EventBus()
@@ -3388,6 +3421,48 @@ class _LoopGap:
 
 
 @contextlib.contextmanager
+def _commit_checks(ek):
+    """{height: [B1 launches of each BlockExecutor.validate_block call at
+    that height]} while the block runs: the LastCommit check's launches,
+    counted on the calling thread only (the bursts' pre-verification
+    launches on the staging worker's thread are not its)."""
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    real_validate, real_verify = BlockExecutor.validate_block, \
+        ek.verify_cols
+    inside, checks = threading.local(), collections.defaultdict(list)
+
+    def verify_cols(*a):
+        before = ek.launches
+        out = real_verify(*a)
+        if getattr(inside, "count", None) is not None:
+            inside.count += ek.launches - before
+        return out
+
+    def validate_block(self, state, block):
+        inside.count = 0
+        try:
+            return real_validate(self, state, block)
+        finally:
+            checks[block.header.height].append(inside.count)
+            inside.count = None
+
+    BlockExecutor.validate_block, ek.verify_cols = validate_block, verify_cols
+    try:
+        yield checks
+    finally:
+        BlockExecutor.validate_block, ek.verify_cols = real_validate, \
+            real_verify
+
+
+def _batch_lanes(tracing) -> list:
+    """The lanes of each B1 batch the flight recorder holds, oldest
+    first."""
+    return [ev["attrs"]["batch"]
+            for ev in tracing.snapshot(category=tracing.CRYPTO)
+            if ev["name"] == "batch_verify"]
+
+
+@contextlib.contextmanager
 def _cs_split():
     """What the state machine spends, one list of seconds a part: the
     burst pre-verification (B1), the serial tally (VoteSet.add_vote, the
@@ -3454,7 +3529,7 @@ def _cs_live(seed, card, signer, ek, tracing, device, loop, wal_dir):
         gap.task = asyncio.ensure_future(gap.run())
 
     loop.run_until_complete(start())
-    rows, per_launch, serial_n = {}, {}, {}
+    rows, per_launch, serial_n, per_lanes = {}, {}, {}, {}
 
     async def drive(h):
         wal0, t0, dec = node.wal_size(), time.perf_counter(), 0.0
@@ -3472,6 +3547,7 @@ def _cs_live(seed, card, signer, ek, tracing, device, loop, wal_dir):
         for h in range(lo, hi):
             before = {k: sum(v) for k, v in split.items()}
             l0, s0 = ek.launches, len(split["serial_verify"])
+            b0 = len(_batch_lanes(tracing))
             total, dec, wal_bytes, worst = loop.run_until_complete(drive(h))
             row = {k: (sum(v) - before[k]) * 1e3 for k, v in split.items()}
             row.update(total=total * 1e3, decode=dec * 1e3,
@@ -3480,6 +3556,7 @@ def _cs_live(seed, card, signer, ek, tracing, device, loop, wal_dir):
                 row[k] for k in _CS_SPLIT_KEYS[:-1])
             rows[h], per_launch[h] = row, ek.launches - l0
             serial_n[h] = len(split["serial_verify"]) - s0
+            per_lanes[h] = _batch_lanes(tracing)[b0:]
 
     prof_lo = max(top - CS_TRACED + 1, 2)
     ek.launches = 0
@@ -3489,9 +3566,7 @@ def _cs_live(seed, card, signer, ek, tracing, device, loop, wal_dir):
         heights(1, prof_lo)
         profiled = _device_busy(lambda: heights(prof_lo, top + 1))
     launches = ek.launches
-    lanes = [ev["attrs"]["batch"]
-             for ev in tracing.snapshot(category=tracing.CRYPTO)
-             if ev["name"] == "batch_verify"]
+    lanes = _batch_lanes(tracing)
     # the gates: the node stores the twin's chain, byte for byte
     for h in range(1, top + 1):
         mine, twin = node.block_store.load_block(h), \
@@ -3538,6 +3613,10 @@ def _cs_live(seed, card, signer, ek, tracing, device, loop, wal_dir):
     _log(f"cs_{n}x{top} device over heights {prof_lo}-{top} "
          f"(torch.profiler): {busy}; gc in the window: {_gc_line(pauses)}")
     node.gap = gap
+    # what 18b holds its socket-app node to: the feed, and this node's B1
+    # launches, lanes and ms a height
+    chain.live = {"raw": raw, "launches": per_launch, "lanes": per_lanes,
+                  "ms": {h: rows[h]["total"] for h in rows}}
     return chain, feed, raw, node, launches
 
 
@@ -3625,9 +3704,7 @@ def _cs_crash(seed, card, chain, feed, raw, node, ek, ek8, oe, device, loop):
     n = loop.run_until_complete(catchup_replay(node2.cs, wal_path))
     replay_ms = (time.perf_counter() - t0) * 1e3
     launches = ek.launches
-    lanes = [ev["attrs"]["batch"]
-             for ev in tracing.snapshot(category=tracing.CRYPTO)
-             if ev["name"] == "batch_verify"]
+    lanes = _batch_lanes(tracing)
     after = node2.round_state()
     if after != before:
         raise AssertionError(f"12b: restored {after} != {before} at the "
@@ -4039,7 +4116,7 @@ def _p2p_metrics_bytes(switches, family,
 
 async def _sock_node(doc, device, key_seed, pv=None, config=None, dbs=None,
                      wait_sync=False, mempool_config=None, evidence=False,
-                     reactors=(), app=None):
+                     reactors=(), app=None, conns=None):
     """A _CsNode with a Switch on 127.0.0.1 (port 0), a ConsensusReactor
     and a node key made from ``key_seed``; with a MempoolReactor when
     ``mempool_config`` is given, an EvidenceReactor when ``evidence``, and
@@ -4049,7 +4126,7 @@ async def _sock_node(doc, device, key_seed, pv=None, config=None, dbs=None,
     from cometbft_tpu_torch.p2p import NodeKey, Switch
     node = await _CsNode.make(doc, device, dbs=dbs, config=config, pv=pv,
                               mempool_config=mempool_config,
-                              evidence=evidence, app=app)
+                              evidence=evidence, app=app, conns=conns)
     node.node_key = NodeKey(Ed25519PrivKey(key_seed))
     node.switch = Switch(node.node_key, doc.chain_id,
                          listen_addr="127.0.0.1:0")
@@ -4099,11 +4176,13 @@ async def _sock_stop(nodes):
         raise failure
 
 
-def _sock_net(seed, card, ek, tracing, device, loop, net_ms):
+def _sock_net(seed, card, ek, tracing, device, loop, net_ms, record=None):
     """13a: BASELINE.json config 1 over sockets — four validators, each
     with a Switch, a ConsensusReactor and a ConsensusState over the
     kvstore app, full mesh through the secret connection, test_config
-    timeouts.  Returns B1 launches."""
+    timeouts.  Fills ``record`` with what 18a holds its socket apps to:
+    the ms a height, B1's launches and each LastCommit check's launches
+    by height.  Returns B1 launches."""
     from cometbft_tpu_torch.config import test_config
     from cometbft_tpu_torch.ops import aead_host
     from cometbft_tpu_torch.ops import ed25519_host as host
@@ -4150,14 +4229,15 @@ def _sock_net(seed, card, ek, tracing, device, loop, net_ms):
 
     with _timed(aead_host.ChaCha20Poly1305, "encrypt") as seals, \
             _timed(aead_host.ChaCha20Poly1305, "decrypt") as opens, \
-            _timed(host, "verify") as verifies, _gc_pauses() as pauses:
+            _timed(host, "verify") as verifies, _gc_pauses() as pauses, \
+            _commit_checks(ek) as checks:
         nodes, stamps, hs, mesh_s = loop.run_until_complete(run())
     launches = ek.launches
-    lanes = [ev["attrs"]["batch"]
-             for ev in tracing.snapshot(category=tracing.CRYPTO)
-             if ev["name"] == "batch_verify"]
+    lanes = _batch_lanes(tracing)
     ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
     total_s = stamps[-1] - stamps[1]
+    if record is not None:
+        record.update(ms=ms, launches=launches, checks=dict(checks))
     # the gates: the four stores agree, and every commit verifies
     for h in range(1, top + 1):
         blocks = {encode(pb.BLOCK, node.block_store.load_block(h).to_proto())
@@ -4269,9 +4349,7 @@ def _sock_catchup(seed, card, ek, tracing, device, loop, keep):
             _timed(BlockStore, "load_block_part") as part_loads:
         server, joiner, states, stamps, worst, per_launch, launches = \
             loop.run_until_complete(run())
-    lanes = [ev["attrs"]["batch"]
-             for ev in tracing.snapshot(category=tracing.CRYPTO)
-             if ev["name"] == "batch_verify"]
+    lanes = _batch_lanes(tracing)
     # the gates: the joiner stores the twin's rows, states and app hash
     for h in range(1, top + 1):
         mine, twin = joiner.block_store.load_block(h), \
@@ -4566,7 +4644,7 @@ def _p2p_phases(seed, card, keep, device=None):
     logging.disable(logging.INFO)
     try:
         sock = _sock_net(seed, card, ek, tracing, device, loop,
-                         keep["net_ms"])
+                         keep["net_ms"], record=keep.setdefault("sock", {}))
         catchup = _sock_catchup(seed, card, ek, tracing, device, loop, keep)
         reject = _p2p_reject(seed, card, ek, device, loop)
     finally:
@@ -4722,9 +4800,7 @@ def _bsync_chain(seed, card, ek, tracing, device, loop, keep):
     finally:
         BlockPool.add_block = real_add
     synced = range(1, top)
-    lanes = [ev["attrs"]["batch"]
-             for ev in tracing.snapshot(category=tracing.CRYPTO)
-             if ev["name"] == "batch_verify"]
+    lanes = _batch_lanes(tracing)
     # the gates: the joiner's rows, states and app hash are the twin's
     for h in range(1, top + 1):
         mine, twin = joiner.block_store, chain.block_store
@@ -8294,6 +8370,924 @@ def _lightserve_phases(seed, card, keep, device=None):
             {f"state_proofs_{n}_cuda8": proofs8})
 
 
+# -- phase 18: the rest of ABCI and the gRPC surface --------------------------
+
+# an app process with a fault (18d): python -c _FAULTY_APP ADDRESS MODE ARG;
+# MODE "raise" raises in FinalizeBlock from height ARG on, "sleep" sleeps
+# ARG s in FinalizeBlock and Query
+_FAULTY_APP = """
+import asyncio, sys
+from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+from cometbft_tpu_torch.abci.server import SocketServer
+address, mode, arg = sys.argv[1], sys.argv[2], float(sys.argv[3])
+
+
+class App(KVStoreApplication):
+    async def finalize_block(self, req):
+        if mode == "raise" and req.height >= arg:
+            raise RuntimeError(f"app fault at height {req.height}")
+        if mode == "sleep":
+            await asyncio.sleep(arg)
+        return await super().finalize_block(req)
+
+    async def query(self, req):
+        if mode == "sleep":
+            await asyncio.sleep(arg)
+        return await super().query(req)
+
+
+async def main():
+    srv = SocketServer(address, App())
+    await srv.start()
+    print(f"abci-server listening {address}", flush=True)
+    await srv.serve_forever()
+
+asyncio.run(main())
+"""
+
+
+class _AppProc:
+    """An ABCI app in a process of its own, on a unix socket in
+    ``sock_dir``: ``python -m cometbft_tpu_torch.abci.server --address
+    unix://... --app kvstore``, or ``_FAULTY_APP`` with ``fault=(mode,
+    arg)``.  Its environment hides every CUDA device (the app runs the
+    kvstore only); ``start`` returns once the server printed its ready
+    line (``spawn`` then ``wait_ready`` starts several side by side), its
+    stderr goes to ``<name>.log`` beside the socket."""
+
+    def __init__(self, sock_dir, name, fault=None):
+        self.address = f"unix://{os.path.join(sock_dir, name + '.sock')}"
+        self.log_path = os.path.join(sock_dir, name + ".log")
+        if fault is None:
+            self.argv = [sys.executable, "-m", "cometbft_tpu_torch.abci.server",
+                         "--address", self.address, "--app", "kvstore"]
+        else:
+            self.argv = [sys.executable, "-c", _FAULTY_APP, self.address,
+                         fault[0], str(fault[1])]
+        self.proc = None
+        self.ready_s = None
+
+    def start(self, timeout_s=60.0):
+        return self.spawn().wait_ready(timeout_s)
+
+    def spawn(self):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+               "PYTHONPATH": root + os.pathsep +
+               os.environ.get("PYTHONPATH", "")}
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(self.argv, stdout=subprocess.PIPE,
+                                         stderr=log, cwd=root, env=env,
+                                         text=True)
+        return self
+
+    def wait_ready(self, timeout_s=60.0):
+        import select
+        want = f"abci-server listening {self.address}"
+        while True:
+            left = self.t0 + timeout_s - time.perf_counter()
+            ready, _, _ = select.select([self.proc.stdout], [], [],
+                                        max(left, 0.0))
+            if not ready:
+                self.stop()
+                raise AssertionError(f"app process {self.address}: no ready "
+                                     f"line in {timeout_s} s")
+            line = self.proc.stdout.readline()
+            if not line:
+                raise AssertionError(
+                    f"app process {self.address} exited with "
+                    f"{self.proc.wait()} before its ready line: "
+                    f"{self.log_tail()}")
+            if line.strip() == want:
+                self.ready_s = time.perf_counter() - self.t0
+                return self
+
+    def log_tail(self, n=600) -> str:
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(5)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        if self.proc is not None:
+            self.proc.stdout.close()
+
+
+async def _socket_conns(address, registry, calls):
+    """SocketAppConns to an app process, wrapped as the JAX node wraps
+    them (cometbft_tpu/node/node.py:255-289): apply_deadlines with the
+    node's default (20 s, 2 retries), apply_tracing, instrument_app_conns
+    on ``registry``'s proxy metrics, then a RecordingClient per
+    connection writing one call trace into ``calls``."""
+    from cometbft_tpu_torch.abci.client import (
+        SocketAppConns, apply_deadlines, apply_tracing)
+    from cometbft_tpu_torch.abci.grammar import RecordingClient
+    from cometbft_tpu_torch.abci.metrics import Metrics, instrument_app_conns
+    conns = SocketAppConns(address)
+    await conns.start()
+    # the four SocketClients, under the wrappers
+    conns.clients = {name: getattr(conns, name) for name in (
+        "consensus", "mempool", "query", "snapshot")}
+    apply_deadlines(conns, ABCI_TIMEOUT_S, retries=ABCI_RETRIES)
+    apply_tracing(conns)
+    conns.metrics = Metrics(registry)
+    instrument_app_conns(conns, conns.metrics)
+    for name in ("consensus", "mempool", "query", "snapshot"):
+        setattr(conns, name, RecordingClient(getattr(conns, name), calls))
+    return conns
+
+
+def _abci_ms(hists) -> dict:
+    """{(method, conn): (calls, mean ms, p50 ms, p90 ms, calls over the
+    0.65 s bucket)} over proxy method-timing histograms, their buckets
+    summed; p50 and p90 are the buckets' estimates."""
+    from cometbft_tpu_torch.libs.metrics import Histogram
+    acc = {}
+    for hist in hists:
+        for key, child in hist._children.items():
+            m = acc.setdefault(key, Histogram("merged", "",
+                                              buckets=child.buckets))
+            m._counts = [a + b for a, b in zip(m._counts, child._counts)]
+            m._count += child.count
+            m._sum += child.sum
+    out = {}
+    for key, m in sorted(acc.items()):
+        slow = m.count - m._counts[m.buckets.index(0.65)]
+        out[key] = (m.count, m.sum * 1e3 / max(m.count, 1),
+                    m.quantile(0.5) * 1e3, m.quantile(0.9) * 1e3, slow)
+    return out
+
+
+def _abci_ms_line(table, keys=None) -> str:
+    return "; ".join(f"{conn}/{method} {n} calls mean {mean:.3f} p50 "
+                     f"{p50:.3f} p90 {p90:.3f} over 0.65 s {slow}"
+                     for (method, conn), (n, mean, p50, p90, slow)
+                     in table.items()
+                     if keys is None or (method, conn) in keys)
+
+
+async def _http_get(port, path) -> bytes:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    return raw
+
+
+def _sockapp_net(seed, card, ek, tracing, device, loop, sock_dir, sock):
+    """18a: 13a's four validators with each app in a process of its own
+    behind SocketAppConns (deadlines, tracing, proxy metrics and a call
+    trace), a CListMempool and a MempoolReactor on each node, keyed txs
+    sent through each node's mempool connection, an SQL event sink on
+    :memory: and a loop-lag sampler per node, and a pprof listener.
+    ``sock`` is what 13a recorded in this call.  Returns B1 launches."""
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.abci.grammar import GrammarChecker
+    from cometbft_tpu_torch.config import Config, test_config
+    from cometbft_tpu_torch.indexer.service import IndexerService
+    from cometbft_tpu_torch.indexer.sink_sql import SQLEventSink
+    from cometbft_tpu_torch.libs import health
+    from cometbft_tpu_torch.libs.metrics import Registry
+    from cometbft_tpu_torch.libs.pprof import PprofServer
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    from cometbft_tpu_torch.wire import encode, pb
+    n, top = SOCK_VALIDATORS, SOCKAPP_HEIGHTS
+    _phase(f"18a sockapp-{n}x{top}: 13a's {n} validators, each app a kvstore "
+           f"process behind SocketAppConns (deadlines {ABCI_TIMEOUT_S:.0f} s, "
+           f"{ABCI_RETRIES} retries, tracing, proxy metrics), a CListMempool, "
+           f"an SQL sink and a loop-lag sampler per node, {top} heights of "
+           f"keyed txs through each node's mempool connection")
+    doc, pvs = _net_doc(seed + 130, n, "sockapp-chip")
+    apps = [_AppProc(sock_dir, f"net{i}") for i in range(n)]
+    t0 = time.perf_counter()
+    for app in apps:
+        app.spawn()
+    for app in apps:
+        app.wait_ready()
+    spawn_s = time.perf_counter() - t0
+    _clear_memos()
+    ek.launches = 0
+    tracing.clear()
+    traces = [[] for _ in range(n)]
+    registries = [Registry() for _ in range(n)]
+    lags = [health.Metrics(r) for r in registries]
+    sent = []
+
+    async def run():
+        nodes, sinks, services, samplers = [], [], [], []
+        pprof, tasks_bytes, stopped = PprofServer("127.0.0.1:0"), 0, False
+        await pprof.start()
+        try:
+            for i, pv in enumerate(pvs):
+                conns = await _socket_conns(apps[i].address, registries[i],
+                                            traces[i])
+                node = await _sock_node(doc, device, _seed(seed + 131, i),
+                                        pv=pv, config=test_config().consensus,
+                                        mempool_config=Config().mempool,
+                                        conns=conns)
+                sink = SQLEventSink(":memory:", doc.chain_id)
+                svc = IndexerService(sink.tx_indexer, sink.block_indexer,
+                                     node.bus)
+                await svc.start()
+                sampler = health.LoopLagSampler(lags[i], LAG_INTERVAL_S)
+                samplers.append(asyncio.ensure_future(sampler.run()))
+                nodes.append(node)
+                sinks.append(sink)
+                services.append(svc)
+            await _sock_mesh(nodes)
+            sub = nodes[0].bus.subscribe("chip-smoke-sockapp",
+                                         EVENT_QUERY_NEW_BLOCK,
+                                         out_capacity=1000)
+            stamps = [time.perf_counter()]
+            for node in nodes:
+                await node.cs.start()
+            for h in range(1, top + 1):
+                for j, node in enumerate(nodes):
+                    node.cs.raise_if_failed()
+                    tx = _keyed_tx(seed + 180, h, j)
+                    await node.mempool.check_tx(tx)
+                    sent.append(tx)
+                await _cs_new_block(nodes[0], sub, h)
+                stamps.append(time.perf_counter())
+                if h == top // 2:
+                    raw = await _http_get(
+                        int(pprof.listen_addr.rsplit(":", 1)[1]),
+                        "/debug/pprof/tasks")
+                    tasks_bytes = len(raw)
+            await _cs_until(nodes[0], lambda: all(
+                nd.mempool.size() == 0 and nd.block_store.height >= top
+                for nd in nodes), "every node at the last height, every "
+                "mempool drained")
+            stamps.append(time.perf_counter())
+            tip = min(nd.block_store.height for nd in nodes)
+            await _cs_until(nodes[0], lambda: all(
+                sink._conn.execute("SELECT count(*) FROM blocks WHERE "
+                                   "height <= ?", (tip,)).fetchone()[0]
+                >= tip for sink in sinks), "every sink at the tip")
+            stopped = True
+            await _sock_stop(nodes)
+            stamps.append(time.perf_counter())
+            # each app process against its node's stores, both at rest
+            infos = [(await nd.conns.query.info(abci.InfoRequest()),
+                      nd.state_store.load()) for nd in nodes]
+        finally:
+            for t in samplers:
+                t.cancel()
+            for svc in services:
+                await svc.stop()
+            await pprof.stop()
+            try:
+                if not stopped:
+                    await _sock_stop(nodes)
+            finally:
+                for node in nodes:
+                    await node.conns.stop()
+        return nodes, sinks, stamps, infos, tasks_bytes, tip
+
+    try:
+        with _commit_checks(ek) as checks:
+            nodes, sinks, stamps, infos, tasks_bytes, tip = \
+                loop.run_until_complete(run())
+    finally:
+        for app in apps:
+            app.stop()
+    launches = ek.launches
+    lanes = _batch_lanes(tracing)
+    drain_s, stop_s = stamps[-2] - stamps[-3], stamps[-1] - stamps[-2]
+    stamps = stamps[:-2]
+    ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    # the gates: the four stores and app hashes agree at every height,
+    # every sent tx is committed once and has one row in every sink, each
+    # LastCommit check launched B1 as 13a's did, the traces are grammatical
+    for h in range(1, tip + 1):
+        blocks = {encode(pb.BLOCK, node.block_store.load_block(h).to_proto())
+                  for node in nodes}
+        hashes = {node.state_store.load_finalize_block_response(h).app_hash
+                  for node in nodes}
+        if len(blocks) != 1 or len(hashes) != 1:
+            raise AssertionError(f"18a: the nodes' blocks or app hashes at "
+                                 f"{h} differ")
+    for i, (info, state) in enumerate(infos):
+        if (info.last_block_height, info.last_block_app_hash) != \
+                (state.last_block_height, state.app_hash):
+            raise AssertionError(
+                f"18a: app process {i}'s Info ({info.last_block_height}, "
+                f"{info.last_block_app_hash.hex()}) != its node's state "
+                f"({state.last_block_height}, {state.app_hash.hex()})")
+    want = collections.Counter(sent)
+    for i, node in enumerate(nodes):
+        got = collections.Counter()
+        for h in range(1, node.block_store.height + 1):
+            got.update(node.block_store.load_block(h).data.txs)
+        rows = sinks[i]._conn.execute(
+            "SELECT count(*) FROM tx_results").fetchone()[0]
+        if got != want or rows != len(sent):
+            raise AssertionError(f"18a: node {i} committed "
+                                 f"{sum(got.values())} of {len(sent)} sent "
+                                 f"txs, its sink holds {rows} rows")
+    for h in range(1, top + 1):
+        mine, theirs = max(checks.get(h, [0])), \
+            max(sock["checks"].get(h, [0]))
+        if mine != theirs or (h > 1 and mine < 1):
+            raise AssertionError(f"18a: the LastCommit check at {h} "
+                                 f"launched B1 {mine} times, 13a's {theirs}")
+    checker = GrammarChecker()
+    for i, calls in enumerate(traces):
+        checker.verify(calls)
+    lag = [m.event_loop_lag_seconds for m in lags]
+    abci_ms = _abci_ms([c.conns.metrics.method_timing_seconds
+                        for c in nodes])
+    _log(f"sockapp_{n}x{top} ms a height (NewBlock to NewBlock on node 0, "
+         f"heights 2-{top}) {_p50_p90(ms)} against 13a's sock_{n}x"
+         f"{SOCK_HEIGHTS} {_p50_p90(sock['ms'])} in this call; B1 launches "
+         f"{launches} ({launches / top:.2f} a height) against 13a's "
+         f"{sock['launches']} ({sock['launches'] / SOCK_HEIGHTS:.2f}); each "
+         f"node's LastCommit check 1 launch a height as 13a's; lanes a "
+         f"launch {sorted(collections.Counter(lanes).items())}; "
+         f"{len(sent)} keyed txs committed once on every node, one row "
+         f"each in every sink; the four app hashes agree at every height; "
+         f"{n} app processes ready in {spawn_s:.2f} s; heights 1-{top} "
+         f"{stamps[-1] - stamps[0]:.2f} s, then the drain {drain_s:.2f} s and "
+         f"the stop {stop_s:.2f} s; card: {card}")
+    _log(f"sockapp_{n}x{top} ABCI ms by connection/method (proxy histogram "
+         f"over the four nodes): {_abci_ms_line(abci_ms)}")
+    _log(f"sockapp_{n}x{top} loop lag p95 by node (ms, histogram estimate) "
+         f"{[round(h.quantile(0.95) * 1e3, 3) for h in lag]} over "
+         f"{sum(h.count for h in lag)} samples; /debug/pprof/tasks "
+         f"{tasks_bytes} bytes; GrammarChecker accepted the {n} call traces "
+         f"({[len(t) for t in traces]} calls)")
+    return launches
+
+
+def _sockapp_cs(seed, card, ek, ek8, oe, tracing, device, loop, sock_dir,
+                chain):
+    """18b: 12a's full node fed the twin's 150-validator chain as wire
+    bytes again, its app a kvstore process behind SocketAppConns, for
+    SOCKAPP_CS_HEIGHTS heights, then one more under cuda8; kv indexers
+    and a companion-enabled Pruner on its stores for 18c.  Returns (node,
+    B1 launches, B2 launches)."""
+    import tempfile
+
+    from cometbft_tpu_torch.abci.pb import fbr_to_proto
+    from cometbft_tpu_torch.consensus.messages import decode_p2p
+    from cometbft_tpu_torch.db import MemDB
+    from cometbft_tpu_torch.indexer import BlockIndexer, TxIndexer
+    from cometbft_tpu_torch.indexer.service import IndexerService
+    from cometbft_tpu_torch.libs.metrics import Registry
+    from cometbft_tpu_torch.libs.pubsub import Query
+    from cometbft_tpu_torch.state.pruner import Pruner
+    from cometbft_tpu_torch.types.events import EVENT_QUERY_NEW_BLOCK
+    from cometbft_tpu_torch.wire import abci_pb, encode, pb
+    n, top, live = EXEC_VALIDATORS, SOCKAPP_CS_HEIGHTS, chain.live
+    _phase(f"18b sockapp-cs-{n}x{top}: 12a's full node fed the twin's chain "
+           f"as wire bytes, its app a kvstore process behind SocketAppConns, "
+           f"{top} heights, then height {top + 1} under "
+           f"{oe.KERNEL_ENV}=cuda8")
+    app = _AppProc(sock_dir, "cs").start()
+    wal_dir = tempfile.mkdtemp(prefix="chip-smoke-sockapp-wal-",
+                               dir=sock_dir)
+    registry, calls = Registry(), []
+    _clear_memos()
+    tracing.clear()
+    rows = {}
+
+    # the loop runs as in 12a: the start, each height and the stop in a
+    # run_until_complete of their own, a 1 ms ticker beside them, so the
+    # receive routine takes each height's messages in 12a's bursts
+    async def start():
+        conns = await _socket_conns(app.address, registry, calls)
+        node = await _CsNode.make(chain.doc, device,
+                                  wal_path=os.path.join(wal_dir, "wal"),
+                                  conns=conns)
+        node.tx_indexer, node.block_indexer = TxIndexer(MemDB()), \
+            BlockIndexer(MemDB())
+        node.indexer = IndexerService(node.tx_indexer, node.block_indexer,
+                                      node.bus)
+        await node.indexer.start()
+        node.sub = node.bus.subscribe("chip-smoke-sockapp-cs",
+                                      EVENT_QUERY_NEW_BLOCK,
+                                      out_capacity=1000)
+        await node.cs.start()
+        node.gap = _LoopGap()
+        node.gap.task = asyncio.ensure_future(node.gap.run())
+        return node
+
+    async def drive(node, h):
+        node.gap.take()
+        t0 = time.perf_counter()
+        for msg_raw in live["raw"][h]:
+            node.cs.send_peer(decode_p2p(msg_raw), CS_PEER)
+        await _cs_new_block(node, node.sub, h)
+        return (time.perf_counter() - t0) * 1e3, node.gap.take() * 1e3
+
+    async def stop(node):
+        node.gap.stop = True
+        try:
+            await node.cs.stop()
+        finally:
+            await node.indexer.stop()
+            await node.conns.stop()
+
+    node = None
+    try:
+        node = loop.run_until_complete(start())
+        for h in range(1, top + 2):
+            if h == top + 1:
+                os.environ[oe.KERNEL_ENV] = "cuda8"
+            try:
+                l0, l80 = ek.launches, ek8.launches
+                b0 = len(_batch_lanes(tracing))
+                ms_h, gap_ms = loop.run_until_complete(drive(node, h))
+                rows[h] = (ms_h, ek.launches - l0, ek8.launches - l80,
+                           _batch_lanes(tracing)[b0:], gap_ms)
+            finally:
+                os.environ.pop(oe.KERNEL_ENV, None)
+        loop.run_until_complete(_cs_until(
+            node, lambda: node.block_indexer.search(
+                Query(f"block.height = {top + 1}")) == [top + 1],
+            "the indexers at the last height"))
+    finally:
+        try:
+            if node is not None:
+                loop.run_until_complete(stop(node))
+        finally:
+            app.stop()
+    # the gates: the node's blocks, FinalizeBlock responses (app hashes)
+    # and state equal the in-process twin's at every height; B1's launches
+    # and lanes a height equal 12a's; the cuda8 height launches B2 only
+    for h in range(1, top + 2):
+        mine, twin = node.block_store.load_block(h), \
+            chain.block_store.load_block(h)
+        fb_mine = node.state_store.load_finalize_block_response(h)
+        fb_twin = chain.state_store.load_finalize_block_response(h)
+        if encode(pb.BLOCK, mine.to_proto()) != \
+                encode(pb.BLOCK, twin.to_proto()) or \
+                node.block_store.load_block_meta(h).block_id != \
+                chain.block_store.load_block_meta(h).block_id or \
+                fb_mine.app_hash != fb_twin.app_hash or \
+                encode(abci_pb.FINALIZE_BLOCK_RESPONSE,
+                       fbr_to_proto(fb_mine)) != \
+                encode(abci_pb.FINALIZE_BLOCK_RESPONSE, fbr_to_proto(fb_twin)):
+            raise AssertionError(f"18b: the node's block or FinalizeBlock "
+                                 f"response at {h} != the twin's")
+        ms_h, b1, b2, lanes_h, _ = rows[h]
+        want_b1 = live["launches"][h] if h <= top else 0
+        want_b2 = live["launches"][h] if h > top else 0
+        if (b1, b2) != (want_b1, want_b2) or \
+                (h <= top and lanes_h != live["lanes"][h]):
+            raise AssertionError(f"18b: height {h} launched B1 {b1} / B2 "
+                                 f"{b2} times with lanes {lanes_h}, 12a "
+                                 f"{live['launches'][h]} with lanes "
+                                 f"{live['lanes'][h]}")
+    if node.state_store.load().bytes() != chain.states[top + 1]:
+        raise AssertionError("18b: the node's state != the twin's")
+    from cometbft_tpu_torch.abci.grammar import GrammarChecker
+    GrammarChecker().verify(calls)
+    node.pruner = Pruner(node.state_store, node.block_store, MemDB(),
+                         companion_enabled=True, tx_indexer=node.tx_indexer,
+                         block_indexer=node.block_indexer)
+    b1 = sum(rows[h][1] for h in range(1, top + 1))
+    b2 = rows[top + 1][2]
+    hs = range(2, top + 1)
+    abci_ms = _abci_ms([node.conns.metrics.method_timing_seconds])
+    _log(f"sockapp_cs_{n}x{top} ms a height (first message to NewBlock, "
+         f"heights 2-{top}) {_p50_p90([rows[h][0] for h in hs])} against "
+         f"12a's {_p50_p90([live['ms'][h] for h in hs])} over the same "
+         f"heights in this call; B1 launches {b1} "
+         f"({_p50_p90([rows[h][1] for h in hs])} a height), launches and "
+         f"lanes a height equal to 12a's at every height; lanes a launch "
+         f"{sorted(collections.Counter(x for h in rows for x in rows[h][3]).items())}; "
+         f"loop's longest stall a height ms "
+         f"{_p50_p90([rows[h][4] for h in hs])}; "
+         f"height {top + 1} under cuda8: B2 {b2}, B1 "
+         f"{rows[top + 1][1]}; blocks, FinalizeBlock responses and state "
+         f"equal the in-process twin's at every height; app ready in "
+         f"{app.ready_s:.2f} s; card: {card}")
+    _log(f"sockapp_cs_{n}x{top} ABCI ms over the socket: "
+         f"{_abci_ms_line(abci_ms, {('finalize_block', 'consensus'), ('commit', 'consensus')})}"
+         f"; every call: {_abci_ms_line(abci_ms)}")
+    return node, b1, b2
+
+
+def _companion(card, loop, node, twin):
+    """18c: the data-companion services on 18b's stores, through their
+    servicer classes in process: version, block by height, block results;
+    then the pruning service's four retain heights, the app's, and one
+    pruner pass, with the rows left held to what the heights imply."""
+    from cometbft_tpu_torch import version as ver
+    from cometbft_tpu_torch.libs.pubsub import Query
+    from cometbft_tpu_torch.rpc.grpc.services import (
+        BlockResultsServicer, BlockServicer, PruningServicer, ServiceError,
+        VersionServicer)
+    top, r = node.block_store.height, COMPANION_RETAIN
+    _phase(f"18c companion services on 18b's stores ({top} heights): "
+           f"version, block, block results, pruning to retain heights "
+           f"{r}")
+    blocks = BlockServicer(node.block_store, node.bus)
+    results = BlockResultsServicer(node.block_store, node.state_store)
+    pruning = PruningServicer(node.pruner)
+    out, t0 = {}, time.perf_counter()
+
+    async def refused(coro, code, text):
+        try:
+            await coro
+        except ServiceError as e:
+            if (e.code, e.message) != (code, text):
+                raise AssertionError(f"18c: refused with {e.code} "
+                                     f"{e.message!r}, want {code} {text!r}")
+            return
+        raise AssertionError(f"18c: not refused, want {code} {text!r}")
+
+    async def run():
+        out["version"] = await VersionServicer().get_version({})
+        latest = await blocks.get_by_height({})
+        mid = await blocks.get_by_height({"height": top // 2})
+        res = await results.get_block_results({"height": r["results"]})
+        if out["version"] != {"node": ver.CMT_SEM_VER,
+                              "abci": ver.ABCI_SEM_VER,
+                              "p2p": ver.P2P_PROTOCOL,
+                              "block": ver.BLOCK_PROTOCOL} or \
+                latest["block"]["header"]["height"] != top or \
+                mid["block_id"] != node.block_store.load_block_meta(
+                    top // 2).block_id.to_proto() or \
+                len(res["tx_results"]) != len(
+                    twin.block_store.load_block(r["results"]).data.txs) or \
+                res["app_hash"] != node.state_store.\
+                load_finalize_block_response(r["results"]).app_hash:
+            raise AssertionError("18c: the version, block or block results "
+                                 "answer is not the stores'")
+        await pruning.set_block_retain_height({"height": r["block"]})
+        await pruning.set_block_results_retain_height(
+            {"height": r["results"]})
+        await pruning.set_tx_indexer_retain_height(
+            {"height": r["tx_indexer"]})
+        await pruning.set_block_indexer_retain_height(
+            {"height": r["block_indexer"]})
+        node.pruner.set_application_retain_height(r["app"])
+        out["retain"] = (await pruning.get_block_retain_height({}),
+                         await pruning.get_block_results_retain_height({}),
+                         await pruning.get_tx_indexer_retain_height({}),
+                         await pruning.get_block_indexer_retain_height({}))
+        t = time.perf_counter()
+        out["pass"] = node.pruner.prune_once()
+        out["pass_ms"] = (time.perf_counter() - t) * 1e3
+        base = node.block_store.base
+        await refused(blocks.get_by_height({"height": base - 1}),
+                      "NOT_FOUND", f"height {base - 1} not in store "
+                      f"[{base},{top}]")
+        await refused(results.get_block_results({"height": 2}),
+                      "NOT_FOUND", "no results for height 2")
+        await refused(pruning.set_tx_indexer_retain_height(
+            {"height": r["tx_indexer"] - 1}), "INVALID_ARGUMENT",
+            "retain height cannot move backwards")
+        await refused(pruning.set_block_retain_height({"height": top + 1}),
+                      "INVALID_ARGUMENT", "retain height beyond store height")
+
+    loop.run_until_complete(run())
+    # the rows the retain heights imply: blocks from min(app, block), ABCI
+    # results from the results height, each index from its own
+    base = min(r["app"], r["block"])
+    fbr = [h for h in range(1, top + 1)
+           if node.state_store.load_finalize_block_response(h) is not None]
+    tx_heights = sorted(node.tx_indexer.get(t).height
+                        for t in node.tx_indexer.search(
+                            Query("tx.height > 0"), limit=None))
+    want_tx = sorted(h for h in range(r["tx_indexer"], top + 1)
+                     for _ in twin.block_store.load_block(h).data.txs)
+    blk_heights = node.block_indexer.search(Query("block.height > 0"),
+                                            limit=None)
+    if out["pass"] != (base - 1, base) or node.block_store.base != base or \
+            node.block_store.load_block(base - 1) is not None or \
+            fbr != list(range(max(r["results"], base), top + 1)) or \
+            tx_heights != want_tx or \
+            blk_heights != list(range(r["block_indexer"], top + 1)):
+        raise AssertionError(f"18c: pass {out['pass']}, base "
+                             f"{node.block_store.base}, results kept from "
+                             f"{fbr[:1]}, tx index {len(tx_heights)} rows "
+                             f"(want {len(want_tx)}), block index from "
+                             f"{blk_heights[:1]}")
+    _log(f"companion: version {out['version']}; block, block results as "
+         f"the stores; pruning retain heights {out['retain']}; one pass "
+         f"{out['pass_ms']:.1f} ms pruned {out['pass'][0]} blocks to base "
+         f"{base}, ABCI results kept {fbr[0]}-{top}, tx index {len(want_tx)} "
+         f"rows of heights {r['tx_indexer']}-{top}, block index heights "
+         f"{r['block_indexer']}-{top}; below the base, pruned results, a "
+         f"backwards and a too-high retain height refused with the JAX "
+         f"texts; {(time.perf_counter() - t0) * 1e3:.1f} ms; card: {card}")
+
+
+def _sockapp_reject(seed, card, ek, device, loop, sock_dir):
+    """18d: the rejects, each surfacing its error with nothing restarted:
+    an app raising in FinalizeBlock (ExceptionResponse), an app sleeping
+    past a deadline, an app killed between two heights, a frame over
+    MAX_MSG_SIZE either way.  Returns B1 launches."""
+    from cometbft_tpu_torch.abci import pb as abci_pb
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.abci.client import (
+        ABCIClientError, ABCITimeoutError, DeadlineClient, SocketClient,
+        _RETRIABLE_METHODS)
+    from cometbft_tpu_torch.abci.server import ABCIServerError
+    from cometbft_tpu_torch.config import test_config
+    from cometbft_tpu_torch.libs.metrics import Registry
+    from cometbft_tpu_torch.wire.proto import encode_uvarint
+    _phase("18d rejects: an app raising in FinalizeBlock, an app past a "
+           f"{REJECT_DEADLINE_S} s deadline, an app killed between heights, "
+           f"frames over MAX_MSG_SIZE")
+    _clear_memos()
+    ek.launches = 0
+    out = {}
+
+    async def node_until_failure(address):
+        conns = await _socket_conns(address, Registry(), [])
+        node = await _CsNode.make(doc, device, pv=pvs[0],
+                                  config=test_config().consensus,
+                                  conns=conns)
+        await node.cs.start()
+        try:
+            deadline = time.perf_counter() + 30.0
+            while node.cs.failure is None:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("18d: consensus did not stop")
+                await asyncio.sleep(0.01)
+            height = (node.block_store.height,
+                      node.state_store.load().last_block_height)
+            await asyncio.sleep(0.5)
+            try:
+                node.cs.raise_if_failed()
+            except Exception as e:  # noqa: BLE001 — the error checked below
+                err = e
+            else:
+                raise AssertionError("18d: raise_if_failed did not raise")
+            if (node.block_store.height,
+                    node.state_store.load().last_block_height) != height:
+                raise AssertionError("18d: consensus went on after the "
+                                     "failure")
+            try:
+                await node.conns.consensus.echo("after")
+                after = None
+            except ABCIClientError as e:
+                after = str(e)
+            return err, height, after
+        finally:
+            try:
+                await node.cs.stop()
+            except Exception:  # noqa: BLE001 — the failure, seen above
+                pass
+            await conns.stop()
+
+    doc, pvs = _net_doc(seed + 185, 1, "sockapp-reject")
+    raising = _AppProc(sock_dir, "raising",
+                       ("raise", REJECT_FAULT_HEIGHT)).start()
+    try:
+        err, height, after = loop.run_until_complete(
+            node_until_failure(raising.address))
+    finally:
+        raising.stop()
+    text = f"app exception: app fault at height {REJECT_FAULT_HEIGHT}"
+    # the block of the fault's height is stored, its execution is not
+    if type(err) is not ABCIClientError or str(err) != text or \
+            height != (REJECT_FAULT_HEIGHT, REJECT_FAULT_HEIGHT - 1) or \
+            after != f"ABCI client dead: {text}":
+        raise AssertionError(f"18d(i): {type(err).__name__} {err!r} at "
+                             f"height {height}, then {after!r}")
+    out["raise"] = (str(err), height)
+
+    sleeping = _AppProc(sock_dir, "sleeping",
+                        ("sleep", 2 * REJECT_DEADLINE_S)).start()
+
+    class Flaky:
+        """A transport whose first ``fail`` calls of each method raise
+        ConnectionResetError, then pass to ``inner``; counts attempts."""
+
+        def __init__(self, inner, fail):
+            self.inner, self.fail = inner, fail
+            self.attempts = collections.Counter()
+
+        def __getattr__(self, name):
+            real = getattr(self.inner, name)
+
+            async def call(*a, **kw):
+                self.attempts[name] += 1
+                if self.attempts[name] <= self.fail:
+                    raise ConnectionResetError("transport reset")
+                return await real(*a, **kw)
+            return call
+
+    async def deadlines():
+        cli = SocketClient(sleeping.address)
+        await cli.connect()
+        try:
+            got = {}
+            for method, req in (("query", abci.QueryRequest(path="/store")),
+                                ("finalize_block",
+                                 abci.FinalizeBlockRequest(height=1))):
+                flaky = Flaky(cli, 0)
+                dc = DeadlineClient(flaky, default_timeout_s=REJECT_DEADLINE_S,
+                                    slow_timeout_s=REJECT_DEADLINE_S,
+                                    retries=ABCI_RETRIES)
+                try:
+                    await getattr(dc, method)(req)
+                    raise AssertionError(f"18d(ii): {method} answered")
+                except ABCITimeoutError as e:
+                    got[method] = (str(e), flaky.attempts[method])
+                # transient transport errors: retried for a read-only
+                # method only
+                flaky = Flaky(cli, ABCI_RETRIES + 1)
+                dc = DeadlineClient(flaky, default_timeout_s=REJECT_DEADLINE_S,
+                                    slow_timeout_s=REJECT_DEADLINE_S,
+                                    retries=ABCI_RETRIES,
+                                    retry_backoff_s=0.01)
+                try:
+                    await getattr(dc, method)(req)
+                    raise AssertionError(f"18d(ii): {method} answered")
+                except ConnectionResetError:
+                    got[method + "_reset"] = flaky.attempts[method]
+            return got
+        finally:
+            await cli.close()
+
+    try:
+        got = loop.run_until_complete(deadlines())
+    finally:
+        sleeping.stop()
+    for method in ("query", "finalize_block"):
+        retries = ABCI_RETRIES if method in _RETRIABLE_METHODS else 0
+        if got[method] != (f"ABCI {method} exceeded its {REJECT_DEADLINE_S}s "
+                           f"deadline", 1) or \
+                got[method + "_reset"] != 1 + retries:
+            raise AssertionError(f"18d(ii): {got}")
+    out["deadline"] = got
+
+    async def killed_between_heights(app):
+        """The app process killed once the node's state is at height 2.
+        The consensus connection's client sees the transport go down and
+        stays dead; the chain stops.  The error surfaces where the next
+        call meets it: a FinalizeBlock or Commit stops consensus
+        (``raise_if_failed``), a PrepareProposal is logged by the state
+        machine ("unable to create proposal block") and the round times
+        out, as in the JAX package and the reference's state machine
+        (whose node then stops on the dead client: proxy/multi_app_conn.go
+        killTMOnClientError, the node's to carry)."""
+        conns = await _socket_conns(app.address, Registry(), [])
+        node = await _CsNode.make(doc, device, pv=pvs[0],
+                                  config=test_config().consensus,
+                                  conns=conns)
+        node.cs.logger = log = _LogRecorder()
+        client = conns.clients["consensus"]
+        await node.cs.start()
+        try:
+            await _cs_until(node, lambda: node.state_store.load(
+                ).last_block_height >= 2, "the heights before the kill")
+            app.proc.kill()
+            app.proc.wait()
+            await _cs_until(node, lambda: client._err is not None,
+                            "the client seeing the transport go down",
+                            timeout_s=10.0)
+            heights = node.state_store.load().last_block_height
+            await asyncio.sleep(2.0)
+            if node.state_store.load().last_block_height != heights:
+                raise AssertionError("18d(iii): the chain went on after "
+                                     "the kill")
+            try:
+                await node.conns.consensus.echo("after")
+                after = None
+            except ABCIClientError as e:
+                after = str(e)
+            logged = [kv.get("err") for msg, kv in log.lines
+                      if msg == "unable to create proposal block"]
+            return client._err, node.cs.failure, logged, heights, after
+        finally:
+            try:
+                await node.cs.stop()
+            except Exception:  # noqa: BLE001 — the failure, seen above
+                pass
+            await conns.stop()
+
+    killed = _AppProc(sock_dir, "killed").start()
+    try:
+        err, failure, logged, height, after = loop.run_until_complete(
+            killed_between_heights(killed))
+    finally:
+        killed.stop()
+    # the receive loop's error, whichever way the socket went down
+    dead = f"ABCI client dead: {err}"
+    surfaced = (failure is not None and str(failure) in (str(err), dead)) \
+        or (failure is None and logged and set(logged) <= {str(err), dead})
+    if not (isinstance(err, (ConnectionError, asyncio.IncompleteReadError))
+            or str(err) == "ABCI connection closed by app") or \
+            after != dead or not surfaced:
+        raise AssertionError(f"18d(iii): client {type(err).__name__} "
+                             f"{err!r}, consensus failure {failure!r}, "
+                             f"logged {logged[:3]}, then {after!r}")
+    out["killed"] = (f"{type(err).__name__}: {err}", height,
+                     f"raise_if_failed: {failure}" if failure is not None
+                     else f"{len(logged)} rounds logged 'unable to create "
+                          f"proposal block' with it, consensus not stopped")
+
+    big = encode_uvarint(abci_pb.MAX_MSG_SIZE + 1)
+    victim = _AppProc(sock_dir, "frames").start()
+
+    async def frames():
+        path = victim.address[len("unix://"):]
+        reader, writer = await asyncio.open_unix_connection(path)
+        writer.write(big + b"\x00" * 16)
+        await writer.drain()
+        closed = await asyncio.wait_for(reader.read(), 10.0) == b""
+        writer.close()
+        cli = SocketClient(victim.address)
+        await cli.connect()
+        echo = (await cli.echo("still serving")).message
+        await cli.close()
+
+        async def oversized(r, w):
+            await r.read(1)
+            w.write(big)
+            await w.drain()
+        srv = await asyncio.start_unix_server(
+            oversized, path=os.path.join(sock_dir, "oversized.sock"))
+        cli = SocketClient(f"unix://{os.path.join(sock_dir, 'oversized.sock')}")
+        await cli.connect()
+        try:
+            await cli.echo("x")
+            refused = None
+        except ABCIServerError as e:
+            refused = str(e)
+        await cli.close()
+        srv.close()
+        return closed, echo, refused
+
+    try:
+        closed, echo, refused = loop.run_until_complete(frames())
+    finally:
+        victim.stop()
+    if not closed or echo != "still serving" or \
+            refused != f"message too large: {abci_pb.MAX_MSG_SIZE + 1}":
+        raise AssertionError(f"18d(iv): closed {closed}, echo {echo!r}, "
+                             f"client {refused!r}")
+    _log(f"sockapp_reject: FinalizeBlock raising at height "
+         f"{REJECT_FAULT_HEIGHT}: consensus stopped with (blocks, state) at "
+         f"{out['raise'][1]}, {out['raise'][0]!r}, raise_if_failed raised it, the client "
+         f"stays dead; an app {2 * REJECT_DEADLINE_S} s late: "
+         f"{got['query'][0]!r} after {got['query'][1]} attempt, "
+         f"{got['finalize_block'][0]!r} after {got['finalize_block'][1]}; "
+         f"a transport reset: query {got['query_reset']} attempts, "
+         f"finalize_block {got['finalize_block_reset']}; the app killed "
+         f"at state height {out['killed'][1]}: the client's "
+         f"{out['killed'][0]!r}, every later call 'ABCI client dead', the "
+         f"chain stopped, {out['killed'][2]}; "
+         f"a frame of {abci_pb.MAX_MSG_SIZE + 1} bytes: the server closed "
+         f"that connection and serves the next, the client refused "
+         f"{refused!r}; nothing restarted; B1 launches {ek.launches}; "
+         f"card: {card}")
+    return ek.launches
+
+
+def _sockapp_phases(seed, card, keep, device=None):
+    """Phases 18a-18d: the rest of ABCI and the gRPC surface (abci/
+    server, pb, client's SocketAppConns, DeadlineClient and
+    TracingClient, metrics, grammar; indexer/sink_sql, libs/health and
+    pprof; rpc/grpc's servicers; the pruner's companion retain heights)
+    over apps in processes of their own.  ``keep`` holds what phases 12
+    and 13 leave: the twin chain with 12a's feed and figures, and 13a's
+    figures.  Returns B1's launches by part and B2's."""
+    import shutil
+    import tempfile
+
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    t_phase = time.perf_counter()
+    # unix socket paths stay short: the limit is ~107 bytes
+    sock_dir = tempfile.mkdtemp(prefix="cs18-", dir="/tmp"
+                                if os.path.isdir("/tmp") else None)
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    try:
+        net = _sockapp_net(seed, card, ek, tracing, device, loop, sock_dir,
+                           keep["sock"])
+        node, cs, cs8 = _sockapp_cs(seed, card, ek, ek8, oe, tracing, device,
+                                    loop, sock_dir, keep["chain"])
+        _companion(card, loop, node, keep["chain"])
+        reject = _sockapp_reject(seed, card, ek, device, loop, sock_dir)
+    finally:
+        logging.disable(logging.NOTSET)
+        loop.close()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    _log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return ({f"sockapp_{SOCK_VALIDATORS}x{SOCKAPP_HEIGHTS}": net,
+             f"sockapp_cs_{EXEC_VALIDATORS}x{SOCKAPP_CS_HEIGHTS}": cs,
+             "sockapp_reject": reject},
+            {f"sockapp_cs_{EXEC_VALIDATORS}_cuda8": cs8})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8888,6 +9882,7 @@ def main() -> int:
     ss_launches, ss_launches8 = _statesync_phases(args.seed, card, keep)
     rpc_launches, rpc_launches8 = _rpc_phases(args.seed, card, keep)
     ls_launches, ls_launches8 = _lightserve_phases(args.seed, card, keep)
+    sa_launches, sa_launches8 = _sockapp_phases(args.seed, card, keep)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -8909,7 +9904,8 @@ def main() -> int:
                              **light_launches, **exec_launches,
                              **cs_launches, **p2p_launches,
                              **sync_launches, **ss_launches,
-                             **rpc_launches, **ls_launches},
+                             **rpc_launches, **ls_launches,
+                             **sa_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -8939,7 +9935,7 @@ def main() -> int:
                              **light_launches8, **exec_launches8,
                              **cs_launches8, **sync_launches8,
                              **ss_launches8, **rpc_launches8,
-                             **ls_launches8},
+                             **ls_launches8, **sa_launches8},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

@@ -2,8 +2,8 @@
 
 Reference: abci/types/application.go:11-41 (the 15-method interface) and
 proto/cometbft/abci/v2/types.proto (message shapes), through
-cometbft_tpu/abci/types.py.  Python-native dataclasses; the socket
-protocol's wire conversion waits for the socket client (ROADMAP A.7e).
+cometbft_tpu/abci/types.py.  Python-native dataclasses; the wire
+conversion lives in abci/pb.py.
 """
 from __future__ import annotations
 

@@ -74,3 +74,13 @@ def new_logger(module: str = "main", level: str | int | None = None,
         lg.setLevel(getattr(logging, level.upper())
                     if isinstance(level, str) else level)
     return Logger(lg, ctx)
+
+
+def nop_logger() -> Logger:
+    """A logger that drops everything (reference: log.NewNopLogger)."""
+    lg = logging.getLogger(f"{_ROOT}.nop")
+    if not lg.handlers:
+        lg.addHandler(logging.NullHandler())
+        lg.setLevel(logging.CRITICAL + 1)
+        lg.propagate = False
+    return Logger(lg)

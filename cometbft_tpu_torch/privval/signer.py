@@ -15,8 +15,8 @@ Reference: privval/ —
 
 A copy of cometbft_tpu/privval/signer.py: the same frames, byte for
 byte, so a signer of either package serves a node of the other, and the
-same texts.  The frame IO and the address parser are kept here (the
-reference takes them from libs/protoio and the ABCI socket server).
+same texts.  The frame IO is libs/protoio's and the address parser the
+ABCI socket server's, as in the reference.
 
 Runnable signer:  python -m cometbft_tpu_torch.privval.signer \
     --address tcp://127.0.0.1:26659 --chain-id my-chain \
@@ -28,14 +28,14 @@ from __future__ import annotations
 import argparse
 import asyncio
 from typing import Optional
-from urllib.parse import urlparse
 
+from ..abci.server import parse_address
 from ..libs.log import Logger, new_logger
+from ..libs.protoio import read_delimited, write_delimited
 from ..types.priv_validator import PrivValidator
 from ..types.proposal import Proposal
 from ..types.vote import Vote
 from ..wire import decode, encode, privval_pb
-from ..wire.proto import encode_uvarint
 from .file import DoubleSignError, FilePV, PrivValidatorError
 
 
@@ -43,51 +43,12 @@ class RemoteSignerError(PrivValidatorError):
     pass
 
 
-def _parse_address(addr: str) -> tuple[str, str, int]:
-    """'unix:///p' | 'tcp://h:p' | 'h:p' -> (scheme, host_or_path, port)
-    (reference: cometbft_tpu/abci/server.py parse_address)."""
-    if "://" not in addr:
-        addr = "tcp://" + addr
-    u = urlparse(addr)
-    if u.scheme == "unix":
-        return "unix", u.path or addr[len("unix://"):], 0
-    if u.scheme == "tcp":
-        return "tcp", u.hostname or "127.0.0.1", int(u.port or 26658)
-    raise RemoteSignerError(f"unsupported ABCI address scheme {u.scheme!r}")
-
-
-async def _read_delimited(reader: asyncio.StreamReader,
-                          max_size: int) -> Optional[bytes]:
-    """One uvarint-length-delimited frame; None on clean EOF at a frame
-    boundary (reference: cometbft_tpu/libs/protoio.py read_delimited)."""
-    prefix = b""
-    size = 0
-    shift = 0
-    while True:
-        b = await reader.read(1)
-        if not b:
-            if prefix:
-                raise RemoteSignerError("EOF inside length prefix")
-            return None
-        prefix += b
-        size |= (b[0] & 0x7F) << shift
-        shift += 7
-        if b[0] < 0x80:
-            break
-        if len(prefix) > 10:
-            raise RemoteSignerError("length prefix too long")
-    if size > max_size:
-        raise RemoteSignerError(f"message too large: {size}")
-    return await reader.readexactly(size)
-
-
 def _frame(msg: dict) -> bytes:
-    payload = encode(privval_pb.MESSAGE, msg)
-    return encode_uvarint(len(payload)) + payload
+    return write_delimited(encode(privval_pb.MESSAGE, msg))
 
 
 async def _read_frame(reader: asyncio.StreamReader) -> Optional[dict]:
-    payload = await _read_delimited(reader, 1 << 20)
+    payload = await read_delimited(reader, 1 << 20, RemoteSignerError)
     if payload is None:
         return None
     return decode(privval_pb.MESSAGE, payload)
@@ -111,7 +72,7 @@ class SignerListenerEndpoint:
         self._lock = asyncio.Lock()
 
     async def start(self) -> None:
-        scheme, host, port = _parse_address(self.laddr)
+        scheme, host, port = parse_address(self.laddr)
         if scheme == "unix":
             self._server = await asyncio.start_unix_server(
                 self._on_connect, path=host)
@@ -340,7 +301,7 @@ class SignerServer:
                 pass
 
     async def _connect(self):
-        scheme, host, port = _parse_address(self.address)
+        scheme, host, port = parse_address(self.address)
         last = None
         for _ in range(self.retries):
             try:

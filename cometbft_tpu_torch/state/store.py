@@ -13,6 +13,8 @@ import threading
 from typing import Optional
 
 from ..abci import types as abci_types
+from ..abci.pb import fbr_from_proto as _fbr_from_proto
+from ..abci.pb import fbr_to_proto as _fbr_to_proto
 from ..db import DB
 from ..types.params import ConsensusParams
 from ..types.validator_set import ValidatorSet
@@ -254,8 +256,7 @@ class Store:
                              to_height: int) -> int:
         """Delete stored FinalizeBlockResponses in [from, to) — the
         data-companion artifact class, pruned by the pruner's companion
-        pass, which comes with the pruning service (ROADMAP A.7e-5)
-        (reference: store.go PruneABCIResponses).  Returns number
+        pass (reference: store.go PruneABCIResponses).  Returns number
         deleted."""
         if from_height <= 0 or to_height <= from_height:
             return 0
@@ -314,100 +315,3 @@ class Store:
         batch.write()
         return pruned
 
-
-def _fbr_to_proto(resp) -> dict:
-    """abci.FinalizeBlockResponse dataclass -> proto dict."""
-    def event(e):
-        return {
-            **({"type": e.type} if e.type else {}),
-            "attributes": [
-                {**({"key": a.key} if a.key else {}),
-                 **({"value": a.value} if a.value else {}),
-                 **({"index": True} if a.index else {})}
-                for a in e.attributes],
-        }
-
-    def txr(r):
-        d: dict = {}
-        if r.code:
-            d["code"] = r.code
-        if r.data:
-            d["data"] = r.data
-        if r.log:
-            d["log"] = r.log
-        if r.info:
-            d["info"] = r.info
-        if r.gas_wanted:
-            d["gas_wanted"] = r.gas_wanted
-        if r.gas_used:
-            d["gas_used"] = r.gas_used
-        if r.events:
-            d["events"] = [event(e) for e in r.events]
-        if r.codespace:
-            d["codespace"] = r.codespace
-        if r.recheck_keys:
-            d["recheck_keys"] = list(r.recheck_keys)
-        return d
-
-    d: dict = {"next_block_delay": {}}
-    if resp.events:
-        d["events"] = [event(e) for e in resp.events]
-    if resp.tx_results:
-        d["tx_results"] = [txr(r) for r in resp.tx_results]
-    if resp.validator_updates:
-        d["validator_updates"] = [
-            {**({"power": v.power} if v.power else {}),
-             **({"pub_key_bytes": v.pub_key_bytes}
-                if v.pub_key_bytes else {}),
-             **({"pub_key_type": v.pub_key_type}
-                if v.pub_key_type else {})}
-            for v in resp.validator_updates]
-    if resp.consensus_param_updates is not None:
-        d["consensus_param_updates"] = \
-            resp.consensus_param_updates.to_proto()
-    if resp.app_hash:
-        d["app_hash"] = resp.app_hash
-    if resp.next_block_delay_ns:
-        s, ns = divmod(resp.next_block_delay_ns, 1_000_000_000)
-        nd: dict = {}
-        if s:
-            nd["seconds"] = s
-        if ns:
-            nd["nanos"] = ns
-        d["next_block_delay"] = nd
-    return d
-
-
-def _fbr_from_proto(d: dict):
-    def event(e):
-        return abci_types.Event(
-            type=e.get("type", ""),
-            attributes=[abci_types.EventAttribute(
-                key=a.get("key", ""), value=a.get("value", ""),
-                index=a.get("index", False))
-                for a in e.get("attributes", [])])
-
-    nd = d.get("next_block_delay") or {}
-    cpu = d.get("consensus_param_updates")
-    return abci_types.FinalizeBlockResponse(
-        events=[event(e) for e in d.get("events", [])],
-        tx_results=[abci_types.ExecTxResult(
-            code=r.get("code", 0), data=r.get("data", b""),
-            log=r.get("log", ""), info=r.get("info", ""),
-            gas_wanted=r.get("gas_wanted", 0),
-            gas_used=r.get("gas_used", 0),
-            events=[event(e) for e in r.get("events", [])],
-            codespace=r.get("codespace", ""),
-            recheck_keys=list(r.get("recheck_keys", [])))
-            for r in d.get("tx_results", [])],
-        validator_updates=[abci_types.ValidatorUpdate(
-            power=v.get("power", 0),
-            pub_key_bytes=v.get("pub_key_bytes", b""),
-            pub_key_type=v.get("pub_key_type", ""))
-            for v in d.get("validator_updates", [])],
-        consensus_param_updates=ConsensusParams.from_proto(cpu)
-        if cpu is not None else None,
-        app_hash=d.get("app_hash", b""),
-        next_block_delay_ns=nd.get("seconds", 0) * 1_000_000_000 +
-        nd.get("nanos", 0),
-    )

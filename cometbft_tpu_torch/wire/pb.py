@@ -48,6 +48,18 @@ PROOF = Msg(
     F(4, "aunts", "bytes", repeated=True),
 )
 
+PROOF_OP = Msg(
+    "cometbft.crypto.v1.ProofOp",
+    F(1, "type", "string"),
+    F(2, "key", "bytes"),
+    F(3, "data", "bytes"),
+)
+
+PROOF_OPS = Msg(
+    "cometbft.crypto.v1.ProofOps",
+    F(1, "ops", "msg", msg=PROOF_OP, repeated=True),
+)
+
 PART_SET_HEADER = Msg(
     "cometbft.types.v2.PartSetHeader",
     F(1, "total", "uint32"),

@@ -16,7 +16,13 @@
     HTTP provider, the RPC state provider, the load generator and the
     flight recorder the trace route reads; the lightserve cache and
     routes, the state tree's proofs, the state proof check and the light
-    proxy) loads neither jax nor anything of cometbft_tpu;
+    proxy; the ABCI socket protocol, server, clients, metrics, grammar
+    and CLI, the gRPC transports and the companion services, the SQL
+    sink, armor, protoio, service, health and pprof) loads neither jax
+    nor anything of cometbft_tpu;
+  * only the three gRPC transports import ``grpc``: with it unimportable
+    (the card's machine has no grpcio) every other module and
+    chip_smoke.py load;
   * importing the p2p stack and the reactor, and running a secret
     connection's handshake, loads no ``cryptography`` either: the port
     seals every frame in its own host library;
@@ -91,6 +97,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert set(STATESYNC_MODULES) <= set(mods)
     assert set(RPC_MODULES) <= set(mods)
     assert set(LIGHTSERVE_MODULES) <= set(mods)
+    assert set(ABCI_MODULES) <= set(mods)
+    assert set(GRPC_TRANSPORTS) <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -177,6 +185,95 @@ LIGHTSERVE_MODULES = ("cometbft_tpu_torch.lightserve",
                       "cometbft_tpu_torch.statetree.proof",
                       "cometbft_tpu_torch.light.state_proof",
                       "cometbft_tpu_torch.light.proxy")
+
+
+ABCI_MODULES = ("cometbft_tpu_torch.abci.pb",
+                "cometbft_tpu_torch.abci.server",
+                "cometbft_tpu_torch.abci.client",
+                "cometbft_tpu_torch.abci.metrics",
+                "cometbft_tpu_torch.abci.grammar",
+                "cometbft_tpu_torch.abci.cli",
+                "cometbft_tpu_torch.wire.abci_pb",
+                "cometbft_tpu_torch.rpc.grpc",
+                "cometbft_tpu_torch.rpc.grpc.pb",
+                "cometbft_tpu_torch.rpc.grpc.services",
+                "cometbft_tpu_torch.state.pruner",
+                "cometbft_tpu_torch.indexer.sink_sql",
+                "cometbft_tpu_torch.crypto.armor",
+                "cometbft_tpu_torch.libs.protoio",
+                "cometbft_tpu_torch.libs.service",
+                "cometbft_tpu_torch.libs.health",
+                "cometbft_tpu_torch.libs.pprof",
+                "cometbft_tpu_torch.privval.signer")
+
+# the only modules of the port that import grpc
+GRPC_TRANSPORTS = ("cometbft_tpu_torch.abci.grpc",
+                   "cometbft_tpu_torch.rpc.grpc.client",
+                   "cometbft_tpu_torch.rpc.grpc.server")
+
+
+def test_abci_and_companion_load_no_jax_or_reference():
+    """The socket protocol, its server, clients, metrics, grammar and CLI,
+    the companion services' bodies, the pruner, the SQL sink, armor and
+    the small libraries, imported in a fresh interpreter, load nothing of
+    jax, of the JAX package, of ``cryptography`` or of ``grpc``."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {ABCI_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'cryptography', 'grpc'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_port_loads_without_grpc():
+    """With ``grpc`` unimportable (the card's machine has no grpcio), every
+    module of the port but the three gRPC transports imports, the
+    companion servicers included, and so do chip_smoke.py and its
+    imports; the transports fail on ``grpc`` alone."""
+    mods = [m for m in _port_modules() if m not in GRPC_TRANSPORTS]
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['grpc'] = None\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "failed = []\n"
+        f"for m in {GRPC_TRANSPORTS!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "    except ImportError as e:\n"
+        "        failed.append(e.name)\n"
+        "print(failed)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['grpc', 'grpc', 'grpc']"
+
+
+def _imports_of(path):
+    import ast
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_only_the_grpc_transports_import_grpc():
+    root = REPO / "cometbft_tpu_torch"
+    importers = sorted(
+        "cometbft_tpu_torch." + ".".join(
+            p.relative_to(root).with_suffix("").parts)
+        for p in root.rglob("*.py") if "grpc" in _imports_of(p))
+    assert importers == sorted(GRPC_TRANSPORTS)
+    assert "grpc" not in _imports_of(REPO / "chip_smoke.py")
 
 
 def test_lightserve_loads_no_jax_or_reference():
