@@ -3422,14 +3422,16 @@ class _LoopGap:
 
 @contextlib.contextmanager
 def _commit_checks(ek):
-    """{height: [B1 launches of each BlockExecutor.validate_block call at
-    that height]} while the block runs: the LastCommit check's launches,
-    counted on the calling thread only (the bursts' pre-verification
-    launches on the staging worker's thread are not its)."""
+    """{height: {id of the BlockExecutor: [B1 launches of each of its
+    validate_block calls at that height]}} while the block runs: the
+    LastCommit check's launches, counted on the calling thread only (the
+    bursts' pre-verification launches on the staging worker's thread are
+    not its)."""
     from cometbft_tpu_torch.state.execution import BlockExecutor
     real_validate, real_verify = BlockExecutor.validate_block, \
         ek.verify_cols
-    inside, checks = threading.local(), collections.defaultdict(list)
+    inside = threading.local()
+    checks = collections.defaultdict(lambda: collections.defaultdict(list))
 
     def verify_cols(*a):
         before = ek.launches
@@ -3443,7 +3445,7 @@ def _commit_checks(ek):
         try:
             return real_validate(self, state, block)
         finally:
-            checks[block.header.height].append(inside.count)
+            checks[block.header.height][id(self)].append(inside.count)
             inside.count = None
 
     BlockExecutor.validate_block, ek.verify_cols = validate_block, verify_cols
@@ -3452,6 +3454,18 @@ def _commit_checks(ek):
     finally:
         BlockExecutor.validate_block, ek.verify_cols = real_validate, \
             real_verify
+
+
+def _node_checks(checks, nodes, top) -> list:
+    """Each node's LastCommit-check launches at heights 1..top: the most
+    that any of its executor's validate_block calls at a height made."""
+    return [[max(checks.get(h, {}).get(id(node.exec), [0]))
+             for h in range(1, top + 1)] for node in nodes]
+
+
+def _tally(counts) -> dict:
+    """{count: how many times it occurs}, smallest count first."""
+    return dict(sorted(collections.Counter(counts).items()))
 
 
 def _batch_lanes(tracing) -> list:
@@ -4237,7 +4251,8 @@ def _sock_net(seed, card, ek, tracing, device, loop, net_ms, record=None):
     ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
     total_s = stamps[-1] - stamps[1]
     if record is not None:
-        record.update(ms=ms, launches=launches, checks=dict(checks))
+        record.update(ms=ms, launches=launches,
+                      checks=_node_checks(checks, nodes, top))
     # the gates: the four stores agree, and every commit verifies
     for h in range(1, top + 1):
         blocks = {encode(pb.BLOCK, node.block_store.load_block(h).to_proto())
@@ -8692,12 +8707,17 @@ def _sockapp_net(seed, card, ek, tracing, device, loop, sock_dir, sock):
             raise AssertionError(f"18a: node {i} committed "
                                  f"{sum(got.values())} of {len(sent)} sent "
                                  f"txs, its sink holds {rows} rows")
-    for h in range(1, top + 1):
-        mine, theirs = max(checks.get(h, [0])), \
-            max(sock["checks"].get(h, [0]))
-        if mine != theirs or (h > 1 and mine < 1):
-            raise AssertionError(f"18a: the LastCommit check at {h} "
-                                 f"launched B1 {mine} times, 13a's {theirs}")
+    mine, theirs = _node_checks(checks, nodes, top), sock["checks"]
+    for i, (counts, ref) in enumerate(zip(mine, theirs)):
+        for h, (got, want) in enumerate(zip(counts, ref), 1):
+            if got != want or (h > 1 and got != 1):
+                raise AssertionError(
+                    f"18a: node {i}'s LastCommit check at {h} launched B1 "
+                    f"{got} times, 13a's node {i} {want}")
+    if len(mine) != n or any(len(r) < top for r in theirs):
+        raise AssertionError(f"18a: LastCommit checks for {len(mine)} nodes "
+                             f"against 13a's {[len(r) for r in theirs]} "
+                             f"heights")
     checker = GrammarChecker()
     for i, calls in enumerate(traces):
         checker.verify(calls)
@@ -8708,8 +8728,10 @@ def _sockapp_net(seed, card, ek, tracing, device, loop, sock_dir, sock):
          f"heights 2-{top}) {_p50_p90(ms)} against 13a's sock_{n}x"
          f"{SOCK_HEIGHTS} {_p50_p90(sock['ms'])} in this call; B1 launches "
          f"{launches} ({launches / top:.2f} a height) against 13a's "
-         f"{sock['launches']} ({sock['launches'] / SOCK_HEIGHTS:.2f}); each "
-         f"node's LastCommit check 1 launch a height as 13a's; lanes a "
+         f"{sock['launches']} ({sock['launches'] / SOCK_HEIGHTS:.2f}); "
+         f"LastCommit check launches a height by node, heights 1-{top} "
+         f"{[_tally(c) for c in mine]}, 13a's "
+         f"{[_tally(c[:top]) for c in theirs]}; lanes a "
          f"launch {sorted(collections.Counter(lanes).items())}; "
          f"{len(sent)} keyed txs committed once on every node, one row "
          f"each in every sink; the four app hashes agree at every height; "
@@ -9176,10 +9198,13 @@ def _sockapp_reject(seed, card, ek, device, loop, sock_dir):
             killed_between_heights(killed))
     finally:
         killed.stop()
-    # the receive loop's error, whichever way the socket went down
+    # the receive loop's error, whichever way the socket went down; the
+    # call whose write meets the closed transport before that loop marks
+    # the client dead gets asyncio's own error for it from drain()
     dead = f"ABCI client dead: {err}"
-    surfaced = (failure is not None and str(failure) in (str(err), dead)) \
-        or (failure is None and logged and set(logged) <= {str(err), dead})
+    seen = {str(err), dead, str(ConnectionResetError("Connection lost"))}
+    surfaced = (failure is not None and str(failure) in seen) \
+        or (failure is None and logged and set(logged) <= seen)
     if not (isinstance(err, (ConnectionError, asyncio.IncompleteReadError))
             or str(err) == "ABCI connection closed by app") or \
             after != dead or not surfaced:
@@ -9265,9 +9290,11 @@ def _sockapp_phases(seed, card, keep, device=None):
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
     from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
     t_phase = time.perf_counter()
-    # unix socket paths stay short: the limit is ~107 bytes
-    sock_dir = tempfile.mkdtemp(prefix="cs18-", dir="/tmp"
-                                if os.path.isdir("/tmp") else None)
+    # in TMPDIR unless its socket paths would pass the ~107-byte limit
+    sock_dir = tempfile.mkdtemp(prefix="cs18-")
+    if len(os.path.join(sock_dir, "oversized.sock")) > 100:
+        os.rmdir(sock_dir)
+        sock_dir = tempfile.mkdtemp(prefix="cs18-", dir="/tmp")
     loop = asyncio.new_event_loop()
     logging.disable(logging.INFO)
     try:

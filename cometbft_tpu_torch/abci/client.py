@@ -65,7 +65,7 @@ class DeadlineClient:
     ABCI client (socket or gRPC).
 
     Every coroutine method gets asyncio.wait_for with a per-method
-    timeout (``overrides`` > slow/default split); read-only methods
+    timeout (the slow/default split); read-only methods
     are retried up to ``retries`` times on transient transport errors
     with exponential backoff.  A deadline miss surfaces as
     ABCITimeoutError so callers can distinguish a wedged app from an
@@ -73,24 +73,19 @@ class DeadlineClient:
 
     def __init__(self, inner, default_timeout_s: float = 20.0,
                  slow_timeout_s: float = 0.0, retries: int = 2,
-                 retry_backoff_s: float = 0.1,
-                 overrides: Optional[dict] = None, logger=None):
+                 retry_backoff_s: float = 0.1, logger=None):
         object.__setattr__(self, "_inner", inner)
         self._default_timeout_s = default_timeout_s
         # consensus-path calls default to 6x the query budget
         self._slow_timeout_s = slow_timeout_s or 6 * default_timeout_s
         self._retries = max(0, retries)
         self._retry_backoff_s = retry_backoff_s
-        self._overrides = dict(overrides or {})
         if logger is None:
             from ..libs.log import new_logger
             logger = new_logger("abci-deadline")
         self._logger = logger
 
     def timeout_for(self, method: str) -> float:
-        t = self._overrides.get(method)
-        if t is not None:
-            return t
         return self._slow_timeout_s if method in _SLOW_METHODS \
             else self._default_timeout_s
 

@@ -24,6 +24,9 @@ _COMPANION_RETAIN_KEY = b"prune/companion_retain_height"
 _ABCI_RESULTS_RETAIN_KEY = b"prune/abci_results_retain_height"
 _TX_INDEXER_RETAIN_KEY = b"prune/tx_indexer_retain_height"
 _BLOCK_INDEXER_RETAIN_KEY = b"prune/block_indexer_retain_height"
+# per-pass bound on companion-artifact heights (event-loop latency cap;
+# the watermark carries progress across passes)
+MAX_HEIGHTS_PER_PASS = 10_000
 
 
 class Pruner:
@@ -45,9 +48,6 @@ class Pruner:
         self.logger = logger or new_logger("pruner")
         self.tx_indexer = tx_indexer
         self.block_indexer = block_indexer
-        # per-pass bound on companion-artifact heights (event-loop
-        # latency cap; the watermark carries progress across passes)
-        self.max_heights_per_pass = 10_000
         self._task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
 
@@ -205,7 +205,7 @@ class Pruner:
             # the event loop, and a companion jumping the retain height
             # by millions must not stall consensus for the whole scan
             lo = max(last, 1)
-            hi = min(retain, lo + self.max_heights_per_pass)
+            hi = min(retain, lo + MAX_HEIGHTS_PER_PASS)
             try:
                 n = do_prune(lo, hi)
             except Exception:

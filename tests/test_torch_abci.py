@@ -482,14 +482,13 @@ def test_transient_transport_errors_equal_the_jax_ones(exc):
         r_client._is_transient_transport_error(exc)
 
 
-def test_overrides_and_pass_through_attributes():
+def test_timeouts_and_pass_through_attributes():
     inner = _Inner()
     inner.address = "unix:///x"
     for mod in (client, r_client):
-        dc = mod.DeadlineClient(inner, default_timeout_s=2.0,
-                                overrides={"query": 0.5})
+        dc = mod.DeadlineClient(inner, default_timeout_s=2.0)
         assert (dc.timeout_for("query"), dc.timeout_for("commit"),
-                dc.timeout_for("echo")) == (0.5, 12.0, 2.0)
+                dc.timeout_for("echo")) == (2.0, 12.0, 2.0)
         assert dc.address == "unix:///x"
         assert dc.echo is dc.echo           # cached after the first lookup
 

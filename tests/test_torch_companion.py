@@ -133,14 +133,18 @@ def test_indexer_and_results_pruning(side):
         p.set_tx_indexer_retain_height(3)
 
 
-def _pruner_story(s):
-    """One seeded sequence of knob settings and passes; returns what each
-    step answered or raised and the rows of every db."""
+def _pruner_story(s, monkeypatch):
+    """One seeded sequence of knob settings and passes, three heights a
+    pass; returns what each step answered or raised and the rows of every
+    db."""
     tx_idx, blk_idx = _indexed(s, top=10)
     ss, db = _StateStore(), s["MemDB"]()
     p = s["pruner"].Pruner(ss, _Stores(), db, companion_enabled=True,
                            tx_indexer=tx_idx, block_indexer=blk_idx)
-    p.max_heights_per_pass = 3
+    if s is PORT:
+        monkeypatch.setattr(s["pruner"], "MAX_HEIGHTS_PER_PASS", 3)
+    else:
+        p.max_heights_per_pass = 3
     out = []
 
     def step(fn, *a):
@@ -170,8 +174,10 @@ def _pruner_story(s):
     return out, rows(db), rows(tx_idx._db), rows(blk_idx._db)
 
 
-def test_companion_knobs_watermarks_and_texts_equal_the_jax_ones():
-    mine, theirs = _pruner_story(PORT), _pruner_story(JAX)
+def test_companion_knobs_watermarks_and_texts_equal_the_jax_ones(
+        monkeypatch):
+    mine, theirs = _pruner_story(PORT, monkeypatch), \
+        _pruner_story(JAX, monkeypatch)
     assert mine == theirs
     texts = {o[1] for o in mine[0] if o[0] == "ValueError"}
     assert texts == {"retain height must be positive",

@@ -19,11 +19,15 @@ lead's measurement (12 validators, both packages, both tx kinds) with
     cd tests && PYTHONPATH=.. JAX_PLATFORMS=cpu python -c \\
         'import test_torch_mempool_lead as t; t.main()'
 
-At 100 tx/s for 5 s both packages drain 500 txs with either kind of
-key; at 400 tx/s for 10 s neither commits a block until the load ends,
-with either kind of key (ROADMAP.md §C): the key ``a`` is not the cause.
-The test below runs the net at 4 validators in both packages with both
-kinds of key.
+for 100 tx/s over 5 s, and with ``t.main(rate=400, seconds=10.0)`` for
+the stall.  At 100 tx/s both packages drain 500 txs with either kind of
+key; at 400 tx/s neither commits a block until the load ends, with
+either kind of key (ROADMAP.md §C): the key ``a`` is not the cause.
+The JAX package verifies each vote on the CPU (OpenSSL, a few hundred
+microseconds a signature here) where the port's stand-in is free; the
+port stalls all the same, so verification is not what holds consensus
+back.  The test below runs the net at 4 validators in both packages
+with both kinds of key.
 """
 import asyncio
 import collections
