@@ -203,6 +203,20 @@ equal 12a's, one height under cuda8); the companion services' servicers
 on those stores, pruning to four retain heights; and the rejects: an
 app raising in FinalizeBlock, an app past a deadline, an app killed
 between heights, frames over MAX_MSG_SIZE.
+Phases 19a-19e drive the node (node/, cmd/, config, confix,
+tools/manifest) as a user runs it: BASELINE.json config 1 as `python -m
+cometbft_tpu_torch.cmd testnet --v 4` and four `cmd start` processes on
+the card under `cmd load` for 30 heights (every process holds the card
+and exits 0 on SIGTERM, /block and /commit agree on every node, every
+accepted tx committed once); four Nodes in this process on those homes
+for 50 heights, each LastCommit check one B1 launch, then one height
+under cuda8; a fifth Node state-syncing over two of their RPC servers,
+block-syncing and joining consensus (its blocks and app hashes the net's,
+the same proposer at its first consensus height); a generated e2e
+manifest with a restart, a late joiner and injected duplicate-vote
+evidence through run_manifest; and the rejects: a killed socket app stops
+its `cmd start` process non-zero, a bad config, a home without a genesis,
+grpc.laddr without grpcio.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -219,9 +233,11 @@ import json
 import logging
 import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -444,6 +460,19 @@ COMPANION_RETAIN = {      # 18c: retain heights, each below 18b's top
     "block_indexer": 25}
 REJECT_DEADLINE_S = 0.5   # 18d: the deadline an app sleeps past
 REJECT_FAULT_HEIGHT = 3   # 18d: the height whose FinalizeBlock raises
+# phase 19: the node and its entry points
+NODE_CLI = [sys.executable, "-m", "cometbft_tpu_torch.cmd"]
+NODE_VALIDATORS = 4       # 19a: config 1, cmd testnet --v 4
+NODE_CLI_HEIGHTS = 30     # 19a: heights of the cmd start processes
+NODE_LOAD_RATE = 100      # 19a: cmd load, 16d's load: tx/s,
+NODE_LOAD_SECONDS = 3.0   # seconds
+NODE_LOAD_SIZE = 1024     # and bytes a tx
+NODE_INPROC_HEIGHTS = 50  # 19b: heights of the four in-process Nodes
+NODE_JOIN_TRUST = 10      # 19c: the joiner's trust height (19a's chain)
+NODE_JOIN_DISCOVERY_NS = 2_000_000_000   # 19c: its snapshot discovery
+MANIFEST_SEED = 793       # 19d: a generated net with a restart, a late
+MANIFEST_TARGET = 8       # joiner and duplicate-vote evidence, ed25519
+MANIFEST_TIMEOUT_S = 30.0
 
 
 def _mixed_kind(i: int) -> str:
@@ -3208,45 +3237,6 @@ def _cs_feed(chain, heights, signer):
     return feed
 
 
-def _node_status(node) -> dict:
-    """The JAX Node.status (cometbft_tpu/node/node.py:616-653) over a
-    holder of a node's parts; ``node.moniker`` stands in for
-    config.base.moniker (the port's Config has no base section yet)."""
-    from cometbft_tpu_torch.types.genesis import pub_key_to_json
-    state = node.state_store.load()
-    latest_meta = node.block_store.load_block_meta(node.block_store.height)
-    pub = node.priv_validator.get_pub_key()
-    power = 0
-    if state is not None and state.validators is not None:
-        _, val = state.validators.get_by_address(pub.address())
-        power = val.voting_power if val else 0
-    return {
-        "node_info": {
-            "id": node.node_key.id,
-            "listen_addr": node.switch.listen_addr,
-            "network": node.genesis_doc.chain_id,
-            "moniker": node.moniker,
-        },
-        "sync_info": {
-            "latest_block_hash":
-                latest_meta.block_id.hash.hex().upper()
-                if latest_meta else "",
-            "latest_app_hash":
-                (state.app_hash.hex().upper() if state else ""),
-            "latest_block_height": str(node.block_store.height),
-            "latest_block_time":
-                latest_meta.header.time.rfc3339() if latest_meta else "",
-            "earliest_block_height": str(node.block_store.base),
-            "catching_up": False,
-        },
-        "validator_info": {
-            "address": pub.address().hex().upper(),
-            "pub_key": pub_key_to_json(pub),
-            "voting_power": str(power),
-        },
-    }
-
-
 class _CsNode:
     """A port ConsensusState over a kvstore app on AppConns, a Store and a
     BlockStore (MemDB unless ``dbs`` names them), a BlockExecutor that
@@ -3261,7 +3251,6 @@ class _CsNode:
     the indexers and the pruner, ``status()``), so an RPCServer serves
     it as it would serve that Node."""
 
-    moniker = "anonymous"
     tx_indexer = block_indexer = pruner = None
     consensus_reactor = None
 
@@ -3290,7 +3279,8 @@ class _CsNode:
         return self.cs.priv_validator
 
     def status(self) -> dict:
-        return _node_status(self)
+        from cometbft_tpu_torch.node.node import Node
+        return Node.status(self)
 
     @classmethod
     async def make(cls, doc, device, dbs=None, wal_path=None, config=None,
@@ -3437,7 +3427,9 @@ def _commit_checks(ek):
         before = ek.launches
         out = real_verify(*a)
         if getattr(inside, "count", None) is not None:
-            inside.count += ek.launches - before
+            # a call launches at most once; a burst's launch on another
+            # thread between the two reads is not this call's
+            inside.count += min(1, ek.launches - before)
         return out
 
     def validate_block(self, state, block):
@@ -3456,11 +3448,11 @@ def _commit_checks(ek):
             real_verify
 
 
-def _node_checks(checks, nodes, top) -> list:
-    """Each node's LastCommit-check launches at heights 1..top: the most
-    that any of its executor's validate_block calls at a height made."""
-    return [[max(checks.get(h, {}).get(id(node.exec), [0]))
-             for h in range(1, top + 1)] for node in nodes]
+def _node_checks(checks, execs, heights) -> list:
+    """Each executor's LastCommit-check launches at ``heights``: the most
+    that any of its validate_block calls at a height made."""
+    return [[max(checks.get(h, {}).get(id(ex), [0])) for h in heights]
+            for ex in execs]
 
 
 def _tally(counts) -> dict:
@@ -4252,7 +4244,8 @@ def _sock_net(seed, card, ek, tracing, device, loop, net_ms, record=None):
     total_s = stamps[-1] - stamps[1]
     if record is not None:
         record.update(ms=ms, launches=launches,
-                      checks=_node_checks(checks, nodes, top))
+                      checks=_node_checks(checks, [nd.exec for nd in nodes],
+                                          range(1, top + 1)))
     # the gates: the four stores agree, and every commit verifies
     for h in range(1, top + 1):
         blocks = {encode(pb.BLOCK, node.block_store.load_block(h).to_proto())
@@ -6494,8 +6487,8 @@ class _StoreNode:
     lacks are None, so the routes that need them answer as a JAX node
     without them.  With ``cache`` (a lightserve ResponseCache) the routes
     serve settled heights from it, and the chain's kvstore keeps the
-    cached heights' tree versions past its pruning horizon, as the JAX
-    Node wires them (cometbft_tpu/node/node.py:190-206)."""
+    cached heights' tree versions past its pruning horizon through the
+    node's own wiring (node/node.pin_cache_heights)."""
 
     moniker = "anonymous"
     mempool = consensus_state = switch = event_bus = None
@@ -6504,6 +6497,7 @@ class _StoreNode:
 
     def __init__(self, chain, evidence_pool=None, cache=None):
         from cometbft_tpu_torch.config import Config
+        from cometbft_tpu_torch.node.node import pin_cache_heights
         self.block_store, self.state_store = chain.block_store, \
             chain.state_store
         self.genesis_doc, self.config = chain.doc, Config()
@@ -6511,7 +6505,7 @@ class _StoreNode:
         self.evidence_pool = evidence_pool
         self.lightserve_cache = cache
         if cache is not None:
-            chain.app.version_pin = cache.heights
+            pin_cache_heights(chain.app, cache)
 
 
 class _RpcCount:
@@ -8707,7 +8701,9 @@ def _sockapp_net(seed, card, ek, tracing, device, loop, sock_dir, sock):
             raise AssertionError(f"18a: node {i} committed "
                                  f"{sum(got.values())} of {len(sent)} sent "
                                  f"txs, its sink holds {rows} rows")
-    mine, theirs = _node_checks(checks, nodes, top), sock["checks"]
+    mine = _node_checks(checks, [nd.exec for nd in nodes],
+                        range(1, top + 1))
+    theirs = sock["checks"]
     for i, (counts, ref) in enumerate(zip(mine, theirs)):
         for h, (got, want) in enumerate(zip(counts, ref), 1):
             if got != want or (h > 1 and got != 1):
@@ -8738,6 +8734,7 @@ def _sockapp_net(seed, card, ek, tracing, device, loop, sock_dir, sock):
          f"{n} app processes ready in {spawn_s:.2f} s; heights 1-{top} "
          f"{stamps[-1] - stamps[0]:.2f} s, then the drain {drain_s:.2f} s and "
          f"the stop {stop_s:.2f} s; card: {card}")
+    sock["sockapp_ms"] = ms
     _log(f"sockapp_{n}x{top} ABCI ms by connection/method (proxy histogram "
          f"over the four nodes): {_abci_ms_line(abci_ms)}")
     _log(f"sockapp_{n}x{top} loop lag p95 by node (ms, histogram estimate) "
@@ -9313,6 +9310,675 @@ def _sockapp_phases(seed, card, keep, device=None):
              f"sockapp_cs_{EXEC_VALIDATORS}x{SOCKAPP_CS_HEIGHTS}": cs,
              "sockapp_reject": reject},
             {f"sockapp_cs_{EXEC_VALIDATORS}_cuda8": cs8})
+
+
+# -- phase 19: the node and its entry points ---------------------------------
+
+
+def _free_port_base(n: int) -> int:
+    """A base port b with b..b+n-1 all free on 127.0.0.1 (cmd testnet
+    numbers its nodes' ports from a base)."""
+    import random
+    import socket
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(20000, 60000 - n)
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError(f"no {n} consecutive free ports")
+
+
+def _free_port() -> int:
+    return _free_port_base(1)
+
+
+def _compute_apps() -> list:
+    """One pid for each process nvidia-smi lists as holding the card (a
+    container may report pids outside its own pid namespace)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _node_cli(*args) -> list:
+    """argv of the port's documented entry point, ``python -m
+    cometbft_tpu_torch.cmd``, with ``args``."""
+    return [*NODE_CLI, *map(str, args)]
+
+
+class _NodeProc:
+    """A ``cmd start --home HOME`` process, its stderr in HOME/node.log;
+    the card is the default device, as a user runs it."""
+
+    def __init__(self, home, *extra):
+        self.home = home
+        self.log_path = os.path.join(home, "node.log")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": root + os.pathsep +
+               os.environ.get("PYTHONPATH", "")}
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                _node_cli("--home", home, "start", *extra),
+                stdout=subprocess.DEVNULL, stderr=log, cwd=root, env=env)
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def alive(self):
+        if self.proc.poll() is not None:
+            raise AssertionError(
+                f"node process {self.home} exited with {self.proc.returncode}"
+                f": {self.log()[-1500:]}")
+
+    def stop(self, timeout_s=60.0) -> int:
+        """SIGTERM, then the exit code (killed past ``timeout_s``)."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout_s)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+                raise AssertionError(f"node process {self.home} did not stop "
+                                     f"in {timeout_s} s on SIGTERM")
+        return self.proc.returncode
+
+    def launches(self) -> tuple:
+        """(B1, B2) launches from the process's "Node stopped" line."""
+        import re
+        m = re.findall(r"Node stopped b1_launches=(\d+) b2_launches=(\d+)",
+                       self.log())
+        if not m:
+            raise AssertionError(f"node process {self.home} logged no "
+                                 f"'Node stopped' line: {self.log()[-800:]}")
+        return tuple(map(int, m[-1]))
+
+
+async def _rpc_heights(clients) -> list:
+    return [int((await c.status())["sync_info"]["latest_block_height"])
+            for c in clients]
+
+
+async def _rpc_chain(cli, top, out=None) -> dict:
+    """{h: (block id, app hash, header time, txs)} from /block, each held
+    to /commit's signed header at the same height; heights ``out``
+    already holds are not fetched again."""
+    out = {} if out is None else out
+    for h in range(len(out) + 1, top + 1):
+        blk = await cli.call("block", height=h)
+        com = await cli.call("commit", height=h)
+        bid = blk["block_id"]["hash"]
+        app = blk["block"]["header"]["app_hash"]
+        sh = com["signed_header"]
+        if (sh["commit"]["block_id"]["hash"], sh["header"]["app_hash"]) != \
+                (bid, app):
+            raise AssertionError(f"19a: /block and /commit at {h} disagree "
+                                 f"on {cli.host}:{cli.port}")
+        out[h] = (bid, app, blk["block"]["header"]["time"],
+                  blk["block"]["data"].get("txs") or [])
+    return out
+
+
+def _node_testnet(card, root, loop):
+    """19a node-4x30: BASELINE.json config 1 through the documented entry
+    point: ``cmd testnet --v 4``, four ``cmd start`` processes on the card,
+    ``cmd load`` over their RPC, 30 heights, SIGTERM.  Returns (the homes,
+    B1's launches summed over the processes)."""
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.tools import loadtime
+    n, top = NODE_VALIDATORS, NODE_CLI_HEIGHTS
+    _phase(f"19a node-{n}x{top}: cmd testnet --v {n}, {n} cmd start "
+           f"processes, cmd load {NODE_LOAD_RATE} tx/s of {NODE_LOAD_SIZE} B "
+           f"for {NODE_LOAD_SECONDS} s, {top} heights, SIGTERM")
+    out = os.path.join(root, "testnet")
+    p2p, rpc = _free_port_base(n), _free_port_base(n)
+    subprocess.run(_node_cli(
+        "testnet", "--v", n, "--o", out, "--chain-id", "node-chip",
+        "--starting-p2p-port", p2p, "--starting-rpc-port", rpc),
+        check=True, capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    homes = [os.path.join(out, f"node{i}") for i in range(n)]
+    clients = [HTTPClient(f"http://127.0.0.1:{rpc + i}", timeout=30.0)
+               for i in range(n)]
+    apps_before = _compute_apps()
+    procs = [_NodeProc(h) for h in homes]
+    t_spawn = procs[0].t0
+    load = None
+    try:
+        async def heights():
+            try:
+                return await _rpc_heights(clients)
+            except OSError:
+                return [0] * n
+
+        async def until(pred, what, timeout_s):
+            deadline = time.perf_counter() + timeout_s
+            while True:
+                for p in procs:
+                    p.alive()
+                hs = await heights()
+                if pred(hs):
+                    return hs
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"19a: {what} not reached in "
+                                         f"{timeout_s} s (heights {hs})")
+                await asyncio.sleep(0.1)
+
+        loop.run_until_complete(until(lambda hs: min(hs) >= 1,
+                                      "height 1 on every node", 180.0))
+        first_block_s = time.perf_counter() - t_spawn
+        t_load = time.time()
+        load = subprocess.Popen(
+            _node_cli("load", "--endpoints", ",".join(
+                f"http://127.0.0.1:{rpc + i}" for i in range(n)),
+                "--rate", NODE_LOAD_RATE, "--duration", NODE_LOAD_SECONDS,
+                "--size", NODE_LOAD_SIZE),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        loop.run_until_complete(until(lambda hs: min(hs) >= 3,
+                                      "height 3 on every node", 60.0))
+        apps = _compute_apps()
+        missing = [p.proc.pid for p in procs if p.proc.pid not in apps]
+        if missing and len(apps) < len(apps_before) + n:
+            raise AssertionError(
+                f"19a: nvidia-smi lists no compute app for node pids "
+                f"{missing}: {apps}, against {apps_before} before the spawn")
+        holds = ("nvidia-smi listed every node pid" if not missing else
+                 f"nvidia-smi listed {len(apps)} compute apps against "
+                 f"{len(apps_before)} before the spawn (pids {apps}: "
+                 f"reported outside this container's pid namespace)")
+        lout, lerr = load.communicate(timeout=120)
+        if load.returncode != 0:
+            raise AssertionError(f"19a: cmd load exited {load.returncode}: "
+                                 f"{lerr[-800:]}")
+        res = json.loads(lout.strip().splitlines()[-1])
+        if res["accepted"] == 0:
+            raise AssertionError(f"19a: cmd load had no tx accepted: {res}")
+
+        def committed(chain):
+            got = collections.Counter()
+            for h, (_, _, t, txs) in chain.items():
+                for tx64 in txs:
+                    p = loadtime.payload_from_tx(base64.b64decode(tx64))
+                    if p is not None and p.get("id") == res["experiment_id"]:
+                        got[tx64] += 1
+            return got
+
+        async def settle():
+            deadline, chain = time.perf_counter() + 120.0, {}
+            while True:
+                hs = await until(lambda hs: min(hs) >= top,
+                                 f"height {top} on every node", 120.0)
+                await _rpc_chain(clients[0], min(hs), chain)
+                got = committed(chain)
+                if len(got) >= res["accepted"]:
+                    return chain, got
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"19a: {len(got)} of "
+                                         f"{res['accepted']} accepted txs "
+                                         f"committed")
+                await asyncio.sleep(0.5)
+        chain, got = loop.run_until_complete(settle())
+        top_now = max(chain)
+        async def others():
+            return await asyncio.gather(
+                *(_rpc_chain(c, top_now) for c in clients[1:]))
+        chains = [chain] + loop.run_until_complete(others())
+        for h in range(1, top_now + 1):
+            if len({c[h][:2] for c in chains}) != 1:
+                raise AssertionError(f"19a: the nodes' block ids or app "
+                                     f"hashes at {h} differ")
+        if any(v != 1 for v in got.values()) or \
+                len(got) != res["accepted"]:
+            raise AssertionError(f"19a: {len(got)} distinct load txs "
+                                 f"committed against {res['accepted']} "
+                                 f"accepted, some more than once")
+    finally:
+        if load is not None and load.poll() is None:
+            load.kill()
+            load.wait()
+        codes = [p.stop() for p in procs]
+    for p, code in zip(procs, codes):
+        if code:
+            raise AssertionError(f"19a: cmd start exit codes {codes}: "
+                                 f"{p.log()[-1500:]}")
+    launches = [p.launches() for p in procs]
+    if any(b1 == 0 for b1, _ in launches):
+        raise AssertionError(f"19a: a node process launched B1 no time: "
+                             f"{launches}")
+    from cometbft_tpu_torch.tools.loadtime import _parse_block_time
+    times = [_parse_block_time(chain[h][2]) for h in range(1, top_now + 1)]
+    ms = [(b - a) * 1e3 for a, b in zip(times[1:], times[2:])]
+    tx_heights = [h for h in chain if any(
+        tx64 in got for tx64 in chain[h][3])]
+    tx_span = times[max(tx_heights) - 1] - t_load
+    # the chain's rate over the blocks that hold the load: from the block
+    # before the first of them to the last
+    chain_span = times[max(tx_heights) - 1] - \
+        times[max(min(tx_heights) - 2, 0)]
+    _log(f"node_{n}x{top} (cmd start processes on the card) ms a height "
+         f"from the headers' times, heights 2-{top_now} {_p50_p90(ms)}; "
+         f"start to every node's first block {first_block_s:.2f} s; cmd "
+         f"load sent {res['sent']}, accepted {res['accepted']}, all "
+         f"{len(got)} committed once in heights {min(tx_heights)}-"
+         f"{max(tx_heights)} ({len(got) / chain_span:.1f} tx/s over those "
+         f"blocks, {len(got) / tx_span:.1f} tx/s from the cmd load process's "
+         f"spawn, its imports included); /block and /commit agree on the "
+         f"block id and app "
+         f"hash at every height on all {n} nodes; {holds}; B1 launches "
+         f"by process {[b1 for b1, _ in launches]} (CUDA launches only); "
+         f"every process exited 0 on SIGTERM; card: {card}")
+    return homes, sum(b1 for b1, _ in launches)
+
+
+async def _nodes_until(nodes, pred, what, timeout_s=120.0):
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        for nd in nodes:
+            nd.raise_if_failed()
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what}: not reached in {timeout_s} s "
+                                 f"(heights {[nd.height for nd in nodes]})")
+        await asyncio.sleep(0.005)
+
+
+def _node_config(home, **sections):
+    """The config ``cmd start`` reads for ``home`` (confix's overrides),
+    with ``sections`` ({section: {key: value}}) laid over it."""
+    from cometbft_tpu_torch import confix
+    cfg = confix.effective_config(home)
+    return confix.apply_overrides(cfg, sections)
+
+
+def _node_inproc(card, ek, ek8, oe, homes, keep, device, loop, nodes):
+    """19b node-inproc-4x50: four Nodes in this process on 19a's homes,
+    50 heights, then one under cuda8; ``nodes`` gets them, running.
+    Returns (B1's launches, B2's)."""
+    from cometbft_tpu_torch.node import Node
+    n, depth = len(homes), NODE_INPROC_HEIGHTS
+    _phase(f"19b node-inproc-{n}x{depth}: {n} Nodes in one process on "
+           f"19a's homes (device=None), {depth} heights, then one height "
+           f"under cuda8")
+    _clear_memos()
+    nodes.extend(Node(_node_config(h), device=device) for h in homes)
+    ek.launches = ek8.launches = 0
+    with _commit_checks(ek) as checks:
+        async def run():
+            t0 = time.perf_counter()
+            for nd in nodes:
+                await nd.start()
+            start_s = time.perf_counter() - t0
+            await _nodes_until(nodes, lambda: not any(
+                nd.consensus_reactor.wait_sync for nd in nodes),
+                "every node in consensus")
+            base = max(nd.height for nd in nodes)
+            stamps = []
+            for h in range(base + 1, base + depth + 1):
+                await _nodes_until(nodes, lambda: nodes[0].height >= h,
+                                   f"19b height {h}")
+                stamps.append(time.perf_counter())
+            await _nodes_until(nodes, lambda: all(
+                nd.height >= base + depth for nd in nodes),
+                "19b every node at the last height")
+            return base, stamps, start_s
+        base, stamps, start_s = loop.run_until_complete(run())
+    launches = ek.launches
+    heights = range(base + 1, base + depth + 1)
+    mine = _node_checks(checks, [nd.block_exec for nd in nodes], heights)
+    for i, counts in enumerate(mine):
+        for h, got in zip(heights, counts):
+            if got != 1:
+                raise AssertionError(
+                    f"19b: node {i}'s LastCommit check at {h} launched B1 "
+                    f"{got} times (its validate_block calls there: "
+                    f"{checks.get(h, {}).get(id(nodes[i].block_exec))})")
+    # one height under cuda8
+    os.environ[oe.KERNEL_ENV] = "cuda8"
+    try:
+        ek.launches = ek8.launches = 0
+        top = max(nd.height for nd in nodes)
+        loop.run_until_complete(_nodes_until(nodes, lambda: all(
+            nd.height >= top + 1 for nd in nodes), "19b the cuda8 height"))
+        b1_in_8, launches8 = ek.launches, ek8.launches
+    finally:
+        os.environ.pop(oe.KERNEL_ENV, None)
+    if b1_in_8 or not launches8:
+        raise AssertionError(f"19b: under cuda8 B2 launched {launches8} and "
+                             f"B1 {b1_in_8} times, expected > 0 and 0")
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    sock = keep.get("sock") or {}
+    ref = (f"13a's {_p50_p90(sock['ms'])}" if sock.get("ms") else
+           "13a not run") + "; " + (
+        f"18a's {_p50_p90(sock['sockapp_ms'])}" if sock.get("sockapp_ms")
+        else "18a not run")
+    ref_checks = [_tally(c) for c in sock["checks"]] if sock.get("checks") \
+        else "13a not run"
+    _log(f"node_inproc_{n}x{depth} ms a height (node 0, heights "
+         f"{base + 2}-{base + depth}) {_p50_p90(ms)} against {ref} in this "
+         f"call; the four start() calls (prebuild, handshake, block sync "
+         f"begun) took {start_s:.2f} s at height {base}; B1 launches "
+         f"{launches}; LastCommit check launches a height by node "
+         f"{[_tally(c) for c in mine]}, 13a's by node {ref_checks}; the "
+         f"cuda8 height: B2 {launches8}, B1 0; card: {card}")
+    return launches, launches8
+
+
+async def _node_join_run(joiner, trace):
+    """Start ``joiner`` (state sync over RPC, block sync, the switch),
+    recording each stage's end and B1's launches at it in ``trace``."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.statesync.syncer import Syncer
+    real_sp, real_switch = joiner._make_state_provider, \
+        joiner._switch_to_consensus
+
+    def mark(stage):
+        trace.setdefault("stages", []).append(
+            (stage, time.perf_counter(), ek.launches))
+
+    async def make_state_provider(state):
+        sp = await real_sp(state)
+        mark("new_rpc_state_provider (trust root)")
+        return sp
+
+    async def switch(new_state, height):
+        mark("block sync to the switch")
+        trace["switch_state"] = new_state
+        await real_switch(new_state, height)
+        mark("LastCommit rebuilt, consensus started")
+    joiner._make_state_provider = make_state_provider
+    joiner._switch_to_consensus = switch
+    mark("start")
+    with _async_timed(Syncer, "sync_any") as sync:
+        await joiner.start()
+    mark("state sync (discovery, snapshot, light blocks)")
+    trace["sync_any_s"] = sync
+
+
+def _node_join_outcome(joiner, net, trace):
+    """The joiner's first consensus height h0 against ``net``'s stores:
+    (h0, the proposer each names there, the rounds at which h0..h0+2
+    committed)."""
+    st = trace["switch_state"]
+    h0 = st.last_block_height + 1
+    mine = st.validators.get_proposer().address
+    theirs = net.state_store.load_validators(h0).get_proposer().address
+    rounds = []
+    for h in range(h0, h0 + 3):
+        blk = net.block_store.load_block(h + 1)
+        rounds.append(blk.last_commit.round if blk is not None else None)
+    return h0, mine, theirs, rounds
+
+
+def _node_rpc_join(card, ek, nodes, root, device, loop):
+    """19c node-rpc-join: a fifth Node, statesync.enable over the RPC of
+    two of 19b's nodes with the trust root from /commit.  Returns B1's
+    launches."""
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node import Node, init_files
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    _phase("19c node-rpc-join: a fifth Node state-syncs over the RPC of two "
+           "of 19b's nodes (trust root from /commit), block-syncs and "
+           "switches to consensus")
+    home = os.path.join(root, "joiner")
+    urls = [f"http://{nd._rpc_server.listen_addr}" for nd in nodes[:2]]
+    cli = HTTPClient(urls[0])
+    trust_h = NODE_JOIN_TRUST
+    com = loop.run_until_complete(cli.call("commit", height=trust_h))
+    trust_hash = com["signed_header"]["commit"]["block_id"]["hash"]
+    peers = ",".join(f"{nd.node_key.id}@{nd.switch.listen_addr}"
+                     for nd in nodes)
+    cfg = Config()
+    cfg.base.home = home
+    os.makedirs(os.path.join(home, "config"), exist_ok=True)
+    shutil.copy(nodes[0].config.base.path(nodes[0].config.base.genesis_file),
+                os.path.join(home, "config", "genesis.json"))
+    init_files(cfg)
+    cfg = _node_config(home, p2p={
+        "laddr": f"tcp://127.0.0.1:{_free_port()}",
+        "persistent_peers": peers}, rpc={"laddr": ""}, statesync={
+        "enable": True, "rpc_servers": urls, "trust_height": trust_h,
+        "trust_hash": trust_hash,
+        "discovery_time_ns": NODE_JOIN_DISCOVERY_NS})
+    joiner = Node(cfg, device=device)
+    trace = {}
+    ek.launches = 0
+    try:
+        loop.run_until_complete(_node_join_run(joiner, trace))
+        loop.run_until_complete(_nodes_until(
+            [joiner] + nodes, lambda: "switch_state" in trace and
+            joiner.height >= trace["switch_state"].last_block_height + 3,
+            "19c: the joiner three heights into consensus"))
+        launches = ek.launches
+        h0, mine, theirs, rounds = _node_join_outcome(joiner, nodes[0],
+                                                     trace)
+        base = joiner.block_store.base
+        for h in range(base, joiner.height + 1):
+            a = joiner.block_store.load_block_meta(h)
+            b = nodes[0].block_store.load_block_meta(h)
+            if a.block_id != b.block_id or \
+                    a.header.app_hash != b.header.app_hash:
+                raise AssertionError(f"19c: the joiner's block or app hash at "
+                                     f"{h} differs from the net's")
+    finally:
+        loop.run_until_complete(joiner.stop())
+    if mine != theirs:
+        raise AssertionError(f"19c: at its first consensus height {h0} the "
+                             f"joiner names proposer {mine.hex()[:12]}, the "
+                             f"net {theirs.hex()[:12]}")
+    stages, last = [], None
+    for name, t, l in trace["stages"]:
+        if last is not None:
+            stages.append(f"{name} {(t - last[0]) * 1e3:.1f} ms, "
+                          f"{l - last[1]} B1")
+        last = (t, l)
+    _log(f"node_rpc_join stages (B1 launches of this process, 19b's four "
+         f"nodes included): {'; '.join(stages)} (sync_any "
+         f"{trace['sync_any_s'][0] * 1e3:.1f} ms with "
+         f"{NODE_JOIN_DISCOVERY_NS / 1e9:.1f} s of discovery); the "
+         f"snapshot at {base - 1}, blocks {base}-{joiner.height} held to the "
+         f"net's (ids and app hashes); "
+         f"first consensus height {h0}: the joiner and the net name proposer "
+         f"{mine.hex()[:12]}; rounds of heights {h0}-{h0 + 2}: {rounds}; B1 "
+         f"launches {launches}; card: {card}")
+    return launches
+
+
+def _node_manifest(card, ek, root, device, loop):
+    """19d manifest-e2e: generate(MANIFEST_SEED, max_nodes=4) through
+    run_manifest on the card.  Returns B1's launches."""
+    from cometbft_tpu_torch.tools import manifest as mf
+    man = mf.generate(MANIFEST_SEED, max_nodes=4)
+    perturbed = [f"{k}:{p}" for k, nm in man.nodes.items() for p in nm.perturb]
+    late = [k for k, nm in man.nodes.items() if nm.start_at]
+    _phase(f"19d manifest-e2e: generate({MANIFEST_SEED}, max_nodes=4): "
+           f"{len(man.nodes)} nodes ({man.key_type}, {man.abci_protocol}), "
+           f"perturbation {perturbed}, late joiners {late}, {man.evidence} "
+           f"duplicate-vote evidences, to height {MANIFEST_TARGET}")
+    _clear_memos()
+    ek.launches = 0
+    t0 = time.perf_counter()
+    rep = loop.run_until_complete(mf.run_manifest(
+        man, os.path.join(root, "manifest"), target_height=MANIFEST_TARGET,
+        timeout_s=MANIFEST_TIMEOUT_S, device=device))
+    wall_s = time.perf_counter() - t0
+    launches = ek.launches
+    if rep.mismatches or not rep.evidence_injected or \
+            rep.evidence_committed < len(rep.evidence_injected) or \
+            not perturbed or not late or \
+            min(rep.heights.values()) < MANIFEST_TARGET or not launches:
+        raise AssertionError(f"19d: {rep}; B1 launches {launches}")
+    _log(f"manifest_e2e reached height {MANIFEST_TARGET} everywhere in "
+         f"{rep.reached_target_s:.2f} s ({wall_s:.2f} s with the load's "
+         f"drain); heights {rep.heights}; load {rep.load_accepted} of "
+         f"{rep.load_sent} accepted; perturbed {rep.perturbed}; "
+         f"{len(rep.evidence_injected)} evidences injected, "
+         f"{rep.evidence_committed} committed; block ids and app hashes "
+         f"identical across nodes; B1 launches {launches}; card: {card}")
+    return launches
+
+
+def _node_reject(card, root, device, loop):
+    """19e node-reject: a killed socket app stops its cmd start process
+    (non-zero, the error on stderr); validate_basic refuses a bad config;
+    a home without a genesis is refused; grpc.laddr without grpcio
+    raises."""
+    from cometbft_tpu_torch.config import Config, ConfigError
+    from cometbft_tpu_torch.node import Node, NodeError, init_files
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    _phase("19e node-reject: a killed socket app, a bad config, a home "
+           "without a genesis, grpc.laddr without grpcio")
+    rows = []
+    # (i) the app process killed under a running cmd start
+    home = os.path.join(root, "deadapp")
+    subprocess.run(_node_cli("--home", home, "init", "--chain-id",
+                             "deadapp-chip"), check=True, capture_output=True,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    sock_dir = tempfile.mkdtemp(prefix="cs19-", dir="/tmp")
+    app = _AppProc(sock_dir, "app").start()
+    rpc = _free_port()
+    with open(os.path.join(home, "config", "config.json"), "w") as f:
+        json.dump({"base": {"abci": "socket", "proxy_app": app.address},
+                   "rpc": {"laddr": f"tcp://127.0.0.1:{rpc}"},
+                   "p2p": {"laddr": f"tcp://127.0.0.1:{_free_port()}"}}, f)
+    proc = _NodeProc(home)
+    try:
+        cli = HTTPClient(f"http://127.0.0.1:{rpc}")
+
+        async def height():
+            deadline = time.perf_counter() + 120.0
+            while time.perf_counter() < deadline:
+                proc.alive()
+                try:
+                    st = await cli.status()
+                    if int(st["sync_info"]["latest_block_height"]) >= 2:
+                        return
+                except OSError:
+                    pass
+                await asyncio.sleep(0.1)
+            raise AssertionError("19e: the socket-app node reached no "
+                                 "height 2")
+        loop.run_until_complete(height())
+        app.proc.kill()
+        t_kill = time.perf_counter()
+        try:
+            code = proc.proc.wait(60)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("19e: cmd start ran on for 60 s after its "
+                                 "app was killed") from None
+        stop_s = time.perf_counter() - t_kill
+        log = proc.log()
+        if code == 0 or "node stopped: NodeError: ABCI client connection " \
+                "terminated" not in log:
+            raise AssertionError(f"19e: cmd start exited {code} after its "
+                                 f"app was killed: {log[-1500:]}")
+        rows.append(f"killed app: cmd start exited {code} in {stop_s:.2f} s "
+                    f"({log.strip().splitlines()[-1][:160]})")
+    finally:
+        proc.stop()
+        app.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+    async def refused(make, exc, text, what):
+        try:
+            await make()
+        except exc as e:
+            if text not in str(e):
+                raise AssertionError(f"19e {what}: {e!r} lacks {text!r}")
+            rows.append(f"{what}: {type(e).__name__}: {str(e)[:120]}")
+            return
+        raise AssertionError(f"19e {what}: not refused")
+
+    # (ii) validate_basic
+    async def bad_config():
+        cfg = Config()
+        cfg.mempool.size = 0
+        Node(cfg, device=device)
+    loop.run_until_complete(refused(bad_config, ConfigError,
+                                    "mempool.size must be positive",
+                                    "mempool.size 0"))
+
+    # (iii) a home without a genesis
+    async def no_genesis():
+        cfg = Config()
+        cfg.base.home = os.path.join(root, "empty")
+        Node(cfg, device=device)
+    loop.run_until_complete(refused(no_genesis, FileNotFoundError,
+                                    "genesis.json", "no genesis"))
+
+    # (iv) grpc.laddr where grpcio cannot load
+    async def no_grpcio():
+        cfg = Config()
+        cfg.base.home = os.path.join(root, "grpc")
+        init_files(cfg, chain_id="grpc-chip")
+        cfg.rpc.laddr = ""
+        cfg.p2p.laddr = "tcp://127.0.0.1:0"
+        cfg.grpc.laddr = f"tcp://127.0.0.1:{_free_port()}"
+        saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+                 if k == "grpc" or k.startswith("grpc.") or k in (
+                     "cometbft_tpu_torch.rpc.grpc.server",
+                     "cometbft_tpu_torch.rpc.grpc.client")}
+        sys.modules["grpc"] = None
+        try:
+            await Node(cfg, device=device).start()
+        finally:
+            sys.modules.pop("grpc", None)
+            sys.modules.update(saved)
+    loop.run_until_complete(refused(no_grpcio, NodeError,
+                                    "grpc.laddr is set but the gRPC server "
+                                    "cannot load", "grpc.laddr"))
+    _log(f"node_reject: {'; '.join(rows)}; card: {card}")
+
+
+def _node_phases(seed, card, keep, device=None):
+    """Phases 19a-19e: the node (node/, cmd/, config, confix,
+    tools/manifest) run as a user runs it.  ``keep`` may hold 13a's and
+    18a's figures (``keep["sock"]``) to print beside 19b's.  Returns B1's
+    launches by part and B2's."""
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_kernel8 as ek8
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cs19-")
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    nodes = []
+    try:
+        homes, cli_b1 = _node_testnet(card, root, loop)
+        inproc_b1, inproc_b2 = _node_inproc(card, ek, ek8, oe, homes, keep,
+                                            device, loop, nodes)
+        join_b1 = _node_rpc_join(card, ek, nodes, root, device, loop)
+        while nodes:
+            loop.run_until_complete(nodes.pop().stop())
+        manifest_b1 = _node_manifest(card, ek, root, device, loop)
+        _node_reject(card, root, device, loop)
+    finally:
+        for nd in nodes:   # what a failed part left running
+            try:
+                loop.run_until_complete(nd.stop())
+            except Exception:  # noqa: BLE001 — the part's error is raised
+                pass
+        logging.disable(logging.NOTSET)
+        loop.close()
+        shutil.rmtree(root, ignore_errors=True)
+    _log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    n = NODE_VALIDATORS
+    return ({f"node_{n}x{NODE_CLI_HEIGHTS}": cli_b1,
+             f"node_inproc_{n}x{NODE_INPROC_HEIGHTS}": inproc_b1,
+             "node_rpc_join": join_b1, "manifest_e2e": manifest_b1},
+            {f"node_inproc_{n}_cuda8": inproc_b2})
 
 
 def main() -> int:
@@ -9910,6 +10576,7 @@ def main() -> int:
     rpc_launches, rpc_launches8 = _rpc_phases(args.seed, card, keep)
     ls_launches, ls_launches8 = _lightserve_phases(args.seed, card, keep)
     sa_launches, sa_launches8 = _sockapp_phases(args.seed, card, keep)
+    node_launches, node_launches8 = _node_phases(args.seed, card, keep)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -9932,7 +10599,7 @@ def main() -> int:
                              **cs_launches, **p2p_launches,
                              **sync_launches, **ss_launches,
                              **rpc_launches, **ls_launches,
-                             **sa_launches},
+                             **sa_launches, **node_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],
@@ -9962,7 +10629,8 @@ def main() -> int:
                              **light_launches8, **exec_launches8,
                              **cs_launches8, **sync_launches8,
                              **ss_launches8, **rpc_launches8,
-                             **ls_launches8, **sa_launches8},
+                             **ls_launches8, **sa_launches8,
+                             **node_launches8},
         "max_abs_err": max_abs_err8,
         "lanes": tile_lanes,
         "ms": timings8[tile_lanes],

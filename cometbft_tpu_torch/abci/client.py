@@ -363,6 +363,7 @@ class SocketClient:
         self._pending: "asyncio.Queue[tuple[str, asyncio.Future]]" = None  # type: ignore[assignment]
         self._recv_task = None
         self._err: Optional[Exception] = None
+        self._closed = False
 
     async def connect(self, retries: int = 80,
                       retry_delay: float = 0.25) -> None:
@@ -387,7 +388,16 @@ class SocketClient:
         self._pending = asyncio.Queue()
         self._recv_task = asyncio.create_task(self._recv_loop())
 
+    async def wait_done(self) -> Optional[Exception]:
+        """Wait until the receive routine ends: the error that ended it
+        (the app closed the connection, answered with an exception, or
+        broke the protocol), or None once ``close`` stopped it."""
+        if self._recv_task is not None:
+            await asyncio.wait({self._recv_task})
+        return None if self._closed else self._err
+
     async def close(self) -> None:
+        self._closed = True
         if self._err is None:
             self._err = ABCIClientError("client closed")
         self._fail_pending(self._err)
@@ -537,11 +547,28 @@ class SocketAppConns:
         self.mempool = SocketClient(address)
         self.query = SocketClient(address)
         self.snapshot = SocketClient(address)
+        # the four clients as made, under whatever wraps the attributes
+        self._sockets = (self.consensus, self.mempool, self.query,
+                         self.snapshot)
 
     async def start(self) -> None:
-        for c in (self.consensus, self.mempool, self.query, self.snapshot):
+        for c in self._sockets:
             await c.connect()
 
     async def stop(self) -> None:
-        for c in (self.consensus, self.mempool, self.query, self.snapshot):
+        for c in self._sockets:
             await c.close()
+
+    async def wait_dead(self) -> Optional[Exception]:
+        """Wait until the first of the four connections ends: its error,
+        or None if ``stop`` ended it (reference: multi_app_conn.go
+        killTMOnClientError, which stops the node when a client dies)."""
+        waits = [asyncio.ensure_future(c.wait_done()) for c in self._sockets]
+        try:
+            done, _ = await asyncio.wait(
+                waits, return_when=asyncio.FIRST_COMPLETED)
+        finally:
+            for w in waits:
+                w.cancel()
+        return next((e for e in (d.result() for d in done)
+                     if e is not None), None)

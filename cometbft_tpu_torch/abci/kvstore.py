@@ -21,6 +21,7 @@ call delays and the import of pre-tree stores.
 """
 from __future__ import annotations
 
+import asyncio
 import base64
 import json
 from typing import Callable, Iterable, Optional
@@ -157,6 +158,10 @@ class KVStoreApplication(abci.Application):
         self.logger = new_logger("kvstore")
         self._val_updates: list[abci.ValidatorUpdate] = []
         self._val_addr_to_pubkey: dict[bytes, tuple[str, bytes]] = {}
+        # artificial per-call delays, seconds by call name (reference: e2e
+        # manifest prepare_proposal_delay / process_proposal_delay /
+        # check_tx_delay / finalize_block_delay mimic app computation)
+        self.abci_delays: dict[str, float] = {}
         self._height = 0
         self._size = 0
         # versions the tree keeps past the pruning horizon: the holder
@@ -220,8 +225,14 @@ class KVStoreApplication(abci.Application):
         app_hash = self.tree.commit(0, extra={"size": self._size})
         return abci.InitChainResponse(app_hash=app_hash)
 
+    async def _delay(self, call: str) -> None:
+        d = self.abci_delays.get(call, 0.0)
+        if d > 0:
+            await asyncio.sleep(d)
+
     async def check_tx(self, req: abci.CheckTxRequest
                        ) -> abci.CheckTxResponse:
+        await self._delay("check_tx")
         if is_validator_tx(req.tx):
             try:
                 parse_validator_tx(req.tx)
@@ -240,6 +251,7 @@ class KVStoreApplication(abci.Application):
 
     async def prepare_proposal(self, req: abci.PrepareProposalRequest
                                ) -> abci.PrepareProposalResponse:
+        await self._delay("prepare_proposal")
         """Normalize 'k:v' to 'k=v', drop invalid txs (reference:
         formatTxs)."""
         txs = []
@@ -256,6 +268,7 @@ class KVStoreApplication(abci.Application):
 
     async def process_proposal(self, req: abci.ProcessProposalRequest
                                ) -> abci.ProcessProposalResponse:
+        await self._delay("process_proposal")
         for tx in req.txs:
             if is_validator_tx(tx):
                 try:
@@ -272,6 +285,7 @@ class KVStoreApplication(abci.Application):
 
     async def finalize_block(self, req: abci.FinalizeBlockRequest
                              ) -> abci.FinalizeBlockResponse:
+        await self._delay("finalize_block")
         self._val_updates = []
         # a previous FinalizeBlock whose Commit never arrived (crash
         # replay) must not leak staged writes into this block

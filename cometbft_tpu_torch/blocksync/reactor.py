@@ -233,30 +233,29 @@ class BlocksyncReactor(Reactor):
     async def _sync_routine(self) -> None:
         """The verify-then-apply loop (reference: poolRoutine /
         processBlock)."""
-        caught_up_since: float = 0.0
+        started = asyncio.get_running_loop().time()
         while True:
             pool = self.pool
             if pool is None:
                 return
             # park until a block arrives or the head advances; the
-            # 250 ms fallback drives the caught-up grace check
+            # 250 ms fallback drives the caught-up check
             await pool.wait_apply()
-            # caught up?  It must HOLD across more than one status round,
-            # so that one early low StatusResponse cannot end the sync
-            # (reference: switchToConsensusTicker + grace period)
+            # caught up?  Not before two status rounds have passed since
+            # the sync began, so that one early low StatusResponse cannot
+            # end it; after that, at the first check that finds the pool
+            # caught up (reference: switchToConsensusTicker + IsCaughtUp).
+            # The JAX reactor makes the caught-up state HOLD for two
+            # rounds, which a net committing a block faster than a status
+            # round never lets happen (ROADMAP.md section C).
             now = asyncio.get_running_loop().time()
-            if pool.peers and pool.is_caught_up():
-                if caught_up_since == 0.0:
-                    caught_up_since = now
-                elif now - caught_up_since > \
-                        2 * _STATUS_UPDATE_INTERVAL_S:
-                    self.logger.info(
-                        "blocksync complete; switching to consensus",
-                        height=pool.height - 1)
-                    await self._finish_sync(pool)
-                    return
-            else:
-                caught_up_since = 0.0
+            if pool.peers and pool.is_caught_up() and \
+                    now - started > 2 * _STATUS_UPDATE_INTERVAL_S:
+                self.logger.info(
+                    "blocksync complete; switching to consensus",
+                    height=pool.height - 1)
+                await self._finish_sync(pool)
+                return
 
             first, second, first_ext = pool.peek_two_blocks()
             if first is None or second is None:

@@ -1,20 +1,15 @@
-"""Node configuration: the consensus, RPC, p2p, mempool, block-sync,
-state-sync and storage sections.
+"""Node configuration tree.
 
-Reference: config/config.go — P2PConfig (:588), MempoolConfig,
-StateSyncConfig, BlockSyncConfig, ConsensusConfig (:1218), StorageConfig
-and TestConfig (:128) — through cometbft_tpu/config.py, whose
-``ConsensusConfig`` (:173-234) and the consensus part of ``test_config``
-(:411-417) this copy keeps, with the same field names, defaults and
-timeout arithmetic, and of whose ``RPCConfig`` (:55-69),
-``P2PConfig`` (:86-104),
-``MempoolConfig`` (:108-152), ``StateSyncConfig`` (:155-164),
-``BlockSyncConfig`` (:168) and ``StorageConfig`` (:238-240) it keeps the
-fields the port reads, with their defaults.  The other sections (base,
-gRPC, instrumentation) come with the node, ROADMAP.md A.7e-6.
+Reference: config/config.go:93 — Config{Base,RPC,GRPC,P2P,Mempool,
+StateSync,BlockSync,Consensus,Storage,TxIndex,Instrumentation}, defaults
+(:111), TestConfig (:128) and each section's ValidateBasic — through
+cometbft_tpu/config.py, of which this is a copy: the same sections,
+field names and defaults, the same ``validate_basic`` texts and the same
+timeout arithmetic.  Durations are nanoseconds (ints) for determinism.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 _MS = 1_000_000
@@ -22,18 +17,51 @@ _S = 1_000_000_000
 
 
 @dataclass
+class BaseConfig:
+    chain_id: str = ""
+    home: str = "."
+    moniker: str = "anonymous"
+    proxy_app: str = "kvstore"
+    abci: str = "builtin"
+    db_backend: str = "sqlite"
+    db_dir: str = "data"
+    log_level: str = "info"
+    genesis_file: str = "config/genesis.json"
+    priv_validator_key_file: str = "config/priv_validator_key.json"
+    priv_validator_state_file: str = "data/priv_validator_state.json"
+    # when set, the node listens here for an external remote signer and
+    # uses it instead of the file-backed key
+    priv_validator_laddr: str = ""
+    node_key_file: str = "config/node_key.json"
+    filter_peers: bool = False
+    # record the ABCI call trace for the grammar checker
+    abci_grammar_trace: bool = False
+    # per-call deadline for remote (socket/grpc) ABCI transports; 0
+    # disables.  The consensus-path methods get 6x this budget; read-only
+    # calls retry on transient transport errors up to abci_call_retries
+    # times.
+    abci_call_timeout_ns: int = 20 * _S
+    abci_call_retries: int = 2
+    # LRU cap of the shared sig -> (addr, sign_bytes) verification cache
+    # (types/signature_cache.py)
+    signature_cache_size: int = 10_000
+
+    def path(self, rel: str) -> str:
+        return rel if os.path.isabs(rel) else os.path.join(self.home, rel)
+
+
+@dataclass
 class RPCConfig:
-    """What rpc/server.RPCServer and rpc/core's routes read, with the JAX
-    defaults: the listen address, the limits on connections, header and
-    body bytes (a zero connection or header limit means none and 1 MiB,
-    as in the reference), broadcast_tx_commit's wait, the unsafe routes'
-    gate and the lightserve response cache's budget (0 disables it).
-    The subscription limits come with their readers."""
+    """A zero connection or header limit means none and 1 MiB, as in the
+    reference (rpc/server.py)."""
     laddr: str = "tcp://127.0.0.1:26657"
     max_open_connections: int = 900
+    max_subscription_clients: int = 100
+    max_subscriptions_per_client: int = 5
     timeout_broadcast_tx_commit_ns: int = 10 * _S
     max_body_bytes: int = 1_000_000
     max_header_bytes: int = 1 << 20
+    # enables dial_seeds / dial_peers / unsafe_flush_mempool
     unsafe: bool = False
     # lightserve response cache budget: immutable height-keyed RPC
     # responses (blocks, commits, light blocks, multiproofs below the
@@ -42,24 +70,47 @@ class RPCConfig:
 
 
 @dataclass
+class GRPCConfig:
+    """gRPC data-companion API: grpc.laddr plus a separate privileged
+    endpoint whose pruning service lets a companion drive retain
+    heights."""
+    laddr: str = ""                       # e.g. "tcp://127.0.0.1:26670"
+    version_service_enabled: bool = True
+    block_service_enabled: bool = True
+    block_results_service_enabled: bool = True
+    privileged_laddr: str = ""            # e.g. "tcp://127.0.0.1:26671"
+    pruning_service_enabled: bool = False
+
+
+@dataclass
 class P2PConfig:
-    """The p2p fields the port reads: the switch hands its rates to
-    every MConnection, and PexReactor reads its mode and outbound
-    limit.  The rest of the section (listen and external addresses,
-    seeds, persistent and private peers, the address-book file, the
-    handshake and dial timeouts) comes with the node, A.7e-6."""
+    """The switch hands its rates to every MConnection; PexReactor reads
+    its mode and outbound limit; the node reads the addresses and
+    peers."""
+    laddr: str = "tcp://0.0.0.0:26656"
+    external_address: str = ""
+    seeds: str = ""
+    persistent_peers: str = ""
+    addr_book_file: str = "config/addrbook.json"
+    addr_book_strict: bool = True
+    max_num_inbound_peers: int = 40
+    max_num_outbound_peers: int = 10
+    flush_throttle_timeout_ns: int = 10 * _MS
+    max_packet_msg_payload_size: int = 1024
     send_rate: int = 5_120_000
     recv_rate: int = 5_120_000
-    max_num_outbound_peers: int = 10
+    pex: bool = True
     seed_mode: bool = False
+    private_peer_ids: str = ""
+    allow_duplicate_ip: bool = False
+    handshake_timeout_ns: int = 20 * _S
+    dial_timeout_ns: int = 3 * _S
 
 
 @dataclass
 class MempoolConfig:
-    """What CListMempool and MempoolReactor read, with the JAX defaults.
-    ``recheck_timeout_ns`` is left out: no module of either package reads
-    it."""
     recheck: bool = True
+    recheck_timeout_ns: int = 1 * _S
     broadcast: bool = True
     size: int = 5000
     max_txs_bytes: int = 64 * 1024 * 1024
@@ -87,22 +138,22 @@ class MempoolConfig:
 
 @dataclass
 class StateSyncConfig:
-    """The fields of a fresh node's state sync that the port reads: the
-    light client's trusting period, the discovery time, the chunk timeout
-    and the chunks' directory.  The switch and the light client's RPC
-    servers and trust root come with the node and the RPC client
-    (ROADMAP.md A.7e-5, A.7e-6)."""
+    enable: bool = False
+    rpc_servers: list[str] = field(default_factory=list)
+    trust_height: int = 0
+    trust_hash: str = ""
     trust_period_ns: int = 168 * 3600 * _S
     discovery_time_ns: int = 15 * _S
     chunk_request_timeout_ns: int = 10 * _S
+    chunk_fetchers: int = 4
     temp_dir: str = ""
 
 
 @dataclass
 class BlockSyncConfig:
-    """Whether a node block-syncs before consensus: read where a node
+    """Whether a node block-syncs before consensus: read where the node
     wires BlocksyncReactor(active=...) and ConsensusReactor(wait_sync=...)
-    (cometbft_tpu/node/node.py:419-425)."""
+    (node/node.py)."""
     enable: bool = True
 
 
@@ -157,22 +208,167 @@ class ConsensusConfig:
 
 @dataclass
 class StorageConfig:
-    """The pruner service's interval (state/pruner.Pruner's
-    ``interval_s``)."""
+    discard_abci_responses: bool = False
     pruning_interval_ns: int = 10 * _S
 
 
 @dataclass
+class TxIndexConfig:
+    indexer: str = "kv"          # kv | psql | null
+    # for the psql sink: the SQL event sink's database target
+    psql_conn: str = ""
+
+
+@dataclass
+class InstrumentationConfig:
+    prometheus: bool = False
+    prometheus_listen_addr: str = ":26660"
+    pprof_listen_addr: str = ""
+    namespace: str = "cometbft"
+    # flight recorder (libs/tracing.py): ring-buffer span tracing served
+    # at the /trace RPC; trace_categories is a comma list, empty enables
+    # every category
+    trace_enabled: bool = True
+    trace_buffer_size: int = 4096
+    trace_categories: str = ""
+    # kept for the JAX package's config files: the port's recorder keeps
+    # no dump file and refreshes its clock anchor on its own cadence
+    dump_dir: str = ""
+    trace_anchor_interval_s: float = 30.0
+    # event-loop lag sampler (libs/health.py) cadence; 0 disables
+    loop_lag_interval_s: float = 0.25
+
+
+@dataclass
 class Config:
-    """The configuration tree, holding its RPC, p2p, mempool, state-sync,
-    block-sync, consensus and storage sections."""
+    base: BaseConfig = field(default_factory=BaseConfig)
     rpc: RPCConfig = field(default_factory=RPCConfig)
+    grpc: GRPCConfig = field(default_factory=GRPCConfig)
     p2p: P2PConfig = field(default_factory=P2PConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     statesync: StateSyncConfig = field(default_factory=StateSyncConfig)
     blocksync: BlockSyncConfig = field(default_factory=BlockSyncConfig)
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
+    tx_index: TxIndexConfig = field(default_factory=TxIndexConfig)
+    instrumentation: InstrumentationConfig = field(
+        default_factory=InstrumentationConfig)
+
+
+class ConfigError(Exception):
+    pass
+
+
+def validate_basic(cfg: Config) -> None:
+    """Per-section sanity checks (reference: config.go ValidateBasic on
+    every sub-config).  Raises ConfigError naming the section.key."""
+    if cfg.base.db_backend not in ("memdb", "mem", "sqlite",
+                                   "goleveldb", "pebbledb"):
+        raise ConfigError(
+            f"base.db_backend: unknown backend {cfg.base.db_backend!r}")
+    if cfg.base.abci_call_timeout_ns < 0 or \
+            cfg.base.abci_call_retries < 0:
+        raise ConfigError(
+            "base.abci_call_timeout/abci_call_retries cannot be "
+            "negative")
+    if cfg.rpc.max_body_bytes <= 0:
+        raise ConfigError("rpc.max_body_bytes must be positive")
+    if cfg.rpc.timeout_broadcast_tx_commit_ns <= 0:
+        raise ConfigError(
+            "rpc.timeout_broadcast_tx_commit must be positive")
+    if cfg.p2p.send_rate < 0 or cfg.p2p.recv_rate < 0:
+        raise ConfigError("p2p.send_rate/recv_rate cannot be negative")
+    if cfg.p2p.max_num_inbound_peers < 0 or \
+            cfg.p2p.max_num_outbound_peers < 0:
+        raise ConfigError("p2p peer limits cannot be negative")
+    if cfg.mempool.size <= 0:
+        raise ConfigError("mempool.size must be positive")
+    if cfg.mempool.max_tx_bytes <= 0:
+        raise ConfigError("mempool.max_tx_bytes must be positive")
+    if cfg.mempool.max_txs_bytes < 0:
+        raise ConfigError("mempool.max_txs_bytes cannot be negative")
+    if cfg.statesync.enable:
+        if not cfg.statesync.rpc_servers:
+            raise ConfigError(
+                "statesync.rpc_servers required when statesync enabled")
+        if cfg.statesync.trust_height <= 0:
+            raise ConfigError(
+                "statesync.trust_height required when statesync enabled")
+        try:
+            bytes.fromhex(cfg.statesync.trust_hash)
+        except ValueError:
+            raise ConfigError(
+                "statesync.trust_hash must be hex") from None
+        if not cfg.statesync.trust_hash:
+            raise ConfigError(
+                "statesync.trust_hash required when statesync enabled")
+        if cfg.statesync.trust_period_ns <= 0:
+            raise ConfigError("statesync.trust_period must be positive")
+    for name in ("timeout_propose_ns", "timeout_propose_delta_ns",
+                 "timeout_vote_ns", "timeout_vote_delta_ns",
+                 "peer_gossip_sleep_duration_ns",
+                 "peer_query_maj23_sleep_duration_ns"):
+        if getattr(cfg.consensus, name) < 0:
+            raise ConfigError(f"consensus.{name} cannot be negative")
+    if cfg.consensus.create_empty_blocks_interval_ns < 0:
+        raise ConfigError(
+            "consensus.create_empty_blocks_interval cannot be negative")
+    if cfg.consensus.adaptive_timeout_floor_ns < 0 or \
+            cfg.consensus.adaptive_timeout_ceiling_ns < \
+            cfg.consensus.adaptive_timeout_floor_ns:
+        raise ConfigError(
+            "consensus.adaptive_timeout_floor/ceiling must satisfy "
+            "0 <= floor <= ceiling")
+    if cfg.mempool.recheck_max_age_blocks <= 0:
+        raise ConfigError(
+            "mempool.recheck_max_age_blocks must be positive")
+    if cfg.mempool.recheck_batch_size <= 0:
+        raise ConfigError(
+            "mempool.recheck_batch_size must be positive")
+    if cfg.mempool.recon_advert_max_ids <= 0:
+        raise ConfigError(
+            "mempool.recon_advert_max_ids must be positive")
+    if cfg.mempool.recon_want_timeout_ns <= 0:
+        raise ConfigError(
+            "mempool.recon_want_timeout must be positive")
+    if cfg.mempool.recon_push_peers < 0:
+        raise ConfigError(
+            "mempool.recon_push_peers cannot be negative")
+    if cfg.mempool.recon_salt_epoch_blocks <= 0:
+        raise ConfigError(
+            "mempool.recon_salt_epoch_blocks must be positive")
+    if cfg.consensus.compact_block_grace_ns < 0:
+        raise ConfigError(
+            "consensus.compact_block_grace cannot be negative")
+    if cfg.consensus.vote_batch_max < 0:
+        raise ConfigError(
+            "consensus.vote_batch_max cannot be negative")
+    if cfg.tx_index.indexer not in ("kv", "psql", "null"):
+        raise ConfigError(
+            f"tx_index.indexer must be kv|psql|null, "
+            f"got {cfg.tx_index.indexer!r}")
+    if cfg.instrumentation.prometheus and \
+            not cfg.instrumentation.prometheus_listen_addr:
+        raise ConfigError(
+            "instrumentation.prometheus_listen_addr required when "
+            "prometheus enabled")
+    if cfg.instrumentation.trace_buffer_size <= 0:
+        raise ConfigError(
+            "instrumentation.trace_buffer_size must be positive")
+    if cfg.instrumentation.trace_anchor_interval_s <= 0:
+        raise ConfigError(
+            "instrumentation.trace_anchor_interval_s must be "
+            "positive")
+    if cfg.instrumentation.loop_lag_interval_s < 0:
+        raise ConfigError(
+            "instrumentation.loop_lag_interval_s cannot be negative")
+    if cfg.base.signature_cache_size <= 0:
+        raise ConfigError(
+            "base.signature_cache_size must be positive")
+
+
+def default_config() -> Config:
+    return Config()
 
 
 def test_config() -> Config:
@@ -183,4 +379,5 @@ def test_config() -> Config:
     cfg.consensus.timeout_vote_ns = 10 * _MS
     cfg.consensus.timeout_vote_delta_ns = 1 * _MS
     cfg.consensus.timeout_commit_ns = 0
+    cfg.base.db_backend = "memdb"
     return cfg

@@ -1012,6 +1012,13 @@ class ConsensusReactor(Reactor):
         and a recv wakeup per signature (the same overhead the
         mempool's tx batching removes)."""
         ours = vote_set.bit_array()
+        if vote_set.is_commit():
+            # a commit's round may not be the peer's: track it as the
+            # peer's catch-up commit (reference: PickVoteToSend's
+            # ensureCatchupCommitRound), or a peer one height behind at
+            # another round never gets our last commit (ROADMAP.md C.6)
+            ps.ensure_catchup_commit_round(
+                vote_set.height, vote_set.round, vote_set.size())
         theirs = ps._votes_bitarray(vote_set.height, vote_set.round,
                                     vote_set.signed_msg_type)
         if theirs is None:

@@ -115,8 +115,8 @@ def block_response(obj) -> tuple[Block, Optional[ExtendedCommit]]:
 
 
 def mempool_config(obj: dict) -> MempoolConfig:
-    """The port's MempoolConfig from the reference's fields (those the
-    port does not read are dropped)."""
+    """The port's MempoolConfig from the reference's fields (unknown
+    ones are dropped)."""
     if not isinstance(obj, dict):
         raise TypeError(
             f"expected a MempoolConfig dict, got {type(obj).__name__}")

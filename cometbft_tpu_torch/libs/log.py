@@ -84,3 +84,10 @@ def nop_logger() -> Logger:
         lg.setLevel(logging.CRITICAL + 1)
         lg.propagate = False
     return Logger(lg)
+
+
+def set_level(level: str) -> None:
+    """Set the root logger's level (config: base.log_level)."""
+    _configure_root()
+    logging.getLogger(_ROOT).setLevel(
+        getattr(logging, level.upper(), logging.INFO))

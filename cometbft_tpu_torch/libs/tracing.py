@@ -50,7 +50,7 @@ class Recorder:
                       if c.strip())
             if isinstance(categories, str) and categories.strip()
             else (frozenset(categories) if categories else None))
-        # the trace route reports it; the node that names it is A.7e-6
+        # the trace route reports it; node/node.py stamps it
         self.node_id = ""
         # (monotonic_ns, wall_ns) pairs for cross-node alignment; wall
         # time is sampled only to pair with a monotonic reading

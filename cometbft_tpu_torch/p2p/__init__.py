@@ -3,8 +3,8 @@
 Reference: p2p/ — Switch (peer lifecycle + reactor registry),
 MConnection (multiplexed prioritized streams over one TCP conn),
 SecretConnection (authenticated encryption), PEX/address book — through
-cometbft_tpu/p2p/, whose modules this package copies (all but the fuzz
-link wrappers, ROADMAP.md A.7e-6).
+cometbft_tpu/p2p/, whose modules this package copies (the fuzzed link
+wrapper in fuzz.py).
 
 Validators are WAN peers: this host-side socket stack carries consensus;
 the card is used only inside signature verification.

@@ -199,6 +199,7 @@ class Switch:
         # secret connection before the MConnection is built —
         # conn_wrapper(sconn, peer_node_id, outbound) -> conn
         self.conn_wrapper = None
+        self._stopped = False
 
     # ------------------------------------------------------------------
     def add_reactor(self, reactor: Reactor) -> None:
@@ -239,6 +240,7 @@ class Switch:
             self.logger.info("P2P listening", addr=self.listen_addr)
 
     async def stop(self) -> None:
+        self._stopped = True
         await self.supervisor.stop()
         self._dial_tasks = []
         if self._server is not None:
@@ -293,6 +295,11 @@ class Switch:
             raise SwitchError("connected to self")
         if their_info.node_id in self.peers:
             raise SwitchError("duplicate peer")
+        if self._stopped:
+            # a handshake that finished after stop() adds no peer (and
+            # starts no reactor task on the stopped supervisor);
+            # reference: Switch.addPeer ignores peers once not running
+            raise SwitchError("switch stopped")
 
         peer_holder: list[Peer] = []
 

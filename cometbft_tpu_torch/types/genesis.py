@@ -159,6 +159,15 @@ class GenesisDoc:
         doc.validate_and_complete()
         return doc
 
+    def save_as(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @classmethod
+    def from_file(cls, path: str) -> "GenesisDoc":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
 
 def _params_to_json(p: Optional[ConsensusParams]) -> Optional[dict]:
     if p is None:

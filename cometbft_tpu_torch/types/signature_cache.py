@@ -25,13 +25,21 @@ _EVICTIONS = libmetrics.DEFAULT.counter(
     "Entries evicted by the signature-cache LRU cap.")
 
 
+def set_default_capacity(n: int) -> None:
+    """The capacity of caches made without one from now on (the node
+    sets it from ``base.signature_cache_size``); n <= 0 is ignored."""
+    global DEFAULT_CAPACITY
+    if n > 0:
+        DEFAULT_CAPACITY = n
+
+
 class SignatureCacheValue(NamedTuple):
     validator_address: bytes
     vote_sign_bytes: bytes
 
 
 class SignatureCache:
-    def __init__(self, capacity: int = DEFAULT_CAPACITY):
+    def __init__(self, capacity: int = 0):
         self.capacity = capacity if capacity > 0 else DEFAULT_CAPACITY
         self._m: OrderedDict[bytes, SignatureCacheValue] = OrderedDict()
         self.hits = 0

@@ -227,6 +227,58 @@ def test_fresh_node_syncs_from_peer(chains, stand_in):
     run(go())
 
 
+class _Growing:
+    """The source chain seen up to a height that rises: what a block-sync
+    server in a live net serves."""
+
+    def __init__(self, chain, cap):
+        import chip_smoke
+        self.store = chip_smoke._CappedStore(chain.block_store, cap)
+        self.state, self.exec = chain.state, chain.exec
+        self.block_store = self.store
+
+
+def test_joiner_switches_while_the_net_commits_faster_than_a_status_round(
+        chains, stand_in):
+    """A joiner syncing from a peer whose chain grows by a block every
+    0.8 s (a status round is 2 s) switches to consensus once caught up,
+    two status rounds after its sync began, while the peer still grows
+    (reference: switchToConsensusTicker + IsCaughtUp).  The JAX reactor's
+    rule, caught up held unbroken for two status rounds, never holds
+    against such a peer: each round's StatusResponse reports a taller
+    chain; the port's joiner switched only after the peer stopped at
+    TOP (ROADMAP.md section C)."""
+    src = chains["port"]
+
+    async def go():
+        caught = {}
+        grow = _Growing(src, 2)
+
+        async def on_caught_up(state, height):
+            caught.update(height=height, cap=grow.store._cap,
+                          t=asyncio.get_running_loop().time())
+
+        server = await _server("port", grow)
+        dst = _Fresh("port", src.doc, on_caught_up)
+        await dst.start()
+        t0 = asyncio.get_running_loop().time()
+        try:
+            await dst.switch.dial_peer(server.listen_addr)
+            while grow.store._cap < TOP and "t" not in caught:
+                await asyncio.sleep(0.8)
+                grow.store._cap += 1
+            await _until(lambda: "t" in caught, "the switch", timeout=15)
+        finally:
+            await dst.reactor.stop_sync()
+            await dst.switch.stop()
+            await server.stop()
+        return caught, caught["t"] - t0
+    caught, after_s = run(go())
+    assert caught["cap"] < TOP, caught
+    assert 2 * p_bsync._STATUS_UPDATE_INTERVAL_S <= after_s < 7.0, after_s
+    assert caught["height"] >= 2
+
+
 # -- the pools on one scripted sequence --------------------------------------------
 
 def _script(pool_mod, monkeypatch):

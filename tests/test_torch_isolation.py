@@ -18,8 +18,9 @@
     routes, the state tree's proofs, the state proof check and the light
     proxy; the ABCI socket protocol, server, clients, metrics, grammar
     and CLI, the gRPC transports and the companion services, the SQL
-    sink, armor, protoio, service, health and pprof) loads neither jax
-    nor anything of cometbft_tpu;
+    sink, armor, protoio, service, health and pprof; the node, the CLI,
+    confix, the manifest runner and the fuzzed connection) loads neither
+    jax nor anything of cometbft_tpu;
   * only the three gRPC transports import ``grpc``: with it unimportable
     (the card's machine has no grpcio) every other module and
     chip_smoke.py load;
@@ -28,8 +29,8 @@
     seals every frame in its own host library;
   * the entry points resolve ``device=None`` to CUDA and raise where
     CUDA is absent — no silent CPU fallback; a light client over
-    HttpProviders, ``new_rpc_state_provider`` and the light proxy
-    included;
+    HttpProviders, ``new_rpc_state_provider``, the light proxy and the
+    Node included;
   * the kernel wrapper rejects wrong dtypes, shapes, devices and
     layouts before any pointer reaches native code.
 """
@@ -99,6 +100,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert set(LIGHTSERVE_MODULES) <= set(mods)
     assert set(ABCI_MODULES) <= set(mods)
     assert set(GRPC_TRANSPORTS) <= set(mods)
+    assert set(NODE_MODULES) <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -206,6 +208,14 @@ ABCI_MODULES = ("cometbft_tpu_torch.abci.pb",
                 "cometbft_tpu_torch.libs.pprof",
                 "cometbft_tpu_torch.privval.signer")
 
+NODE_MODULES = ("cometbft_tpu_torch.node",
+                "cometbft_tpu_torch.node.node",
+                "cometbft_tpu_torch.cmd",
+                "cometbft_tpu_torch.cmd.__main__",
+                "cometbft_tpu_torch.config",
+                "cometbft_tpu_torch.confix",
+                "cometbft_tpu_torch.tools.manifest",
+                "cometbft_tpu_torch.p2p.fuzz")
 # the only modules of the port that import grpc
 GRPC_TRANSPORTS = ("cometbft_tpu_torch.abci.grpc",
                    "cometbft_tpu_torch.rpc.grpc.client",
@@ -228,6 +238,50 @@ def test_abci_and_companion_load_no_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_node_and_cli_load_no_jax_reference_or_grpc():
+    """The node, the CLI, the config and confix, the manifest runner and
+    the fuzzed connection, imported in a fresh interpreter with ``grpc``
+    unimportable, load nothing of jax, of the JAX package, of
+    ``cryptography`` or of ``grpc``; the CLI answers ``version`` and
+    ``--help`` there."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['grpc'] = None\n"
+        f"for m in {NODE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from cometbft_tpu_torch.cmd.__main__ import main\n"
+        "assert main(['version']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'cryptography') or (m.startswith('grpc') "
+        "and sys.modules[m] is not None))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert out.stdout.strip().splitlines()[0] == "1.0.0-tpu"
+    out = subprocess.run([sys.executable, "-m", "cometbft_tpu_torch.cmd",
+                          "--help"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and "testnet" in out.stdout, out.stderr
+
+
+def test_node_raises_without_cuda(tmp_path):
+    """``Node`` left at device=None raises where CUDA is absent, at
+    construction, before it opens a store; device="cpu" builds it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node import Node, init_files
+    cfg = Config()
+    cfg.base.home = str(tmp_path)
+    init_files(cfg, chain_id="iso")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Node(cfg)
+    assert not (tmp_path / "data" / "blockstore.db").exists()
+    assert Node(cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_port_loads_without_grpc():

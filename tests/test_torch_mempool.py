@@ -770,8 +770,8 @@ def test_mempool_messages_byte_equal_and_cross_decode():
 def test_mempool_config_defaults_and_convert():
     r_cfg = dataclasses.asdict(r_config.MempoolConfig())
     p_cfg = dataclasses.asdict(p_config.MempoolConfig())
-    assert set(p_cfg) == set(r_cfg) - {"recheck_timeout_ns"}
-    assert all(p_cfg[k] == r_cfg[k] for k in p_cfg)
+    assert p_cfg == r_cfg
+    assert list(p_cfg) == list(r_cfg)
     custom = dataclasses.asdict(r_config.MempoolConfig(
         size=7, recon_push_peers=0, gossip_reconciliation=False))
     got = convert.mempool_config(custom)

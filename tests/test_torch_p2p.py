@@ -631,6 +631,56 @@ def test_persistent_dial_redials_and_conn_wrapper_sees_each_link():
     run(go())
 
 
+def test_a_handshake_that_ends_after_stop_adds_no_peer(monkeypatch):
+    """C.7: an inbound handshake still in flight when the switch stops
+    finishes after it.  The stopped switch adds no peer, calls no
+    reactor's add_peer and starts no task (reference: Switch.addPeer
+    ignores a peer once the switch is not running); before, the peer
+    and its reactors' tasks outlived the stop."""
+    class Recording(EchoReactor):
+        added = []
+
+        async def add_peer(self, peer):
+            self.added.append(peer.id)
+
+    async def go():
+        nk1, nk2 = NodeKey.generate(), NodeKey.generate()
+        s1 = Switch(nk1, "net", listen_addr="127.0.0.1:0")
+        s2 = Switch(nk2, "net", listen_addr="127.0.0.1:0")
+        s1.add_reactor(Recording())
+        s2.add_reactor(EchoReactor())
+        release, entered = asyncio.Event(), asyncio.Event()
+        real_make = p_sc.SecretConnection.make
+
+        async def held_make(reader, writer, priv):
+            sc = await real_make(reader, writer, priv)
+            if priv == nk1.priv_key:
+                entered.set()
+                await release.wait()
+            return sc
+        monkeypatch.setattr(p_sc.SecretConnection, "make", held_make)
+        await s1.start()
+        await s2.start()
+        dial = asyncio.ensure_future(s2.dial_peer(s1.listen_addr))
+        try:
+            await asyncio.wait_for(entered.wait(), 10)
+            await s1.stop()
+            release.set()
+            try:    # the dialer may finish its side or see the close
+                await asyncio.wait_for(dial, 10)
+            except (OSError, p_switch.SwitchError,
+                    asyncio.IncompleteReadError):
+                pass
+            await asyncio.sleep(0.05)
+            assert s1.peers == {} and Recording.added == []
+            assert s1.supervisor.live_count() == 0
+        finally:
+            release.set()
+            await s1.stop()
+            await s2.stop()
+    run(go())
+
+
 def test_p2p_config_equals_the_jax_one_and_is_read():
     mine, theirs = P2PConfig(), RP2PConfig()
     for f in dataclasses.fields(mine):

@@ -721,17 +721,19 @@ def test_executor_hands_the_retain_height_to_the_pruner():
 # -- config and metrics --------------------------------------------------------
 
 def test_statesync_and_storage_config_equal_the_jax_ones():
-    """The fields the port keeps have the JAX defaults, and the Config
-    tree holds both sections."""
+    """Both sections hold the JAX fields with the JAX defaults, and the
+    Config tree holds both sections."""
     for name in ("StateSyncConfig", "StorageConfig"):
         p, r = getattr(p_config, name)(), getattr(r_config, name)()
         for f in dataclasses.fields(p):
             assert getattr(p, f.name) == getattr(r, f.name), f.name
     assert [f.name for f in dataclasses.fields(p_config.StateSyncConfig)] \
-        == ["trust_period_ns", "discovery_time_ns",
-            "chunk_request_timeout_ns", "temp_dir"]
+        == [f.name for f in dataclasses.fields(r_config.StateSyncConfig)] \
+        == ["enable", "rpc_servers", "trust_height", "trust_hash",
+            "trust_period_ns", "discovery_time_ns",
+            "chunk_request_timeout_ns", "chunk_fetchers", "temp_dir"]
     assert [f.name for f in dataclasses.fields(p_config.StorageConfig)] == \
-        ["pruning_interval_ns"]
+        ["discard_abci_responses", "pruning_interval_ns"]
     cfg = p_config.Config()
     assert cfg.statesync == p_config.StateSyncConfig()
     assert cfg.storage.pruning_interval_ns == 10 * 10**9

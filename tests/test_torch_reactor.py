@@ -633,8 +633,8 @@ class TestVoteGossipUntrackedSet:
         return SimpleNamespace(
             height=height, round=round_,
             signed_msg_type=canonical.PREVOTE_TYPE,
-            bit_array=lambda: ours,
-            get_by_index=lambda i: votes.get(i))
+            bit_array=lambda: ours, is_commit=lambda: False,
+            size=lambda: n, get_by_index=lambda i: votes.get(i))
 
     def test_untracked_set_sends_nothing(self):
         reactor, ps, peer = self._mk_reactor_and_ps()
@@ -658,6 +658,43 @@ class TestVoteGossipUntrackedSet:
         assert ps.prs.prevotes.get_index(0)
         assert reactor._pick_send_vote(ps, vs) is False
         assert len(peer.sent) == 1
+
+    def test_last_commit_of_another_round_reaches_a_peer_behind(self):
+        """C.6: a peer one height behind, at round 0 of that height, and
+        our last commit made at round 1.  The commit is tracked as the
+        peer's catch-up commit and its votes go out (reference:
+        PickVoteToSend's ensureCatchupCommitRound); the JAX reactor sends
+        nothing, and such a peer waits for txs at that height forever on
+        a net that makes no empty blocks."""
+        n = 4
+        ours = BitArray.from_indices(n, [0, 1, 2])
+        votes = {i: Vote(type=canonical.PRECOMMIT_TYPE, height=5, round=1,
+                         block_id=BlockID(b"\x05" * 32,
+                                          PartSetHeader(1, b"\x06" * 32)),
+                         timestamp=Timestamp(1700000000, 0),
+                         validator_address=bytes([i]) * 20,
+                         validator_index=i, signature=b"s" * 64)
+                 for i in range(3)}
+        commit = SimpleNamespace(
+            height=5, round=1, signed_msg_type=canonical.PRECOMMIT_TYPE,
+            bit_array=lambda: ours, is_commit=lambda: True,
+            size=lambda: n, get_by_index=lambda i: votes.get(i))
+        sent = {}
+        for mod in (p_reactor, r_reactor):
+            reactor = mod.ConsensusReactor.__new__(mod.ConsensusReactor)
+            reactor.cs = SimpleNamespace(
+                config=ConsensusConfig(vote_batch_max=0), metrics=Metrics())
+            peer = _Peer()
+            ps = mod.PeerState(peer)
+            ps.prs.height, ps.prs.round = 5, 0
+            ps.prs.step = p_reactor.STEP_NEW_HEIGHT
+            ps.prs.precommits = BitArray(n)
+            while reactor._pick_send_vote(ps, commit):
+                pass
+            sent[mod] = [pm.decode_p2p(raw).vote.validator_index
+                         for _, raw in peer.sent]
+        assert sorted(sent[p_reactor]) == [0, 1, 2]
+        assert sent[r_reactor] == []
 
 
 # -- a mixed net over real sockets --------------------------------------------

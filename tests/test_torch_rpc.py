@@ -58,6 +58,7 @@ from cometbft_tpu_torch.consensus.state import ConsensusState as PConsensusState
 from cometbft_tpu_torch.crypto import ed25519 as p_ed
 from cometbft_tpu_torch.db import MemDB as PMemDB
 from cometbft_tpu_torch.evidence.pool import EvidencePool as PEvidencePool
+from cometbft_tpu_torch.node.node import Node as PNode
 from cometbft_tpu_torch.indexer import BlockIndexer as PBlockIndexer
 from cometbft_tpu_torch.indexer import TxIndexer as PTxIndexer
 from cometbft_tpu_torch.libs import bits as p_bits
@@ -157,7 +158,7 @@ async def _holders(p, r, key0):
     pbus, rbus = PEventBus(), REventBus()
     pexec_state, rexec_state = p.state_store.load(), r.state_store.load()
     pn = Holder(
-        cs._node_status, block_store=p.block_store,
+        PNode.status, block_store=p.block_store,
         state_store=p.state_store,
         mempool=await mempool(PMempool, p_abci, p, pcfg),
         consensus_state=PConsensusState(
