@@ -157,7 +157,7 @@ its retain height (no row below the block store's base but the validator
 rows retained pointers name, every tree version rebuilt to its root) and
 rollback_state on the stopped joiner; and the refusals: a format the app
 refuses, a chunk off its hash, a chunk never served, a snapshot at the
-tip, a flipped signature bit in a light block, a raising stand-in
+tip (dropped for the next one), a flipped signature bit in a light block, a raising stand-in
 kernel, and one state sync under cuda8 with the same rows.
 Phases 16a-16e drive privval and the JSON-RPC (privval/, indexer/, rpc/,
 the HTTP provider, new_rpc_state_provider, loadtime's generate and
@@ -217,6 +217,22 @@ manifest with a restart, a late joiner and injected duplicate-vote
 evidence through run_manifest; and the rejects: a killed socket app stops
 its `cmd start` process non-zero, a bad config, a home without a genesis,
 grpc.laddr without grpcio.
+Phases 20a-20e drive the testnet tools (tools/qa.py, tools/fuzz.py,
+tools/fleet_report.py) and the mesh split and tally (parallel/): the QA
+tool's process fleet at the reference QA width (12 validators and 3 full
+nodes as `cmd start` processes on the card across three latency zones, 90
+ghost validators, two 10 s load windows, a kill -9 and restart, a
+state-sync joiner: no mismatch, the joiner at the target, every sampled
+commit with at least 9 signatures, as many compute apps as live nodes,
+B1 launches in every process's "Node stopped" line); 1,000 simulated
+light clients against four Nodes (no request or proof error, cache
+hits); each fuzz target for 5 s with no crash and both corpora replayed;
+a mixed 10,240-lane batch through verify_sharded over make_mesh() (one B1
+launch a shard, the mask equal to verify_batch's and the golden
+model's), one tally step in a one-rank NCCL group and the sharding
+report calibrated on the card; and a fleet child started under an
+unknown COMETBFT_TPU_TORCH_KERNEL, which exits 1 and makes the QA tool
+exit 1.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -410,17 +426,19 @@ SOCK_VALIDATORS = 4       # 13a
 SOCK_HEIGHTS = 50
 # 13b: the joiner's depth, cut from the chain's 100 heights to keep phase 13
 # inside its 60 s budget (at 100, phase 13 took 58-85 s on an NVIDIA H100
-# 80GB HBM3 at 700 W, with the spread of the card's host)
-CATCHUP_HEIGHTS = 50
+# 80GB HBM3 at 700 W, with the spread of the card's host), then from 50 to
+# keep the whole run near 800 s with phase 20 (13b took 33.9 s at 50)
+CATCHUP_HEIGHTS = 25
 AEAD_INPUTS = 1000        # 13c: seeded (key, nonce, aad, message) inputs
 AEAD_LENS = (0, 3, 1023, 1024, 1028)   # 13c: message lengths among them
 # phase 14
 LCA_COMMON = 50           # 14b(ii): the attack's common height
 LCA_CONFLICT = 60         # 14b(ii): its conflicting height
 LOAD_RATE = 400           # 14c: tx/s, round-robin over the nodes
-LOAD_SECONDS = 10.0       # 14c: the submission window
+LOAD_SECONDS = 5.0        # 14c: the submission window (10 s until phase 20)
 LOAD_TX_BYTES = 1024      # 14c: CometBFT's QA tx size
-MEMPOOL_HEIGHTS = 50      # 14c: the heights the net commits at least
+MEMPOOL_HEIGHTS = 30      # 14c: the heights the net commits at least (50
+                          # until phase 20)
 BSYNC_REJECT_HEIGHTS = 20  # 14d: the depth of each of its syncs
 BSYNC_BAD_HEIGHT = 10     # 14d: the bad server spoils block BSYNC_BAD_HEIGHT + 1
 # phase 15
@@ -435,7 +453,8 @@ SS_REJECT_DISCOVERY_NS = 5 * 10**8  # 15c: the peers are dialed beforehand
 SS_CHUNK_TIMEOUT_NS = 25 * 10**7    # 15c(ii): a short chunk_request_timeout_ns
 # phase 16: privval and the JSON-RPC over 15a's source and config 1
 PV_VALIDATORS = 4         # 16c: config 1
-PV_HEIGHTS = 20           # 16c: the heights of each net before the load
+PV_HEIGHTS = 10           # 16c: the heights of each net before the load (20
+                          # until phase 20)
 RPC_LOAD_RATE = 100       # 16d: tx/s over HTTP, round-robin over the nodes
 RPC_LOAD_SECONDS = 3.0    # 16d: the submission window
 RPC_TX_BYTES = 1024       # 16d: CometBFT's QA tx size
@@ -450,7 +469,8 @@ LS_PIN_HEIGHTS = 10       # 17c: the commits that move the horizon past it
 LS_PROXY_HEIGHTS = (92, 100, 105)   # 17d: commit and block through the proxy
 REPAIR_HEIGHTS = 3        # 17e: the heights config 1 commits past C.1-C.2
 # phase 18: the rest of ABCI and the gRPC surface over out-of-process apps
-SOCKAPP_HEIGHTS = 50      # 18a: config 1's heights, each app in a process
+SOCKAPP_HEIGHTS = 25      # 18a: config 1's heights, each app in a process
+                          # (50 until phase 20)
 SOCKAPP_CS_HEIGHTS = 50   # 18b: 12a's heights replayed to a socket app
 ABCI_TIMEOUT_S = 20.0     # 18a-18b: apply_deadlines' default, the JAX node's
 ABCI_RETRIES = 2          # 18a-18b: its retries, the JAX node's
@@ -467,12 +487,25 @@ NODE_CLI_HEIGHTS = 30     # 19a: heights of the cmd start processes
 NODE_LOAD_RATE = 100      # 19a: cmd load, 16d's load: tx/s,
 NODE_LOAD_SECONDS = 3.0   # seconds
 NODE_LOAD_SIZE = 1024     # and bytes a tx
-NODE_INPROC_HEIGHTS = 50  # 19b: heights of the four in-process Nodes
+NODE_INPROC_HEIGHTS = 25  # 19b: heights of the four in-process Nodes (50
+                          # until phase 20)
 NODE_JOIN_TRUST = 10      # 19c: the joiner's trust height (19a's chain)
 NODE_JOIN_DISCOVERY_NS = 2_000_000_000   # 19c: its snapshot discovery
 MANIFEST_SEED = 793       # 19d: a generated net with a restart, a late
 MANIFEST_TARGET = 8       # joiner and duplicate-vote evidence, ed25519
 MANIFEST_TIMEOUT_S = 30.0
+QA_CLI = [sys.executable, "-m", "cometbft_tpu_torch.tools.qa"]
+QA_VALIDATORS = 12        # 20a: the reference QA width (method.md):
+QA_FULL = 3               # 12 validators, 3 full nodes and 90 ghosts
+QA_GHOSTS = 90
+QA_RATES = (25, 50)       # two load windows (the JAX default: five
+QA_WINDOW_S = 10.0        # windows of 90 s)
+QA_LS_CLIENTS = 1000      # 20b: run_lightserve's default
+QA_FUZZ_S = 5.0           # 20c: seconds a fuzz target
+QA_MESH_LANES = 10240     # 20d: the sharded batch
+QA_REPORT_LANES = 2048    # 20d: the report's reduced run
+QA_MESH_SPLIT = 4         # 20d: shards on the one card ...
+QA_MESH_SPLIT_LANES = 10200   # ... over lanes not a multiple of 16 * 4
 
 
 def _mixed_kind(i: int) -> str:
@@ -6376,19 +6409,22 @@ def _ss_reject(seed, card, ek, ek8, oe, device, loop, src, keep):
                    f"RejectSnapshotError {want[0][1]!r}, and the syncer asked "
                    f"its peers for snapshots again")
 
-        # (iii) a snapshot at the tip: H+1 and H+2 do not exist yet
+        # (iii) a snapshot at the tip: H+1 and H+2 do not exist yet, so
+        # the snapshot is dropped for the next one (ROADMAP.md C.8)
         srv = loop.run_until_complete(server(liar([(snap(top), b"x")]), 3))
         try:
-            node, res, rejected = loop.run_until_complete(attempt(2, [srv]))
+            node, res, rejected = loop.run_until_complete(attempt(
+                2, [srv], until=lambda rej: rej))
         finally:
             loop.run_until_complete(srv.stop())
-        want = f"no light block at height {top + 1}"
-        if not isinstance(res, Exception) or str(res) != want or \
-                isinstance(res, RejectSnapshotError) or rejected:
-            raise AssertionError(f"15c: the tip snapshot gave {res!r}")
+        want = [(top, "failed to fetch and verify app hash: no light block "
+                      f"at height {top + 1}")]
+        if res is not None or rejected != want:
+            raise AssertionError(f"15c: the tip snapshot gave {res!r}, "
+                                 f"{rejected}")
         untouched(node, "the tip snapshot")
-        out.append(f"a snapshot at the tip {top}: sync_any raised "
-                   f"{type(res).__name__} {str(res)!r}, nothing bootstrapped")
+        out.append(f"a snapshot at the tip {top}: rejected, "
+                   f"RejectSnapshotError {want[0][1]!r}, nothing bootstrapped")
 
         # (iv) a flipped signature bit in light block H+1
         _clear_memos()
@@ -9981,6 +10017,318 @@ def _node_phases(seed, card, keep, device=None):
             {f"node_inproc_{n}_cuda8": inproc_b2})
 
 
+def _qa_min_sigs(validators: int, ghosts: int) -> int:
+    """The fewest live signatures (power 100 each) that carry more than
+    2/3 of a QA net's power (``ghosts`` of power 1): 9 of 12 + 90."""
+    total = 100 * validators + ghosts
+    return next(k for k in range(validators + 1) if 300 * k > 2 * total)
+
+
+def _qa_window_rows(rep) -> str:
+    return "; ".join(
+        f"{w.rate} tx/s offered: {w.tx_per_s:.1f} tx/s committed, latency "
+        f"p50 {w.latency_p50_s:.3f} p90 {w.latency_p90_s:.3f} s, dup ratio "
+        f"{w.dup_ratio}, RSS avg {w.rss_avg_mb:.1f} max {w.rss_max_mb:.1f} "
+        f"MB, CPU {w.cpu_total_pct:.1f}%, fds {w.fds_max}, mempool max "
+        f"{w.mempool_max}" for w in rep.windows)
+
+
+def _qa_fleet(card, root, device, loop):
+    """20a qa-fleet-12+3: the QA tool's process fleet at the reference QA
+    width: 12 validators and 3 full nodes as `cmd start` processes on the
+    card across three latency zones, 90 ghost validators (102 slots a
+    commit), two load windows, a kill -9 and restart, a state-sync
+    joiner.  Returns B1's launches summed over the processes."""
+    from cometbft_tpu_torch.tools import qa
+    _phase(f"20a qa-fleet: run_qa_procs, {QA_VALIDATORS} validators + "
+           f"{QA_FULL} full nodes + {QA_GHOSTS} ghosts, rates {QA_RATES}, "
+           f"{QA_WINDOW_S} s windows, kill -9 and restart, a state-sync "
+           f"joiner, each node a cmd start process on the card")
+    live = []
+
+    def on_live(pids):
+        live.append((dict(pids), _compute_apps()))
+
+    t0 = time.perf_counter()
+    rep = loop.run_until_complete(qa.run_qa_procs(
+        os.path.join(root, "fleet"), n_validators=QA_VALIDATORS,
+        n_full=QA_FULL, ghosts=QA_GHOSTS, rates=QA_RATES,
+        window_s=QA_WINDOW_S, perturb=True, joiner=True, profile=False,
+        device=device, on_live=on_live))
+    took = time.perf_counter() - t0
+    if rep.mismatches:
+        raise AssertionError(f"20a: mismatches {rep.mismatches}")
+    if not rep.statesync_joiner_height:
+        raise AssertionError("20a: the joiner did not reach the target")
+    if not rep.perturbed_recovered:
+        raise AssertionError("20a: the kill -9 victim did not recover")
+    want = _qa_min_sigs(QA_VALIDATORS, QA_GHOSTS)
+    if not rep.commit_sigs_heights or rep.commit_sigs_min < want:
+        raise AssertionError(
+            f"20a: sampled commits carry {rep.commit_sigs_min} signatures "
+            f"at least ({rep.commit_sigs_heights} heights), want >= {want}")
+    pids, apps = live[0] if live else ({}, [])
+    # the node processes and this script's own context
+    if len(pids) != QA_VALIDATORS + QA_FULL or len(apps) < len(pids) + 1:
+        raise AssertionError(f"20a: {len(apps)} compute apps on the card "
+                             f"for {len(pids)} live node processes and "
+                             f"this script")
+    names = {f"validator{i:02d}" for i in range(QA_VALIDATORS)} | \
+        {f"full{i:02d}" for i in range(QA_FULL)} | {"joiner"}
+    counts = rep.node_launches
+    if set(counts) != names or any(c["b1"] <= 0 for c in counts.values()):
+        raise AssertionError(f"20a: B1 launches by process {counts}")
+    b1 = sum(c["b1"] for c in counts.values())
+    _log(f"qa_fleet: {rep.nodes} processes ({rep.validators_total} "
+         f"validators in the set, {rep.validators_live} live), first block "
+         f"{rep.first_block_s:.2f} s after the spawn, final height "
+         f"{rep.final_height}, joiner at {rep.statesync_joiner_height}, "
+         f"{rep.perturbation} recovered; commit signatures avg "
+         f"{rep.commit_sigs_avg} min {rep.commit_sigs_min} over "
+         f"{rep.commit_sigs_heights} sampled heights (>= {want}); block "
+         f"interval avg {rep.block_interval_avg_s:.3f} s (std "
+         f"{rep.block_interval_std_s:.3f}); dup ratio overall "
+         f"{rep.dup_ratio_overall}; prevote 2/3 p95 "
+         f"{rep.prevote_t23_p95_s} s, commit skew max "
+         f"{rep.commit_skew_max_s} s; generator self-check "
+         f"{rep.offered_check.get('offered_ratio')}; degraded "
+         f"{rep.degraded}; {took:.1f} s; card: {card}")
+    _log(f"qa_fleet windows: {_qa_window_rows(rep)}")
+    _log(f"qa_fleet compute apps: {len(apps)} listed by nvidia-smi with "
+         f"{len(pids)} node processes live; B1 launches by process "
+         f"{ {n: c['b1'] for n, c in sorted(counts.items())} } (sum {b1}), "
+         f"B2 {sum(c['b2'] for c in counts.values())}")
+    return b1
+
+
+def _qa_lightserve(card, ek, root, device, loop):
+    """20b qa-lightserve: run_lightserve's 1,000 simulated light clients
+    against four in-process Nodes on the card.  Returns B1's launches."""
+    from cometbft_tpu_torch.tools import qa
+    _phase(f"20b qa-lightserve: {QA_LS_CLIENTS} light clients over "
+           f"light_block / multiproof / commit on four Nodes")
+    ek.launches = 0
+    t0 = time.perf_counter()
+    rep = loop.run_until_complete(qa.run_lightserve(
+        os.path.join(root, "ls"), n_clients=QA_LS_CLIENTS, device=device))
+    took = time.perf_counter() - t0
+    b1 = ek.launches
+    if rep.request_errors or rep.proof_verify_errors or \
+            rep.cache_hit_rate <= 0 or b1 <= 0:
+        raise AssertionError(
+            f"20b: {rep.request_errors} request errors, "
+            f"{rep.proof_verify_errors} proof errors, hit rate "
+            f"{rep.cache_hit_rate}, {b1} B1 launches: {rep.notes[:3]}")
+    _log(f"qa_lightserve: {rep.requests_total} requests of {rep.clients} "
+         f"clients in {rep.hammer_duration_s:.2f} s ({rep.requests_per_s} "
+         f"/s), p50 {rep.req_p50_ms} p90 {rep.req_p90_ms} max "
+         f"{rep.req_max_ms} ms; {rep.proofs_verified} proofs verified; "
+         f"cache hit rate {rep.cache_hit_rate} ({rep.cache_hits} hits, "
+         f"{rep.cache_misses} misses, {rep.cache_entries} entries, "
+         f"{rep.cache_bytes} bytes); block interval before "
+         f"{rep.block_interval_before_s} s, during {rep.block_interval_during_s}"
+         f" s (slo ok {rep.slo_ok}); heights served {rep.heights_served}, "
+         f"final {rep.final_height}; B1 {b1}; degraded {rep.degraded}; "
+         f"{took:.1f} s; card: {card}")
+    return b1
+
+
+def _qa_fuzz(card, seed, root):
+    """20c qa-fuzz: each fuzz target for QA_FUZZ_S seconds from a copy of
+    the port's corpus, then both corpora replayed."""
+    from cometbft_tpu_torch.tools import fuzz
+    _phase(f"20c qa-fuzz: jsonrpc, proto, secretconn for {QA_FUZZ_S} s each, "
+           f"the JAX package's corpus and the port's replayed")
+    corpus = os.path.join(root, "corpus")
+    shutil.copytree(fuzz.DEFAULT_CORPUS, corpus)
+    rows = []
+    for name in sorted(fuzz.TARGETS):
+        stats = fuzz.fuzz_target(fuzz.TARGETS[name](), QA_FUZZ_S,
+                                 corpus_dir=corpus, seed=seed + 1)
+        if stats.crashes or stats.locations <= 10:
+            raise AssertionError(f"20c {name}: {stats.to_dict()}")
+        replayed = {}
+        for what, d in (("jax", fuzz.REFERENCE_CORPUS),
+                        ("port", fuzz.DEFAULT_CORPUS)):
+            target = fuzz.TARGETS[name]()
+            try:
+                replayed[what] = fuzz.replay_corpus(target, d)
+            finally:
+                target.close()
+        rows.append(f"{name}: {stats.runs} runs, {stats.locations} lines, "
+                    f"{stats.new_inputs} new inputs, 0 crashes, replayed "
+                    f"{replayed['jax']} JAX and {replayed['port']} port inputs")
+    _log(f"qa_fuzz: {'; '.join(rows)}; card: {card}")
+
+
+def _qa_mesh(card, seed, ek, root, device):
+    """20d qa-mesh: a mixed 10,240-lane batch through verify_sharded over
+    make_mesh(), held to verify_batch and the golden model; one tally step
+    in a one-rank NCCL group; the sharding report.  Returns B1's launches
+    of the sharded dispatch."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from cometbft_tpu_torch.crypto import _ed25519_ref as ref
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.parallel import mesh as pmesh
+    from cometbft_tpu_torch.parallel import report as preport
+    _phase(f"20d qa-mesh: {QA_MESH_LANES} mixed lanes through verify_sharded "
+           f"over make_mesh(), a tally step, the sharding report")
+    keys = [ed25519.gen_priv_key_from_secret(_seed(seed + 20, i))
+            for i in range(256)]
+    items = []
+    for i in range(QA_MESH_LANES):
+        k = keys[i % len(keys)]
+        msg = b"mesh-%d" % i
+        pub, sig = k.pub_key().bytes(), k.sign(msg)
+        if i % 7 == 3:
+            sig = sig[:32] + bytes(32)                       # S = 0
+        elif i % 11 == 5:
+            sig = sig[:32] + ref.L.to_bytes(32, "little")    # S >= L
+        elif i % 13 == 7:
+            msg += b"!"                                      # tampered
+        elif i % 17 == 9:
+            pub = pub[:31]                                   # malformed
+        items.append((pub, msg, sig))
+    a, r, s, k, pre_bad = oe.prep_arrays(items, QA_MESH_LANES)
+    devices = pmesh.make_mesh(None, device)
+    ek.launches = 0
+    t0 = time.perf_counter()
+    mask = pmesh.verify_sharded(a, r, s, k, ndev=len(devices), device=device)
+    sharded_ms = (time.perf_counter() - t0) * 1e3
+    b1 = ek.launches
+    mask[pre_bad] = False
+    if device is None and b1 != len(devices):
+        raise AssertionError(f"20d: {b1} B1 launches for {len(devices)} "
+                             f"shards")
+    _all, want = oe.verify_batch(items, device=device)
+    if mask.tolist() != want:
+        raise AssertionError("20d: verify_sharded's mask != verify_batch's")
+    rng = np.random.default_rng(seed)
+    sample = rng.choice(QA_MESH_LANES, min(256, QA_MESH_LANES),
+                        replace=False)
+    for i in sample:
+        pub, msg, sig = items[i]
+        golden = len(pub) == 32 and ref.verify(pub, msg, sig)
+        if bool(mask[i]) != golden:
+            raise AssertionError(f"20d: lane {i} {bool(mask[i])} != golden "
+                                 f"{golden}")
+    # several shards on the one card: a numbered card listed QA_MESH_SPLIT
+    # times, a lane count that is not a whole number of B1 blocks a shard,
+    # so the per-shard wires, the events, the join and the sliced-off
+    # padding all run on the card
+    split_dev = "cuda:0" if device is None else device
+    n_split = QA_MESH_SPLIT_LANES
+    ek.launches = 0
+    t0 = time.perf_counter()
+    split = pmesh.verify_sharded(a[:n_split], r[:n_split], s[:n_split],
+                                 k[:n_split], ndev=QA_MESH_SPLIT,
+                                 device=split_dev)
+    split_ms = (time.perf_counter() - t0) * 1e3
+    split_b1 = ek.launches
+    split[pre_bad[:n_split]] = False
+    if split.shape != (n_split,) or split.tolist() != want[:n_split]:
+        raise AssertionError(f"20d: the {QA_MESH_SPLIT}-shard mask on "
+                             f"{split_dev} != verify_batch's")
+    if device is None and split_b1 != QA_MESH_SPLIT:
+        raise AssertionError(f"20d: {split_b1} B1 launches for "
+                             f"{QA_MESH_SPLIT} shards on {split_dev}")
+    backend = "nccl" if torch.device(device or "cuda").type == "cuda" \
+        else "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        before = pmesh.collectives["all_reduce"]
+        ok, count = pmesh.sharded_verify_tally(device=device)(
+            a, r, s, k, pre_bad=pre_bad)
+        reduces = pmesh.collectives["all_reduce"] - before
+    finally:
+        dist.destroy_process_group()
+    if count != int(mask.sum()) or ok.tolist() != mask.tolist() or \
+            reduces != 1:
+        raise AssertionError(f"20d: tally count {count} against the mask's "
+                             f"{int(mask.sum())}, {reduces} all_reduces")
+    out = os.path.join(root, "sharding.json")
+    if preport.main(["--out", out, "--run-lanes", str(QA_REPORT_LANES),
+                     *(["--device", device] if device else [])]) != 0:
+        raise AssertionError("20d: the sharding report failed its checks")
+    with open(out) as f:
+        rep = json.load(f)
+    if rep["collectives"]["verify_path"] != 0 or \
+            rep["collectives"]["tally_path"] != 1:
+        raise AssertionError(f"20d: report collectives {rep['collectives']}")
+    model = rep["timing_model"]
+    _log(f"qa_mesh: {QA_MESH_LANES} lanes over {len(devices)} device(s) in "
+         f"{sharded_ms:.2f} ms host time, {b1} B1 launch(es), "
+         f"{int(mask.sum())} valid, mask == verify_batch's and the golden "
+         f"model's on {len(sample)} lanes; {n_split} lanes in "
+         f"{QA_MESH_SPLIT} shards (padded to "
+         f"{pmesh.padded_lanes(n_split, QA_MESH_SPLIT)}) on {split_dev}: "
+         f"{split_ms:.2f} ms host time, {split_b1} B1 launches, mask == "
+         f"verify_batch's; tally count {count} with {reduces} "
+         f"all_reduce ({backend}); report geometry {rep['geometry']}, "
+         f"collectives {rep['collectives']}, reduced run "
+         f"{rep['executed_reduced']}; timing model "
+         f"{json.dumps(model)}; card: {card}")
+    return b1, split_b1
+
+
+def _qa_reject(card, root):
+    """20e qa-reject: the QA tool's quick process fleet (4 validators, a
+    full node, 20 ghosts, one 5 s window) with the full node started under
+    an unknown COMETBFT_TPU_TORCH_KERNEL: that child exits 1, the run
+    records it in mismatches and the tool exits 1."""
+    _phase("20e qa-reject: a fleet child under an unknown kernel name")
+    out = os.path.join(root, "reject.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [*QA_CLI, "--quick", "--procs", "--window", "5", "--rates", "25",
+         "--no-joiner", "--no-profile", "--child-env",
+         "full00:COMETBFT_TPU_TORCH_KERNEL=qa-reject", "--out", out],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    took = time.perf_counter() - t0
+    if proc.returncode != 1:
+        raise AssertionError(f"20e: the QA tool exited {proc.returncode}: "
+                             f"{proc.stderr[-1500:]}")
+    with open(out) as f:
+        rep = json.load(f)
+    bad = [m for m in rep["mismatches"] if m.startswith("full00:")]
+    if len(rep["mismatches"]) != 1 or not bad or \
+            "COMETBFT_TPU_TORCH_KERNEL='qa-reject'" not in bad[0]:
+        raise AssertionError(f"20e: mismatches {rep['mismatches']}")
+    _log(f"qa_reject: the tool exited 1 in {took:.1f} s; {bad[0][:200]}; "
+         f"card: {card}")
+
+
+def _qa_phases(seed, card, device=None):
+    """Phases 20a-20e: the testnet tools (tools/qa.py, tools/fuzz.py,
+    tools/fleet_report.py) and the mesh split and tally (parallel/).
+    Returns B1's launches by part."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cs20-")
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    try:
+        fleet_b1 = _qa_fleet(card, root, device, loop)
+        ls_b1 = _qa_lightserve(card, ek, root, device, loop)
+        _qa_fuzz(card, seed, root)
+        mesh_b1, split_b1 = _qa_mesh(card, seed, ek, root, device)
+        _qa_reject(card, root)
+    finally:
+        logging.disable(logging.NOTSET)
+        loop.close()
+        shutil.rmtree(root, ignore_errors=True)
+    _log(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return {f"qa_fleet_{QA_VALIDATORS}+{QA_FULL}": fleet_b1,
+            "qa_lightserve_4": ls_b1, f"qa_mesh_{QA_MESH_LANES}": mesh_b1,
+            f"qa_mesh_{QA_MESH_SPLIT_LANES}x{QA_MESH_SPLIT}": split_b1}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10577,6 +10925,7 @@ def main() -> int:
     ls_launches, ls_launches8 = _lightserve_phases(args.seed, card, keep)
     sa_launches, sa_launches8 = _sockapp_phases(args.seed, card, keep)
     node_launches, node_launches8 = _node_phases(args.seed, card, keep)
+    qa_launches = _qa_phases(args.seed, card)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -10599,7 +10948,8 @@ def main() -> int:
                              **cs_launches, **p2p_launches,
                              **sync_launches, **ss_launches,
                              **rpc_launches, **ls_launches,
-                             **sa_launches, **node_launches},
+                             **sa_launches, **node_launches,
+                             **qa_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],

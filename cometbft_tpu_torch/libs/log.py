@@ -87,7 +87,16 @@ def nop_logger() -> Logger:
 
 
 def set_level(level: str) -> None:
-    """Set the root logger's level (config: base.log_level)."""
+    """Set the root logger's level (config: base.log_level).  A list of
+    ``module:level`` entries sets each module's logger, and ``*`` the
+    root's: ``node:info,*:error`` keeps only the node's info lines."""
     _configure_root()
-    logging.getLogger(_ROOT).setLevel(
-        getattr(logging, level.upper(), logging.INFO))
+    if ":" not in level:
+        logging.getLogger(_ROOT).setLevel(
+            getattr(logging, level.upper(), logging.INFO))
+        return
+    for entry in level.split(","):
+        module, _, lvl = entry.strip().rpartition(":")
+        name = _ROOT if module in ("", "*") else f"{_ROOT}.{module}"
+        logging.getLogger(name).setLevel(
+            getattr(logging, lvl.upper(), logging.INFO))

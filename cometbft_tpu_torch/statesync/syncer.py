@@ -25,6 +25,7 @@ from typing import Optional
 
 from ..abci import types as abci
 from ..libs.log import Logger, new_logger
+from ..light.provider import ProviderError
 from ..state.state import State as SMState, StateVersion
 from ..types.block import ConsensusVersion
 from ..types.commit import Commit
@@ -254,8 +255,15 @@ class Syncer:
     async def _sync(self, snap: SnapshotKey) -> tuple[SMState, Commit]:
         """Reference: syncer.Sync (:236)."""
         # verify the app hash for the snapshot height FIRST (trusted
-        # via the light client)
-        app_hash = await self.state_provider.app_hash(snap.height)
+        # via the light client).  A provider that cannot serve the light
+        # blocks above it yet (a snapshot at the tip) drops the snapshot
+        # for the next one (reference: syncer.go Sync, "failed to fetch
+        # and verify app hash"); a verification failure still raises.
+        try:
+            app_hash = await self.state_provider.app_hash(snap.height)
+        except ProviderError as e:
+            raise RejectSnapshotError(
+                f"failed to fetch and verify app hash: {e}") from e
         offer = await self.app_conns.snapshot.offer_snapshot(
             abci.OfferSnapshotRequest(
                 snapshot=abci.Snapshot(

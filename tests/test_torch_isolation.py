@@ -19,8 +19,12 @@
     proxy; the ABCI socket protocol, server, clients, metrics, grammar
     and CLI, the gRPC transports and the companion services, the SQL
     sink, armor, protoio, service, health and pprof; the node, the CLI,
-    confix, the manifest runner and the fuzzed connection) loads neither
-    jax nor anything of cometbft_tpu;
+    confix, the manifest runner and the fuzzed connection; the QA tool,
+    the fuzzer, the fleet analysis, the mesh split and tally and the
+    sharding report) loads neither jax nor anything of cometbft_tpu; the
+    testnet tools and the mesh load no psutil and nothing of the
+    repository's root ``tools/`` either, and ``make_mesh()`` raises
+    without CUDA;
   * only the three gRPC transports import ``grpc``: with it unimportable
     (the card's machine has no grpcio) every other module and
     chip_smoke.py load;
@@ -101,6 +105,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert set(ABCI_MODULES) <= set(mods)
     assert set(GRPC_TRANSPORTS) <= set(mods)
     assert set(NODE_MODULES) <= set(mods)
+    assert set(TESTNET_MODULES) <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -216,6 +221,12 @@ NODE_MODULES = ("cometbft_tpu_torch.node",
                 "cometbft_tpu_torch.confix",
                 "cometbft_tpu_torch.tools.manifest",
                 "cometbft_tpu_torch.p2p.fuzz")
+TESTNET_MODULES = ("cometbft_tpu_torch.tools.qa",
+                   "cometbft_tpu_torch.tools.fuzz",
+                   "cometbft_tpu_torch.tools.fleet_report",
+                   "cometbft_tpu_torch.parallel",
+                   "cometbft_tpu_torch.parallel.mesh",
+                   "cometbft_tpu_torch.parallel.report")
 # the only modules of the port that import grpc
 GRPC_TRANSPORTS = ("cometbft_tpu_torch.abci.grpc",
                    "cometbft_tpu_torch.rpc.grpc.client",
@@ -266,6 +277,50 @@ def test_node_and_cli_load_no_jax_reference_or_grpc():
                           "--help"], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and "testnet" in out.stdout, out.stderr
+
+
+def test_testnet_tools_and_mesh_load_no_jax_reference_or_psutil():
+    """The QA tool, the fuzzer, the fleet analysis, the mesh split and
+    tally and the sharding report, imported in a fresh interpreter with
+    ``psutil`` and ``grpc`` unimportable (the card's machine has
+    neither), load nothing of jax, of the JAX package, of psutil or of
+    the repository's root ``tools/``; none of their sources imports
+    them."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['psutil'] = None\n"
+        "sys.modules['grpc'] = None\n"
+        f"for m in {TESTNET_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'tools') or (m.split('.')[0] in "
+        "('psutil', 'grpc') and sys.modules[m] is not None))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    root = REPO / "cometbft_tpu_torch"
+    for path in [root / "tools" / f"{m}.py" for m in
+                 ("qa", "fuzz", "fleet_report")] + \
+            list((root / "parallel").glob("*.py")):
+        assert not _imports_of(path) & {"jax", "cometbft_tpu", "psutil",
+                                        "tools"}, path
+        text = path.read_text()
+        assert "spec_from_file_location" not in text, path
+
+
+def test_make_mesh_raises_without_cuda():
+    """The mesh's default is the card: without CUDA it raises; the CPU
+    entries are the tests' only way in."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cometbft_tpu_torch.parallel import mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.make_mesh(2)
+    assert mesh.make_mesh(2, device="cpu") == [torch.device("cpu")] * 2
 
 
 def test_node_raises_without_cuda(tmp_path):

@@ -218,6 +218,16 @@ async def _wait_all_height(nodes, h, timeout=30.0):
     await asyncio.wait_for(waiter(), timeout)
 
 
+async def _wait_all_applied(nodes, h, timeout=30.0):
+    """A store holds a block before the pipelined apply has committed it
+    to the app: wait until every node's state is at ``h``."""
+    async def waiter():
+        while not all(n.state_store.load().last_block_height >= h
+                      for n in nodes):
+            await asyncio.sleep(0.02)
+    await asyncio.wait_for(waiter(), timeout)
+
+
 async def _stop_all(nodes):
     for n in nodes:
         await n.stop()
@@ -259,8 +269,9 @@ class TestSocketTestnet:
                 # no mempool reactor: every node holds the txs
                 for pool in pools:
                     pool.txs += [b"alpha=1", b"beta=2"]
-                await _wait_all_height(
-                    nodes, nodes[0].block_store.height + 2)
+                top = nodes[0].block_store.height + 2
+                await _wait_all_height(nodes, top)
+                await _wait_all_applied(nodes, top)
                 found = set()
                 for h in range(1, nodes[0].block_store.height + 1):
                     b = nodes[0].block_store.load_block(h)

@@ -664,11 +664,37 @@ def test_rejected_snapshots_then_the_good_one(chains, stand_in, tmp_path):
 
 
 def test_snapshot_at_the_tip_ends_the_sync(chains, stand_in):
+    """A snapshot at the tip, whose light block TOP + 1 no provider has
+    yet: the JAX syncer ends the sync with the provider's error; the
+    port drops the snapshot as the reference does (syncer.go Sync,
+    "failed to fetch and verify app hash") and, with no other snapshot
+    ever offered, ends when discovery runs out (ROADMAP.md section C,
+    C.8)."""
     out = [_outcome(chains, side, [("liar", _Liar([(_key(side, TOP), b"x")]))])
            for side in ("port", "jax")]
-    assert out[0] == out[1]
-    assert out[0] == (("LightBlockNotFoundError",
+    assert out[1] == (("LightBlockNotFoundError",
                        f"no light block at height {TOP + 1}"), [], 0)
+    assert out[0] == (
+        ("StatesyncError", "no viable snapshots (discovered 1)"),
+        [(TOP, "failed to fetch and verify app hash: no light block at "
+               f"height {TOP + 1}")], 0)
+
+
+def test_a_tip_snapshot_is_dropped_for_the_next_one(chains, stand_in,
+                                                    tmp_path):
+    """The tip snapshot first, the source's good one second: the port
+    drops the first and restores the second (C.8); the JAX syncer stops
+    at the first."""
+    out = {side: _outcome(chains, side,
+                          [("liar", _Liar([(_key(side, TOP), b"x")])),
+                           ("src", "good")], tmp=str(tmp_path / side))
+           for side in ("port", "jax")}
+    res, rejected, height = out["port"]
+    assert res[0] == "ok" and res[2] == SNAP and height == SNAP
+    assert rejected == [(TOP, "failed to fetch and verify app hash: no "
+                              f"light block at height {TOP + 1}")]
+    assert out["jax"][0] == ("LightBlockNotFoundError",
+                             f"no light block at height {TOP + 1}")
 
 
 def test_flipped_signature_in_light_block_h1(chains, monkeypatch):
