@@ -233,6 +233,20 @@ model's), one tally step in a one-rank NCCL group and the sharding
 report calibrated on the card; and a fleet child started under an
 unknown COMETBFT_TPU_TORCH_KERNEL, which exits 1 and makes the QA tool
 exit 1.
+Phases 21a-21d drive the last trims of the port: tools/benchmarks.py's
+BASELINE configs #2-#4 at --full in this process (the batch verifier at
+64, 1,024 and 10,000 signatures, 1,000 light validators over 4 hops, 150
+validators for 10 heights) and config #5 at its default size (200 mixed
+keys, a 16-message BLS aggregate; phase 8b holds it at 10,000), each
+line with the JAX line's keys and the card's name and B1 launches
+counted around each config, then `python -m
+cometbft_tpu_torch.tools.benchmarks --config 2` as a process; a Node on
+the card whose supervised task verifies a batch on B1 and crashes until
+the supervisor gives up, leaving a flight record with B1's
+kernel_execute spans in the data dir, and /debug/pprof/trace?dump=1
+writing another; and 2,100 peer ids through that node's peer-labelled
+metric families, each held at 2,048 series and one overflow series, on
+/metrics and /metrics?exemplars=1.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -506,6 +520,26 @@ QA_MESH_LANES = 10240     # 20d: the sharded batch
 QA_REPORT_LANES = 2048    # 20d: the report's reduced run
 QA_MESH_SPLIT = 4         # 20d: shards on the one card ...
 QA_MESH_SPLIT_LANES = 10200   # ... over lanes not a multiple of 16 * 4
+# 21a: tools/benchmarks.main's arguments, a call a config; config 5 at the
+# runner's default size, not --full's 10,000 keys: with them the whole smoke
+# took 1,097.7 s on an H100 host, past 1,050 s of its 1,200 s limit, and
+# phase 8b holds config 5 at 10,000
+BENCH_ARGS = [["--full", "--config", "2"], ["--full", "--config", "3"],
+              ["--full", "--config", "4"], ["--config", "5"]]
+BENCH_SIZES = ["64", "1024", "10000"]   # 21a: config 2's sizes at --full
+BENCH_CLI = [sys.executable, "-m", "cometbft_tpu_torch.tools.benchmarks"]
+# 21a: each config's keys in the JAX package's line
+# (cometbft_tpu/tools/benchmarks.py), to which the port adds "device"
+BENCH_JAX_KEYS = {
+    2: {"config", "metric", "backend", "results_ms"},
+    3: {"config", "metric", "validators", "hops", "value_ms"},
+    4: {"config", "metric", "validators", "heights", "tally_ms_p50",
+        "commit_verify_ms_p50"},
+    5: {"config", "metric", "validators", "bls_aggregate_size",
+        "mixed_commit_verify_ms", "bls_aggregate_verify_ms"}}
+FLIGHT_SIGS = 64          # 21c: the batch the failing task verifies
+FLIGHT_RESTARTS = 2       # 21c: its restart budget
+CHURN_PEERS = 2100        # 21d: peer ids through the metrics
 
 
 def _mixed_kind(i: int) -> str:
@@ -5904,7 +5938,7 @@ def _ss_chain(seed, card, ek, device, loop, src, keep):
         lc = _ss_light_client(chain, device)
         await lc.initialize()
         sp = StateProvider(lc, chain.chain_id, chain.doc)
-        stages.wrap(sp, "app_hash", "app_hash(H): light block H+1")
+        stages.wrap(sp, "app_hash", "app_hash(H): light blocks H+1, H+2")
         stages.wrap(sp, "state", "state(H): light blocks H, H+1, H+2")
         stages.wrap(sp, "commit", "commit(H): light block H")
         stages.wrap(lc, "verify_light_block_at_height",
@@ -6051,13 +6085,13 @@ def _ss_chain(seed, card, ek, device, loop, src, keep):
     per = [rec["launches"][h] - rec["launches"][h - 1] for h in synced]
     bsync_launches = rec["launches"][top - 1] - rec["launches"][snap_h]
     chunk_s = log["chunk_at"] - log["chunk_req"]
-    discovery_s = stages.rows["app_hash(H): light block H+1"]["first"] - \
-        log["sync_at"]
+    discovery_s = stages.rows["app_hash(H): light blocks H+1, H+2"][
+        "first"] - log["sync_at"]
     busy = f"{busy_ms / window_ms:.4f}" if busy_ms is not None else \
         "not measured (the profiler saw no device event)"
     _log(f"statesync_{n}x{top} stages: discovery {discovery_s * 1e3:.1f} ms; "
          + "; ".join(stages.line(k) for k in (
-             "app_hash(H): light block H+1", "offer",
+             "app_hash(H): light blocks H+1, H+2", "offer",
              "apply_snapshot_chunk", "state(H): light blocks H, H+1, H+2",
              "commit(H): light block H")))
     _log(f"statesync_{n}x{top} light verifications: " + "; ".join(
@@ -6803,7 +6837,7 @@ def _rpc_statesync(seed, card, ek, oe, device, loop, src, keep, urls, count):
                 sp = await new_rpc_state_provider(
                     chain.chain_id, chain.doc, urls, SS_TRUST, trust_hash,
                     cfg.statesync.trust_period_ns, device=device)
-            stages.wrap(sp, "app_hash", "app_hash(H): light block H+1")
+            stages.wrap(sp, "app_hash", "app_hash(H): light blocks H+1, H+2")
             stages.wrap(sp, "state", "state(H): light blocks H, H+1, H+2")
             stages.wrap(sp, "commit", "commit(H): light block H")
             stages.wrap(sp.light_client, "verify_light_block_at_height",
@@ -6862,7 +6896,8 @@ def _rpc_statesync(seed, card, ek, oe, device, loop, src, keep, urls, count):
     _log(f"rpc_statesync_{n}x{top} stages: " + "; ".join(
         stages.line(k) for k in (
             "new_rpc_state_provider (trust root over HTTP)",
-            "app_hash(H): light block H+1", "offer", "apply_snapshot_chunk",
+            "app_hash(H): light blocks H+1, H+2", "offer",
+            "apply_snapshot_chunk",
             "state(H): light blocks H, H+1, H+2",
             "commit(H): light block H")))
     _log(f"rpc_statesync_{n}x{top} light verifications: " + "; ".join(
@@ -8577,9 +8612,12 @@ def _abci_ms_line(table, keys=None) -> str:
                      if keys is None or (method, conn) in keys)
 
 
-async def _http_get(port, path) -> bytes:
+async def _http_get(port, path, close=False) -> bytes:
+    """One GET; ``close`` asks a keep-alive server to end the connection
+    after its answer."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
-    writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+    extra = "Connection: close\r\n" if close else ""
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n{extra}\r\n".encode())
     await writer.drain()
     raw = await reader.read()
     writer.close()
@@ -10329,6 +10367,243 @@ def _qa_phases(seed, card, device=None):
             f"qa_mesh_{QA_MESH_SPLIT_LANES}x{QA_MESH_SPLIT}": split_b1}
 
 
+def _bench_configs(card, ek, device):
+    """21a: tools/benchmarks.main with each of BENCH_ARGS in this process
+    on the card, B1's launches counted around each call.  Returns
+    {config: (line, launches)}."""
+    import io
+    from cometbft_tpu_torch.tools import benchmarks
+    _phase(f"21a the BASELINE configs' runner: tools.benchmarks.main(args) "
+           f"on the card for args in {BENCH_ARGS}")
+    lines, launches = [], {}
+    t0 = time.perf_counter()
+    for args in BENCH_ARGS:
+        out = io.StringIO()
+        l0 = ek.launches
+        with contextlib.redirect_stdout(out):
+            rc = benchmarks.main(list(args))
+        got = [json.loads(x) for x in out.getvalue().splitlines()]
+        if rc != 0 or len(got) != 1:
+            raise AssertionError(f"21a {args}: rc {rc}, lines "
+                                 f"{out.getvalue()!r}")
+        lines.append(got[0])
+        launches[got[0]["config"]] = ek.launches - l0
+    took = time.perf_counter() - t0
+    if [r["config"] for r in lines] != [2, 3, 4, 5]:
+        raise AssertionError(f"21a: configs {[r['config'] for r in lines]}")
+    name = card.split(",")[0].strip()
+    got = {}
+    for rec in lines:
+        n = rec["config"]
+        want = BENCH_JAX_KEYS[n] | {"device"}
+        if set(rec) != want:
+            raise AssertionError(f"21a config {n}: keys {sorted(rec)}, "
+                                 f"want {sorted(want)}")
+        if rec["device"] != name:
+            raise AssertionError(f"21a config {n}: device {rec['device']!r}"
+                                 f" is not nvidia-smi's {name!r}")
+        if launches.get(n, 0) <= 0:
+            raise AssertionError(f"21a config {n}: no B1 launch")
+        got[n] = (rec, launches[n])
+        _log(f"bench_config_{n}: {json.dumps(rec)}; B1 launches "
+             f"{launches[n]}; card: {card}")
+    c2 = got[2][0]
+    if c2["backend"] != ("cuda" if device is None else "cpu") or \
+            list(c2["results_ms"]) != BENCH_SIZES:
+        raise AssertionError(f"21a config 2: {c2}")
+    _log(f"bench_configs: four configs in {took:.1f} s (config 2 verified "
+         f"every signature at {', '.join(c2['results_ms'])}; config 5 at "
+         f"{got[5][0]['validators']} keys)")
+    return got
+
+
+def _bench_process(card):
+    """21b: ``python -m cometbft_tpu_torch.tools.benchmarks --config 2`` as
+    a process at the default sizes."""
+    _phase("21b the runner as a process: python -m "
+           "cometbft_tpu_torch.tools.benchmarks --config 2")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(BENCH_CLI + ["--config", "2"], capture_output=True,
+                          text=True, cwd=root, timeout=300)
+    took = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"21b: rc {proc.returncode}, stdout "
+                             f"{proc.stdout!r}, stderr "
+                             f"{proc.stderr[-2000:]!r}")
+    rec = json.loads(lines[0])
+    if rec["config"] != 2 or list(rec["results_ms"]) != ["64", "256"]:
+        raise AssertionError(f"21b: {rec}")
+    _log(f"bench_process: rc 0 in {took:.1f} s: {lines[0]}; card: {card}")
+
+
+def _flight_node(card, ek, root, device, loop):
+    """21c and 21d on one Node on the card.  Returns B1's launches in
+    21c."""
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.libs import supervisor as libsup
+    from cometbft_tpu_torch.node import Node, init_files
+    _phase(f"21c the flight recorder: a Node on the card whose supervised "
+           f"task verifies {FLIGHT_SIGS} signatures on B1 and crashes past "
+           f"a budget of {FLIGHT_RESTARTS} restarts; /debug/pprof/trace"
+           f"?dump=1")
+    cfg = Config()
+    cfg.base.home = os.path.join(root, "flight")
+    cfg.base.log_level = "error"
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.instrumentation.pprof_listen_addr = "127.0.0.1:0"
+    init_files(cfg, chain_id="flight-chip")
+    data = cfg.base.path(cfg.base.db_dir)
+    privs = [ed25519.gen_priv_key_from_secret(b"flight-%d" % i)
+             for i in range(FLIGHT_SIGS)]
+    items = [(p.pub_key(), b"flight-%d" % i, p.sign(b"flight-%d" % i))
+             for i, p in enumerate(privs)]
+    node = Node(cfg, device=device)
+    runs = []
+
+    async def verify_then_crash():
+        bv = crypto_batch.create_batch_verifier(items[0][0], node.device)
+        for it in items:
+            bv.add(*it)
+        ok, _ = bv.verify()
+        runs.append(ok)
+        raise RuntimeError("21c: the supervised task fails on purpose")
+
+    async def run():
+        await node.start()
+        try:
+            await _nodes_until([node], lambda: node.height >= 2, "height 2")
+            l0 = ek.launches
+            st = node.supervisor.spawn(
+                verify_then_crash, name="flight_chip", kind="flight_chip",
+                policy=libsup.RestartPolicy(max_restarts=FLIGHT_RESTARTS,
+                                            backoff_base_s=0.01))
+            await st.wait()
+            b1 = ek.launches - l0
+            port = int(node._pprof_server.listen_addr.rsplit(":", 1)[1])
+            raw = await _http_get(port, "/debug/pprof/trace?dump=1")
+            dumped = json.loads(raw.partition(b"\r\n\r\n")[2])
+            churn = await _churn_metrics(node)
+        finally:
+            await node.stop()
+        return st, b1, dumped, churn
+
+    t0 = time.perf_counter()
+    st, b1, dumped, churn = loop.run_until_complete(run())
+    took = time.perf_counter() - t0
+    if not st.gave_up or runs != [True] * (FLIGHT_RESTARTS + 1):
+        raise AssertionError(f"21c: gave_up {st.gave_up}, verdicts {runs}")
+    if b1 < FLIGHT_RESTARTS + 1:
+        raise AssertionError(f"21c: {b1} B1 launches for "
+                             f"{FLIGHT_RESTARTS + 1} runs")
+    flights = sorted(f for f in os.listdir(data)
+                     if f.startswith("flight-") and
+                     f.endswith("-supervisor_giveup_node_flight_chip.json"))
+    if len(flights) != 1:
+        raise AssertionError(f"21c: flight records {os.listdir(data)}")
+    path = os.path.join(data, flights[0])
+    with open(path) as f:
+        rec = json.load(f)
+    spans = [e for e in rec["events"] if e["name"] == "kernel_execute"]
+    want_keys = ["reason", "wall_time", "monotonic_ns", "pid", "node",
+                 "anchors", "extra", "events"]
+    if list(rec) != want_keys or len(spans) < FLIGHT_RESTARTS + 1 or \
+            rec["extra"].get("task") != "flight_chip" or \
+            rec["events"][-1]["name"] != "giveup":
+        raise AssertionError(f"21c: record keys {list(rec)}, "
+                             f"{len(spans)} kernel_execute spans, extra "
+                             f"{rec['extra']}")
+    dump_path = dumped.get("dump_path", "")
+    if not dump_path or not os.path.exists(dump_path) or \
+            os.path.dirname(dump_path) != data:
+        raise AssertionError(f"21c: /trace?dump=1 answered {dump_path!r}")
+    _log(f"flight_record: {os.path.basename(path)} "
+         f"({os.path.getsize(path)} B, {len(rec['events'])} events, "
+         f"{len(spans)} kernel_execute spans of "
+         f"{sorted({e['attrs'].get('batch') for e in spans})} lanes, "
+         f"{len(rec['anchors'])} anchors); /trace?dump=1 wrote "
+         f"{os.path.basename(dump_path)}; B1 launches {b1}; node up and "
+         f"through 21c-21d in {took:.1f} s; card: {card}")
+    series, over, pages = churn
+    _log(f"metrics_ceiling: {CHURN_PEERS} peer ids -> {series} series a "
+         f"peer-labelled family ({over} in overflow); /metrics "
+         f"{pages[0]} B, ?exemplars=1 {pages[1]} B; card: {card}")
+    return b1
+
+
+async def _churn_metrics(node):
+    """21d: CHURN_PEERS peer ids through ``node``'s peer-labelled
+    families; each must hold 2,048 series and one ``overflow``, the RPC's
+    /metrics page must carry each family's 2,049 series, and its
+    ?exemplars=1 page the same in OpenMetrics with trace-height
+    exemplars.  Returns (series a family, overflow count, page sizes)."""
+    from cometbft_tpu_torch.libs import metrics as libmetrics
+    _phase(f"21d the metric ceiling: {CHURN_PEERS} peer ids through the "
+           f"node's p2p and consensus families")
+    p2p, cons = node.p2p_metrics, node.consensus_metrics
+    fams = (p2p.peer_pending_send_bytes, p2p.recv_rate_limiter_delay,
+            p2p.send_rate_limiter_delay, cons.block_parts)
+    before = cons.block_parts.series_count()   # the node's own peers
+    for i in range(CHURN_PEERS):
+        peer = hashlib.sha256(b"churn-%d" % i).hexdigest()[:40]
+        p2p.peer_pending_send_bytes.with_labels(peer).set(i)
+        p2p.recv_rate_limiter_delay.with_labels(peer).add(0.001)
+        p2p.send_rate_limiter_delay.with_labels(peer).add(0.001)
+        cons.block_parts.with_labels(peer).add()
+    cap = libmetrics._CHILDREN_MAX
+    counts = {f.name: f.series_count() for f in fams}
+    over = cons.block_parts.with_labels("overflow").value
+    if set(counts.values()) != {cap + 1} or \
+            over != CHURN_PEERS - (cap - before):
+        raise AssertionError(f"21d: series {counts}, overflow {over}")
+    port = node._rpc_server.port
+    plain = (await _http_get(port, "/metrics", close=True)).partition(
+        b"\r\n\r\n")[2]
+    om = (await _http_get(port, "/metrics?exemplars=1", close=True)
+          ).partition(b"\r\n\r\n")[2]
+    for f in fams:
+        name = f.name.encode()
+        n_plain = plain.count(b"\n" + name + b"{")
+        # OpenMetrics: a counter's samples carry _total
+        sample = name + b"_total{" if f.kind == "counter" and \
+            not name.endswith(b"_total") else name + b"{"
+        n_om = om.count(b"\n" + sample)
+        if n_plain != cap + 1 or n_om != cap + 1:
+            raise AssertionError(f"21d: {f.name} has {n_plain} series on "
+                                 f"/metrics, {n_om} on ?exemplars=1")
+    if not om.endswith(b"# EOF\n") or b' # {trace_height="' not in om or \
+            b" # {" in plain:
+        raise AssertionError("21d: the exemplar page lacks its EOF or an "
+                             "exemplar, or the plain page carries one")
+    return cap + 1, over, (len(plain), len(om))
+
+
+def _bench_phases(seed, card, device=None):
+    """Phases 21a-21d: tools/benchmarks.py's configs on the card, the
+    flight recorder's dumps and the metric ceiling.  Returns B1's
+    launches by part."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cs21-")
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    try:
+        configs = _bench_configs(card, ek, device)
+        _bench_process(card)
+        flight_b1 = _flight_node(card, ek, root, device, loop)
+    finally:
+        logging.disable(logging.NOTSET)
+        loop.close()
+        shutil.rmtree(root, ignore_errors=True)
+    _log(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return {**{f"bench_config_{n}": b1 for n, (_, b1) in configs.items()},
+            "flight_giveup": flight_b1}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10926,6 +11201,7 @@ def main() -> int:
     sa_launches, sa_launches8 = _sockapp_phases(args.seed, card, keep)
     node_launches, node_launches8 = _node_phases(args.seed, card, keep)
     qa_launches = _qa_phases(args.seed, card)
+    bench_launches = _bench_phases(args.seed, card)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -10949,7 +11225,7 @@ def main() -> int:
                              **sync_launches, **ss_launches,
                              **rpc_launches, **ls_launches,
                              **sa_launches, **node_launches,
-                             **qa_launches},
+                             **qa_launches, **bench_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],

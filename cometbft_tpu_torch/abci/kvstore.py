@@ -16,8 +16,12 @@ through the snapshot connection; with ``retain_blocks`` set, Commit
 answers a retain height and prunes the tree's versions below it,
 except those ``version_pin`` names (the heights the lightserve cache
 still serves).  The ``/multistore`` query answers a batch of keys with
-the tree's proof envelope (statetree/proof.py).  Not ported: artificial
-call delays and the import of pre-tree stores.
+the tree's proof envelope (statetree/proof.py).  A pre-tree database
+(raw ``kvPairKey:`` / ``val=`` rows and an ``appstate`` row) is imported
+into the tree when the store opens, its legacy app hash kept as that
+version's reported hash.  ``abci_delays`` holds artificial call delays
+and ``set_gen_block_events`` adds upstream's ``begin_event`` to every
+FinalizeBlock.
 """
 from __future__ import annotations
 
@@ -46,10 +50,30 @@ CODE_TYPE_UNAUTHORIZED = 3
 CODE_TYPE_EXECUTED = 5
 
 _KV_PREFIX = b"kvPairKey:"        # the recheck-key prefix of a kv tx
+_STATE_KEY = b"appstate"          # legacy (pre-tree) height/size row
 _TREE_PREFIX = b"statetree/"
 
 # lane priorities (reference: kvstore.go NewInMemoryApplication lanes)
 DEFAULT_LANES = {"val": 9, "foo": 7, DEFAULT_LANE: 3, "bar": 1}
+
+
+def _zigzag_varint(n: int) -> bytes:
+    """Go binary.PutVarint into an 8-byte buffer: the legacy app hash
+    (reference: State.Hash, kvstore.go:669), for the pre-tree import
+    only."""
+    zz = (n << 1) ^ (n >> 63) if n < 0 else n << 1
+    out = bytearray(8)
+    i = 0
+    while True:
+        b = zz & 0x7F
+        zz >>= 7
+        if zz:
+            out[i] = b | 0x80
+        else:
+            out[i] = b
+            break
+        i += 1
+    return bytes(out)
 
 
 def make_val_set_change_tx(pub_key_type: str, pub_key_bytes: bytes,
@@ -158,6 +182,7 @@ class KVStoreApplication(abci.Application):
         self.logger = new_logger("kvstore")
         self._val_updates: list[abci.ValidatorUpdate] = []
         self._val_addr_to_pubkey: dict[bytes, tuple[str, bytes]] = {}
+        self._gen_block_events = False
         # artificial per-call delays, seconds by call name (reference: e2e
         # manifest prepare_proposal_delay / process_proposal_delay /
         # check_tx_delay / finalize_block_delay mimic app computation)
@@ -180,6 +205,44 @@ class KVStoreApplication(abci.Application):
             self._size = int(
                 self.tree.version_extra().get("size", 0))
             self._rebuild_val_map()
+            return
+        raw = self.db.get(_STATE_KEY)
+        if raw:
+            st = json.loads(raw)
+            self._height = st.get("height", 0)
+            self._size = st.get("size", 0)
+        self._migrate_legacy()
+
+    def _migrate_legacy(self) -> None:
+        """Import a pre-tree store (raw kvPairKey:/val= rows, app hash =
+        varint(size)) into the tree at the current height.  The legacy
+        hash is recorded as that one version's reported app_hash, so the
+        ABCI handshake's replay still matches the stored state; every
+        later height reports the tree root.  Upgrade with the app at the
+        block store's tip: blocks finalized before the upgrade carry
+        legacy app hashes the tree does not reproduce."""
+        val_prefix = VALIDATOR_PREFIX.encode()
+        pairs = []
+        legacy_rows = []
+        for k, v in self.db.iterator():
+            if k.startswith(_KV_PREFIX):
+                pairs.append((k[len(_KV_PREFIX):], v))
+                legacy_rows.append(k)
+            elif k.startswith(val_prefix):
+                pairs.append((k, v))
+                legacy_rows.append(k)
+        if not pairs and self._height == 0:
+            return
+        self.tree.import_snapshot(
+            self._height, pairs,
+            app_hash_override=_zigzag_varint(self._size),
+            extra={"size": self._size})
+        for k in legacy_rows:
+            self.db.delete(k)
+        self._rebuild_val_map()
+        self.logger.info("Migrated legacy kvstore rows into the "
+                         "state tree", height=self._height,
+                         pairs=len(pairs))
 
     def _rebuild_val_map(self) -> None:
         self._val_addr_to_pubkey.clear()
@@ -194,8 +257,14 @@ class KVStoreApplication(abci.Application):
             self._val_addr_to_pubkey[pk.address()] = (key_type, pub)
 
     def _app_hash(self) -> bytes:
-        """The committed app hash: the state tree root."""
+        """The committed app hash: the state tree root (or, for the one
+        imported legacy version, its recorded legacy hash)."""
         return self.tree.reported_hash()
+
+    def set_gen_block_events(self) -> None:
+        """Emit a ``begin_event`` with every FinalizeBlock (reference:
+        kvstore.go SetGenBlockEvents)."""
+        self._gen_block_events = True
 
     # ------------------------------------------------------------------
     async def info(self, req: abci.InfoRequest) -> abci.InfoResponse:
@@ -358,11 +427,16 @@ class KVStoreApplication(abci.Application):
             self._stage_validator(u)
         # the app hash IS this height's tree root; Commit persists
         # the same staged view (the tree caches the computation)
-        return abci.FinalizeBlockResponse(
+        resp = abci.FinalizeBlockResponse(
             tx_results=tx_results,
             validator_updates=list(by_key.values()),
             app_hash=self.tree.working_root(req.height),
         )
+        if self._gen_block_events:
+            resp.events = [abci.Event(type="begin_event", attributes=[
+                abci.EventAttribute("foo", "100", True),
+                abci.EventAttribute("bar", "200", True)])]
+        return resp
 
     async def commit(self, req: abci.CommitRequest) -> abci.CommitResponse:
         # one atomic batch: kv writes, validator records, version

@@ -231,9 +231,9 @@ class InstrumentationConfig:
     trace_enabled: bool = True
     trace_buffer_size: int = 4096
     trace_categories: str = ""
-    # kept for the JAX package's config files: the port's recorder keeps
-    # no dump file and refreshes its clock anchor on its own cadence
+    # where flight records land (relative to home); empty: the data dir
     dump_dir: str = ""
+    # seconds between the recorder's (monotonic, wall) clock anchors
     trace_anchor_interval_s: float = 30.0
     # event-loop lag sampler (libs/health.py) cadence; 0 disables
     loop_lag_interval_s: float = 0.25

@@ -1,19 +1,32 @@
 """Prometheus-style metrics: registry and text exposition.
 
-Reference: cometbft_tpu/libs/metrics.py (:84-418), trimmed to what the
-port registers: counters, gauges and cumulative histograms, each with
-optional labels, rendered in the Prometheus text format with the same
-escaping, and one process-global registry, ``DEFAULT``, that the
-verification path records into (it has no node to hand it a registry).
-Family names and help strings are the reference's, so the rendered text
-reads the same.  Not kept: exemplars, the label-cardinality ceiling
-(the port's label values come from a closed set) and ``collect``;
-``render_merged`` renders the text format only.
+Reference: cometbft_tpu/libs/metrics.py (:84-433): counters, gauges and
+cumulative histograms, each with optional labels, rendered in the
+Prometheus text format with the same escaping, and one process-global
+registry, ``DEFAULT``, that the verification path records into (it has
+no node to hand it a registry).  Family names and help strings are the
+reference's, so the rendered text reads the same.
+
+  * Bounded label cardinality: a family holds at most ``max_children``
+    label sets (``_CHILDREN_MAX``, 2,048); past it, new label values
+    share one ``overflow`` series.  The p2p and consensus families are
+    labelled by peer id, which peers choose, so under churn they would
+    otherwise grow without bound.
+  * Histogram exemplars: every bucket keeps its latest observation with
+    the flight recorder's height in progress (libs/tracing.py
+    ``current_height``).  ``render(exemplars=True)`` (``GET
+    /metrics?exemplars=1``) emits them in the OpenMetrics ``# {...}``
+    syntax; the default render is the plain text format.
+  * ``describe`` / ``series_count`` / ``Registry.collect()``: family
+    descriptors; ``Timer`` observes elapsed seconds.
 """
 from __future__ import annotations
 
 import threading
-from typing import Sequence
+import time
+from typing import Optional, Sequence
+
+from . import tracing
 
 
 def _escape_label_value(v: str) -> str:
@@ -38,6 +51,20 @@ def _fmt_value(v: float) -> str:
     return repr(v)
 
 
+def _fmt_exemplar(ex) -> str:
+    """OpenMetrics exemplar: `` # {labels} value timestamp``."""
+    value, ts, labels = ex
+    inner = ",".join(f'{k}="{_escape_label_value(str(v))}"'
+                     for k, v in labels.items())
+    return f" # {{{inner}}} {_fmt_value(value)} {ts:.3f}"
+
+
+# the most label sets a family holds; past it, new label values collapse
+# into one series whose every label is ``overflow``
+_CHILDREN_MAX = 2048
+_OVERFLOW = "overflow"
+
+
 class _Metric:
     kind = "untyped"
 
@@ -46,11 +73,13 @@ class _Metric:
         self.name = name
         self.help = help_
         self.label_names = tuple(label_names)
+        self.max_children = _CHILDREN_MAX
         self._children: dict[tuple, "_Metric"] = {}
         self._lock = threading.Lock()
 
     def with_labels(self, *values):
-        """The child series for these label values (made on first use)."""
+        """The child series for these label values (made on first use;
+        the shared ``overflow`` series once the family is full)."""
         if len(values) != len(self.label_names):
             raise ValueError(
                 f"{self.name}: expected {len(self.label_names)} label "
@@ -59,7 +88,11 @@ class _Metric:
         with self._lock:
             child = self._children.get(key)
             if child is None:
-                child = self._children[key] = self._new_child()
+                if len(self._children) >= self.max_children:
+                    key = (_OVERFLOW,) * len(self.label_names)
+                    child = self._children.get(key)
+                if child is None:
+                    child = self._children[key] = self._new_child()
             return child
 
     def _new_child(self):  # pragma: no cover - abstract
@@ -68,7 +101,7 @@ class _Metric:
     def _own_samples(self, labels: str):
         raise NotImplementedError
 
-    def _samples(self):  # -> list[(suffix, labels, value)]
+    def _samples(self):  # -> list[(suffix, labels, value, exemplar)]
         if not self.label_names:
             return self._own_samples("")
         with self._lock:
@@ -79,11 +112,22 @@ class _Metric:
                                                       key)))
         return out
 
-    def render(self) -> str:
+    def series_count(self) -> int:
+        return len(self._children) if self.label_names else 1
+
+    def describe(self) -> dict:
+        """Family descriptor for ``Registry.collect()``."""
+        return {"name": self.name, "kind": self.kind,
+                "help": self.help, "labels": list(self.label_names),
+                "series": self.series_count()}
+
+    def render(self, exemplars: bool = False) -> str:
         lines = [f"# HELP {self.name} {_escape_help(self.help)}",
                  f"# TYPE {self.name} {self.kind}"]
-        for suffix, labels, value in self._samples():
-            lines.append(f"{self.name}{suffix}{labels} {_fmt_value(value)}")
+        for suffix, labels, value, ex in self._samples():
+            tail = _fmt_exemplar(ex) if exemplars and ex else ""
+            lines.append(
+                f"{self.name}{suffix}{labels} {_fmt_value(value)}{tail}")
         return "\n".join(lines)
 
 
@@ -110,7 +154,20 @@ class Counter(_Metric):
         return self._value
 
     def _own_samples(self, labels):
-        return [("", labels, self._value)]
+        return [("", labels, self._value, None)]
+
+    def render(self, exemplars: bool = False) -> str:
+        if not exemplars:
+            return super().render()
+        # OpenMetrics (the exemplar page): counter samples carry the
+        # _total suffix and the family name drops it
+        family = self.name[:-len("_total")] \
+            if self.name.endswith("_total") else self.name
+        lines = [f"# HELP {family} {_escape_help(self.help)}",
+                 f"# TYPE {family} counter"]
+        for _suffix, labels, value, _ex in self._samples():
+            lines.append(f"{family}_total{labels} {_fmt_value(value)}")
+        return "\n".join(lines)
 
 
 class Gauge(_Metric):
@@ -138,7 +195,7 @@ class Gauge(_Metric):
         return self._value
 
     def _own_samples(self, labels):
-        return [("", labels, self._value)]
+        return [("", labels, self._value, None)]
 
 
 _DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
@@ -147,7 +204,9 @@ _DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
 
 class Histogram(_Metric):
     """Prometheus-correct cumulative histogram: ``observe`` feeds
-    ``_bucket``/``_sum``/``_count``."""
+    ``_bucket``/``_sum``/``_count``, and each bucket keeps its latest
+    observation as an exemplar stamped with the recorder's height in
+    progress, which links a scrape's outlier to ``/trace?height=H``."""
 
     kind = "histogram"
 
@@ -159,17 +218,29 @@ class Histogram(_Metric):
         self._counts = [0] * len(self.buckets)
         self._sum = 0.0
         self._count = 0
+        # bucket index -> (value, unix seconds, labels); index
+        # len(buckets) is +Inf
+        self._exemplars: dict[int, tuple] = {}
 
     def _new_child(self):
         return Histogram(self.name, self.help, buckets=self.buckets)
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, exemplar: Optional[dict] = None) -> None:
+        if exemplar is None:
+            h = tracing.recorder().current_height
+            if h:
+                exemplar = {"trace_height": h}
         with self._lock:
             self._sum += v
             self._count += 1
+            idx = len(self.buckets)     # +Inf unless a bucket holds v
             for i, b in enumerate(self.buckets):
                 if v <= b:
                     self._counts[i] += 1
+                    idx = min(idx, i)
+            if exemplar:
+                # OpenMetrics exemplar timestamps are wall-clock metadata
+                self._exemplars[idx] = (v, time.time(), exemplar)
 
     @property
     def count(self) -> int:
@@ -204,11 +275,13 @@ class Histogram(_Metric):
         for i, b in enumerate(self.buckets):
             le = f'le="{_fmt_value(b)}"'
             lab = labels[:-1] + f",{le}}}" if labels else f"{{{le}}}"
-            out.append(("_bucket", lab, self._counts[i]))
+            out.append(("_bucket", lab, self._counts[i],
+                        self._exemplars.get(i)))
         inf = labels[:-1] + ',le="+Inf"}' if labels else '{le="+Inf"}'
-        out.append(("_bucket", inf, self._count))
-        out.append(("_sum", labels, self._sum))
-        out.append(("_count", labels, self._count))
+        out.append(("_bucket", inf, self._count,
+                    self._exemplars.get(len(self.buckets))))
+        out.append(("_sum", labels, self._sum, None))
+        out.append(("_count", labels, self._count, None))
         return out
 
 
@@ -244,11 +317,16 @@ class Registry:
         with self._lock:
             return sorted(self._metrics.values(), key=lambda m: m.name)
 
-    def render(self) -> str:
-        return "\n".join(m.render() for m in self.families()) + "\n"
+    def collect(self) -> list[dict]:
+        """Sorted family descriptors (name, kind, help, labels, series)."""
+        return [m.describe() for m in self.families()]
+
+    def render(self, exemplars: bool = False) -> str:
+        return "\n".join(m.render(exemplars=exemplars)
+                         for m in self.families()) + "\n"
 
 
-def render_merged(*registries: Registry) -> str:
+def render_merged(*registries: Registry, exemplars: bool = False) -> str:
     """One exposition page over several registries (node registry first,
     then the process-global DEFAULT); a family name already emitted is
     skipped so the page never carries duplicate TYPE lines."""
@@ -261,9 +339,24 @@ def render_merged(*registries: Registry) -> str:
             if m.name in seen:
                 continue
             seen.add(m.name)
-            out.append(m.render())
+            out.append(m.render(exemplars=exemplars))
     return "\n".join(out) + "\n"
 
 
 # The process-global registry that the verification path records into.
 DEFAULT = Registry()
+
+
+class Timer:
+    """Context manager observing elapsed seconds into a Histogram."""
+
+    def __init__(self, hist: Histogram):
+        self.hist = hist
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.hist.observe(time.perf_counter() - self._t0)
+        return False

@@ -14,12 +14,11 @@ The Go runtime's pprof surface maps onto the asyncio runtime:
     /debug/pprof/profile     cProfile for ?seconds=N (default 5),
                              pstats text sorted by cumulative time
     /debug/pprof/trace       the flight recorder's span timeline
+                             (?dump=1 also writes a flight record)
 
 Serves on its own listener like the reference — profiling must stay
 reachable when the RPC listener is saturated.  A copy of
-cometbft_tpu/libs/pprof.py: the same routes and texts, except that the
-port's flight recorder keeps no dump file, so ``/trace`` serves the
-timeline and takes no ``?dump=1``.
+cometbft_tpu/libs/pprof.py: the same routes and texts.
 """
 from __future__ import annotations
 
@@ -107,14 +106,17 @@ async def _profile_dump(seconds: float) -> str:
     return buf.getvalue()
 
 
-def _trace_dump() -> str:
-    """The flight recorder's (libs/tracing.py) whole span timeline as
-    JSON."""
+def _trace_dump(write_file: bool) -> str:
+    """Flight-recorder dump hook (libs/tracing.py): the whole span
+    timeline as JSON; ?dump=1 also writes a flight-record file to the
+    configured dump dir and reports its path."""
     import json as _json
 
     from . import tracing
     out = {"enabled": tracing.enabled(),
            "events": tracing.snapshot()}
+    if write_file:
+        out["dump_path"] = tracing.dump(reason="pprof_request")
     return _json.dumps(out, indent=1) + "\n"
 
 
@@ -124,7 +126,8 @@ _INDEX = """pprof endpoints (asyncio runtime):
 /debug/pprof/heap      tracemalloc allocations (?start=1 begins
                          recording, ?stop=1 stops)
 /debug/pprof/profile   CPU profile, ?seconds=N (default 5)
-/debug/pprof/trace     flight-recorder timeline
+/debug/pprof/trace     flight-recorder timeline (?dump=1 writes a
+                         flight-record file too)
 """
 
 
@@ -176,7 +179,7 @@ class PprofServer:
                 body = _heap_dump(params.get("start") == "1",
                                   params.get("stop") == "1")
             elif path == "/debug/pprof/trace":
-                body = _trace_dump()
+                body = _trace_dump(params.get("dump") == "1")
             elif path == "/debug/pprof/profile":
                 try:
                     seconds = float(params.get("seconds", "5"))

@@ -17,11 +17,11 @@ the exact backoff schedule deterministically.
 The port's copy of cometbft_tpu/libs/supervisor.py adds one rule, the
 port's no-fallback rule: ``spawn(..., fatal=pred)``.  A crash whose
 exception ``pred`` calls fatal is never restarted: supervision ends at
-once (a give-up, metered and logged), ``on_giveup`` runs, and the
-exception propagates to whoever awaits the handle.  The consensus
-machine calls every error fatal but its own protocol errors, so a
-kernel, its build or the BLS library failing stops consensus loudly
-instead of being restarted away.
+once (a give-up, metered, logged and dumped to a flight record),
+``on_giveup`` runs, and the exception propagates to whoever awaits the
+handle.  The consensus machine calls every error fatal but its own
+protocol errors, so a kernel, its build or the BLS library failing
+stops consensus loudly instead of being restarted away.
 """
 from __future__ import annotations
 
@@ -229,6 +229,7 @@ class Supervisor:
                         self.logger.error(
                             "supervised loop stopped: fatal error, not "
                             "restarted", task=st.name, err=repr(e))
+                        self._dump_flight_record(st, e)
                         self._notify(on_giveup, st, e)
                         raise
                     now = self._now()
@@ -272,14 +273,22 @@ class Supervisor:
 
     def _dump_flight_record(self, st: SupervisedTask,
                             exc: BaseException) -> None:
-        """A give-up is the node's 'black box moment': mark it in the
-        flight recorder (libs/tracing.py; the port keeps no crash dumps).
-        Never lets a recorder failure mask the give-up itself."""
+        """A give-up is the node's 'black box moment': dump the flight
+        recorder (libs/tracing.py) so the timeline leading into the
+        crash loop survives.  Never lets a dump failure mask the
+        give-up itself."""
         try:
             from . import tracing
             tracing.instant(tracing.SUPERVISOR, "giveup",
                             supervisor=self.name, task=st.name,
                             err=repr(exc)[:200])
+            path = tracing.dump(
+                reason=f"supervisor_giveup_{self.name}_{st.kind}",
+                extra={"supervisor": self.name, "task": st.name,
+                       "kind": st.kind, "restarts": st.restarts,
+                       "error": repr(exc)})
+            if path:
+                self.logger.error("flight record dumped", path=path)
         except Exception:  # noqa: BLE001 — best-effort black box
             pass
 

@@ -1,19 +1,29 @@
-"""Flight recorder: spans in fixed-size per-category ring buffers.
+"""Flight recorder: spans in fixed-size per-category ring buffers, and
+the crash dumps that write them out.
 
-Reference: cometbft_tpu/libs/tracing.py (:56-391), trimmed to what the
-port records and the ``/trace`` RPC reads: monotonic-clock spans on a
-``deque(maxlen=size)`` per category, read back as one timeline, each
-event stamped with a height (the caller's, else the one ``set_height``
-last stamped), and the recorder's node id and (monotonic, wall) clock
-anchors.  ``span()`` of a disabled recorder or category returns a shared
-inert context manager.  Instant events are spans of zero duration.  Not
-kept: crash dumps (the port has no node yet).
+Reference: cometbft_tpu/libs/tracing.py (:56-395): monotonic-clock spans
+and instants on a ``deque(maxlen=size)`` per category, read back as one
+timeline, each event stamped with a height (the caller's, else the one
+``set_height`` last stamped), and the recorder's node id and (monotonic,
+wall) clock anchors.  ``span()`` of a disabled recorder or category
+returns a shared inert context manager.
+
+The black box: ``dump`` writes the whole record as one JSON file
+(``flight-<pid>-<seq>-<reason>.json``) and never raises.  The supervisor
+writes one when it gives up on a loop, and ``/debug/pprof/trace?dump=1``
+on request.  A node points ``dump_dir`` at its data dir, or at
+``instrumentation.dump_dir``; a recorder without one writes to
+``$COMETBFT_TPU_TORCH_DUMP_DIR``, else the system temp dir, never the
+working directory.
 
 Events are tuples ``(ts_ns, dur_ns, name, height, attrs)``;
 ``time.monotonic_ns`` is the only clock used for intervals.
 """
 from __future__ import annotations
 
+import json
+import os
+import tempfile
 import threading
 import time
 from collections import deque
@@ -31,17 +41,21 @@ CATEGORIES = (CONSENSUS, CRYPTO, P2P, MEMPOOL, ABCI, SUPERVISOR, NEMESIS)
 
 now_ns = time.monotonic_ns
 
+# where a recorder without a dump dir writes its flight records
+DUMP_DIR_ENV = "COMETBFT_TPU_TORCH_DUMP_DIR"
+
 
 class Recorder:
-    """Per-category ring buffers."""
+    """Per-category ring buffers and the dump that writes them out."""
 
     #: bound on the anchor list; old middle anchors are evicted but the
     #: very first is kept so drift fits retain the longest baseline
     ANCHORS_MAX = 64
-    ANCHOR_INTERVAL_NS = 30 * 10**9
 
     def __init__(self, buffer_size: int = 4096, enabled: bool = True,
-                 categories: Optional[str] = None):
+                 categories: Optional[str] = None,
+                 dump_dir: str = "", node_id: str = "",
+                 anchor_interval_s: float = 30.0):
         self.buffer_size = max(1, int(buffer_size))
         self.enabled = enabled
         # None = every category; else the enabled set
@@ -50,16 +64,20 @@ class Recorder:
                       if c.strip())
             if isinstance(categories, str) and categories.strip()
             else (frozenset(categories) if categories else None))
-        # the trace route reports it; node/node.py stamps it
-        self.node_id = ""
+        self.dump_dir = dump_dir
+        # the trace route and every dump report it; node/node.py stamps it
+        self.node_id = node_id
+        self.last_dump_path = ""
         # (monotonic_ns, wall_ns) pairs for cross-node alignment; wall
         # time is sampled only to pair with a monotonic reading
+        self.anchor_interval_ns = max(1, int(anchor_interval_s * 1e9))
         self.anchors: list[tuple[int, int]] = []
         self._next_anchor_ns = 0
         self.refresh_anchor(force=True)
         # the height in progress; events recorded without one inherit it
         self.current_height = 0
         self._rings: dict[str, deque] = {}
+        self._dump_seq = 0
         self._lock = threading.Lock()
 
     def enabled_for(self, category: str) -> bool:
@@ -83,13 +101,21 @@ class Recorder:
         if end_ns >= self._next_anchor_ns:
             self.refresh_anchor()
 
+    def record_instant(self, category: str, name: str, height: int,
+                       attrs: Optional[dict]) -> None:
+        ts = now_ns()
+        self._ring(category).append(
+            (ts, 0, name, height or self.current_height, attrs))
+        if ts >= self._next_anchor_ns:
+            self.refresh_anchor()
+
     def refresh_anchor(self, force: bool = False) -> None:
         """Sample a fresh (monotonic_ns, wall_ns) pair, at most once an
         anchor interval unless forced; driven from the record path."""
         mono = now_ns()
         if not force and mono < self._next_anchor_ns:
             return
-        self._next_anchor_ns = mono + self.ANCHOR_INTERVAL_NS
+        self._next_anchor_ns = mono + self.anchor_interval_ns
         self.anchors.append((mono, time.time_ns()))
         if len(self.anchors) > self.ANCHORS_MAX:
             # keep the first (longest drift baseline) and the newest
@@ -122,6 +148,52 @@ class Recorder:
         with self._lock:
             self._rings.clear()
 
+    def resolved_dump_dir(self) -> str:
+        """Where dumps land: ``dump_dir``, else
+        ``$COMETBFT_TPU_TORCH_DUMP_DIR``, else the system temp dir; never
+        the working directory."""
+        return (self.dump_dir or os.environ.get(DUMP_DIR_ENV, "")
+                or tempfile.gettempdir())
+
+    def dump(self, reason: str = "", path: str = "",
+             extra: Optional[dict] = None) -> str:
+        """Write the whole flight record to a JSON file and return its
+        path; "" if that failed.  Never raises: a dump must not mask the
+        crash it records."""
+        try:
+            with self._lock:
+                self._dump_seq += 1
+                seq = self._dump_seq
+            if not path:
+                slug = "".join(c if c.isalnum() or c in "-_" else "-"
+                               for c in reason)[:48] or "flight"
+                path = os.path.join(
+                    self.resolved_dump_dir(),
+                    f"flight-{os.getpid()}-{seq:03d}-{slug}.json")
+            self.refresh_anchor(force=True)
+            record = {
+                "reason": reason,
+                "wall_time": time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                           time.gmtime()),
+                "monotonic_ns": now_ns(),
+                "pid": os.getpid(),
+                "node": self.node_id,
+                "anchors": [list(a) for a in self.anchors],
+                "extra": extra or {},
+                "events": self.snapshot(),
+            }
+            d = os.path.dirname(path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            tmp = f"{path}.tmp"
+            with open(tmp, "w") as f:
+                json.dump(record, f)
+            os.replace(tmp, path)
+            self.last_dump_path = path
+            return path
+        except Exception:  # noqa: BLE001 — a dump never raises
+            return ""
+
 
 _R = Recorder()
 
@@ -135,6 +207,9 @@ class _NopSpan:
 
     def __exit__(self, *exc):
         return False
+
+    def note(self, **attrs) -> None:
+        pass
 
 
 _NOP = _NopSpan()
@@ -163,6 +238,10 @@ class _Span:
                        self.attrs)
         return False
 
+    def note(self, **attrs) -> None:
+        """Attach attributes found while the span runs."""
+        self.attrs = dict(self.attrs or {}, **attrs)
+
 
 def span(category: str, name: str, height: int = 0, **attrs):
     """Context manager recording a monotonic span on exit; a no-op when
@@ -190,8 +269,7 @@ def instant(category: str, name: str, height: int = 0, **attrs) -> None:
     r = _R
     if not r.enabled_for(category):
         return
-    t = now_ns()
-    r.record(category, name, t, t, height, attrs or None)
+    r.record_instant(category, name, height, attrs or None)
 
 
 def set_height(height: int) -> None:
@@ -208,18 +286,42 @@ def snapshot(height: Optional[int] = None, category: Optional[str] = None,
     return _R.snapshot(height=height, category=category, limit=limit)
 
 
+def dump(reason: str = "", path: str = "",
+         extra: Optional[dict] = None) -> str:
+    return _R.dump(reason=reason, path=path, extra=extra)
+
+
 def clear() -> None:
     _R.clear()
 
 
 def configure(enabled: bool = True, buffer_size: int = 4096,
-              categories: Optional[str] = None) -> Recorder:
+              categories: Optional[str] = None, dump_dir: str = "",
+              node_id: str = "", anchor_interval_s: float = 30.0
+              ) -> Recorder:
     """Replace the process-global recorder (its rings are dropped)."""
     global _R
     _R = Recorder(buffer_size=buffer_size, enabled=enabled,
-                  categories=categories)
+                  categories=categories, dump_dir=dump_dir,
+                  node_id=node_id, anchor_interval_s=anchor_interval_s)
     return _R
+
+
+def refresh_anchor(force: bool = False) -> None:
+    """Take a fresh clock anchor on the process-global recorder."""
+    _R.refresh_anchor(force=force)
+
+
+def anchors() -> list[tuple[int, int]]:
+    return list(_R.anchors)
 
 
 def recorder() -> Recorder:
     return _R
+
+
+def set_recorder(r: Recorder) -> Recorder:
+    """Install ``r`` as the process-global recorder; returns the old one."""
+    global _R
+    old, _R = _R, r
+    return old

@@ -21,8 +21,8 @@ differs:
     sync or evidence failure (ROADMAP.md section C, declared departures).
   * gRPC servers need grpcio: a node configured with one on a machine
     without it raises from ``start``.
-  * The flight recorder takes the port's ``tracing.configure`` arguments
-    (no dump file, libs/tracing.py).
+  * The flight recorder dumps into the data dir, or into
+    ``instrumentation.dump_dir`` when it is set, as the JAX node's does.
 """
 from __future__ import annotations
 
@@ -132,12 +132,17 @@ class Node:
         db_dir = config.base.path(config.base.db_dir)
 
         # flight recorder (libs/tracing.py): the span rings every
-        # subsystem appends to, served at /trace
+        # subsystem appends to, served at /trace; crash dumps land in the
+        # data dir unless instrumentation.dump_dir points elsewhere
         from ..libs import tracing
+        dump_dir = config.instrumentation.dump_dir
         tracing.configure(
             enabled=config.instrumentation.trace_enabled,
             buffer_size=config.instrumentation.trace_buffer_size,
-            categories=config.instrumentation.trace_categories or None)
+            categories=config.instrumentation.trace_categories or None,
+            dump_dir=config.base.path(dump_dir) if dump_dir else db_dir,
+            anchor_interval_s=config.instrumentation
+            .trace_anchor_interval_s)
         from ..types import signature_cache
         signature_cache.set_default_capacity(
             config.base.signature_cache_size)

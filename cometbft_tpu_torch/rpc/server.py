@@ -12,8 +12,8 @@ requests, the same error codes and texts, the WebSocket upgrade and
 past the limit is closed unanswered) and ``max_header_bytes`` (a request
 line and headers past it get a 431 and the connection is closed), which
 the JAX config carries and its server leaves unread.  The metrics page
-is the Prometheus text format only: the port's registry keeps no
-exemplars.
+is the Prometheus text format; ``?exemplars=1`` switches it to
+OpenMetrics with each histogram bucket's trace-height exemplar.
 
 Each limit holds only when it is > 0, as in the reference: a zero
 ``max_open_connections`` means no limit (config.go, "0 - unlimited"),
@@ -117,7 +117,7 @@ class RPCServer:
                     k, _, v = line.decode().partition(":")
                     headers[k.strip().lower()] = v.strip()
                 if http_method_is_metrics(method, target):
-                    payload, ctype = self._render_metrics()
+                    payload, ctype = self._render_metrics(target)
                     writer.write(
                         b"HTTP/1.1 200 OK\r\n"
                         b"Content-Type: " + ctype + b"\r\n"
@@ -163,15 +163,26 @@ class RPCServer:
             except Exception:
                 pass
 
-    def _render_metrics(self) -> tuple[bytes, bytes]:
+    def _render_metrics(self, target: str) -> tuple[bytes, bytes]:
         """The Prometheus exposition page: the node registry merged
         with the process-global DEFAULT (the verification path's
-        histograms, fed below the node seam)."""
+        histograms, fed below the node seam).  ``?exemplars=1`` switches
+        to OpenMetrics with per-bucket trace-height exemplars."""
         reg = getattr(self.node, "metrics_registry", None)
         if reg is None:
             return b"# metrics disabled\n", b"text/plain; version=0.0.4"
         from ..libs import metrics as libmetrics
-        payload = libmetrics.render_merged(reg, libmetrics.DEFAULT).encode()
+        try:
+            params = dict(parse_qsl(urlsplit(target).query))
+        except ValueError:
+            params = {}
+        exemplars = params.get("exemplars", "") in ("1", "true")
+        payload = libmetrics.render_merged(
+            reg, libmetrics.DEFAULT, exemplars=exemplars).encode()
+        if exemplars:
+            # OpenMetrics requires the explicit EOF terminator
+            return payload + b"# EOF\n", \
+                b"application/openmetrics-text; version=1.0.0"
         return payload, b"text/plain; version=0.0.4"
 
     async def _dispatch(self, http_method: str, target: str,

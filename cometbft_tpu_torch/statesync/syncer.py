@@ -8,11 +8,15 @@ same light-client heights in the same order, the same texts.
 
 ``StateProvider`` wraps the port's light ``Client``, which resolves its
 device when it is built (``device=None`` is the card, and raises where
-CUDA is absent), so each light block the provider verifies (H+1 for the
-app hash, then H, H+1 and H+2 for the state) runs its commit checks on
-B1 unless the caller built the client on the CPU.  ``sync_any`` catches
-only ``RejectSnapshotError``: a light-client error or a kernel that
-fails ends the sync with nothing bootstrapped.
+CUDA is absent), so each light block the provider verifies (H+1 and H+2
+for the app hash, then H, H+1 and H+2 for the state) runs its commit
+checks on B1 unless the caller built the client on the CPU.
+``sync_any`` catches only ``RejectSnapshotError``: a light-client error
+or a kernel that fails ends the sync with nothing bootstrapped.
+
+A snapshot whose light blocks H+1 and H+2 the providers do not serve yet
+is passed over until the next discovery round, not for good, and it is
+never restored before they are (ROADMAP.md section C, C.8 and C.10).
 """
 from __future__ import annotations
 
@@ -47,6 +51,11 @@ class RejectSnapshotError(StatesyncError):
     pass
 
 
+class SnapshotNotReadyError(RejectSnapshotError):
+    """The providers do not serve the light blocks above the snapshot
+    yet: ``sync_any`` tries it again after the next discovery round."""
+
+
 @dataclass(frozen=True)
 class SnapshotKey:
     height: int
@@ -68,9 +77,14 @@ class StateProvider:
         self.genesis_doc = genesis_doc
 
     async def app_hash(self, height: int) -> bytes:
-        # header at height+1 carries the app hash AFTER height
+        """The app hash after ``height``, from the header at height+1.
+        The light block at height+2 is verified too, because ``state``
+        needs it: a snapshot whose H+2 the providers do not serve yet is
+        refused here, before its chunks are applied (reference:
+        stateprovider.go AppHash; ROADMAP.md section C, C.10)."""
         lb = await self.light_client.verify_light_block_at_height(
             height + 1)
+        await self.light_client.verify_light_block_at_height(height + 2)
         return lb.signed_header.header.app_hash
 
     async def commit(self, height: int) -> Commit:
@@ -218,9 +232,11 @@ class Syncer:
         retries discovery instead of failing on a slow peer)."""
         await asyncio.sleep(discovery_time_s)
         tried: set[SnapshotKey] = set()
+        # not servable yet: passed over until the next discovery round
+        waiting: set[SnapshotKey] = set()
         rounds = 0
         while True:
-            best = self._best_snapshot(tried)
+            best = self._best_snapshot(tried | waiting)
             if best is None:
                 rounds += 1
                 if rounds >= MAX_DISCOVERY_ROUNDS:
@@ -235,11 +251,13 @@ class Syncer:
                     # reactor.go re-requests on recentSnapshots)
                     self.request_snapshots()
                 await asyncio.sleep(discovery_time_s)
+                waiting.clear()
                 continue
-            tried.add(best)
             try:
                 return await self._sync(best)
             except RejectSnapshotError as e:
+                (waiting if isinstance(e, SnapshotNotReadyError)
+                 else tried).add(best)
                 self.logger.info("snapshot rejected; trying next",
                                  height=best.height, err=str(e))
                 if self.request_snapshots is not None:
@@ -256,13 +274,15 @@ class Syncer:
         """Reference: syncer.Sync (:236)."""
         # verify the app hash for the snapshot height FIRST (trusted
         # via the light client).  A provider that cannot serve the light
-        # blocks above it yet (a snapshot at the tip) drops the snapshot
-        # for the next one (reference: syncer.go Sync, "failed to fetch
-        # and verify app hash"); a verification failure still raises.
+        # blocks H+1 and H+2 yet (a snapshot at or next to the tip) passes
+        # the snapshot over for the next one until the next discovery
+        # round (reference: syncer.go Sync, "failed to fetch and verify
+        # app hash", which rejects it for good); a verification failure
+        # still raises.
         try:
             app_hash = await self.state_provider.app_hash(snap.height)
         except ProviderError as e:
-            raise RejectSnapshotError(
+            raise SnapshotNotReadyError(
                 f"failed to fetch and verify app hash: {e}") from e
         offer = await self.app_conns.snapshot.offer_snapshot(
             abci.OfferSnapshotRequest(

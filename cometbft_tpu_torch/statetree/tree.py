@@ -406,9 +406,11 @@ class StateTree:
 
     def import_snapshot(self, version: int,
                         pairs: Iterable[tuple[bytes, bytes]],
+                        app_hash_override: Optional[bytes] = None,
                         extra: Optional[dict] = None) -> bytes:
         """Replace all tree content with ``pairs`` committed at
-        ``version`` (state-sync restore).  The resulting root is
+        ``version`` (state-sync restore, and the kvstore's import of a
+        pre-tree store under its legacy hash).  The resulting root is
         byte-identical to the snapshot producer's: same pairs, same
         sorted order, same leaf binding."""
         with self._lock:
@@ -427,7 +429,8 @@ class StateTree:
             self.base_version = version
             for k, v in pairs:
                 self.set(k, v)
-            return self.commit(version, extra=extra)
+            return self.commit(version, app_hash_override=app_hash_override,
+                               extra=extra)
 
     # -- proofs ---------------------------------------------------------------
 

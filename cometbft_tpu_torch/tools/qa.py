@@ -544,6 +544,11 @@ async def run_qa(outdir: str, n_validators: int = 12, n_full: int = 3,
             _configure_joiner(joiner_cfg, endpoints, th,
                               blk["block_id"]["hash"], node_ids,
                               p2p_port, names)
+            # the joiner dials its peers and nobody dials it: it binds
+            # free ports now, since the ones picked at setup may have
+            # been taken by another process in the meantime
+            joiner_cfg.p2p.laddr = "tcp://127.0.0.1:0"
+            joiner_cfg.rpc.laddr = "tcp://127.0.0.1:0"
             app = KVStoreApplication(
                 db=new_db("app", "memdb",
                           joiner_cfg.base.path("data")),

@@ -106,6 +106,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert set(GRPC_TRANSPORTS) <= set(mods)
     assert set(NODE_MODULES) <= set(mods)
     assert set(TESTNET_MODULES) <= set(mods)
+    assert "cometbft_tpu_torch.tools.benchmarks" in mods
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -308,6 +309,37 @@ def test_testnet_tools_and_mesh_load_no_jax_reference_or_psutil():
                                         "tools"}, path
         text = path.read_text()
         assert "spec_from_file_location" not in text, path
+
+
+def test_benchmarks_runner_loads_alone_and_needs_the_card():
+    """The BASELINE configs' runner, imported in a fresh interpreter with
+    ``psutil`` and ``grpc`` unimportable, loads nothing of jax, of the JAX
+    package or of the root ``tools/``; run as a module where CUDA is
+    absent it exits non-zero and prints no result line."""
+    code = (
+        "import sys\n"
+        "sys.modules['psutil'] = None\n"
+        "sys.modules['grpc'] = None\n"
+        "import cometbft_tpu_torch.tools.benchmarks\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'tools') or (m.split('.')[0] in "
+        "('psutil', 'grpc') and sys.modules[m] is not None))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    path = REPO / "cometbft_tpu_torch" / "tools" / "benchmarks.py"
+    assert not _imports_of(path) & {"jax", "cometbft_tpu", "psutil",
+                                    "tools"}
+    if torch.cuda.is_available():
+        return
+    out = subprocess.run(
+        [sys.executable, "-m", "cometbft_tpu_torch.tools.benchmarks",
+         "--config", "2"], cwd=REPO, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode != 0 and out.stdout == ""
+    assert "CUDA is not available" in out.stderr
 
 
 def test_make_mesh_raises_without_cuda():

@@ -209,3 +209,102 @@ def test_state_tree_roots_match(leaves):
     reopened = StateTree(trees[0]._db)
     assert reopened.root() == roots[0][3]
     assert reopened.latest_version == 1
+
+
+# -- a pre-tree database, block events ----------------------------------------
+
+def _legacy_db(mem, vals):
+    """A pre-tree kvstore database written row by row: two kv rows, a
+    validator with a bare power and one with its type, and the
+    ``appstate`` row at height 5 with size 3."""
+    import json
+    db = mem()
+    db.set(b"kvPairKey:alpha", b"1")
+    db.set(b"kvPairKey:beta", b"two")
+    db.set(b"val=" + base64.b64encode(vals[0]), b"10")
+    db.set(b"val=" + base64.b64encode(vals[1]), b"ed25519!7")
+    db.set(b"appstate", json.dumps({"height": 5, "size": 3}).encode())
+    return db
+
+
+def _open_legacy(side, vals):
+    """Open the legacy database, then take heights 6-8; returns the
+    record of each step, the app and its db."""
+    a, kv, _, mem, ts = side
+    db = _legacy_db(mem, vals)
+    app = kv(db=db)
+    rec = []
+
+    async def go():
+        info = await app.info(a.InfoRequest())
+        rec.append(("opened", _result(info), app.tree.root(),
+                    sorted(_result(app.get_validators()),
+                           key=lambda d: d["pub_key_bytes"])))
+        for h in (6, 7, 8):
+            txs = [b"alpha=%d" % h, b"gamma%d=x" % h]
+            if h == 7:
+                txs.append(make_val_set_change_tx("ed25519", vals[0], 0))
+            fin = await app.finalize_block(a.FinalizeBlockRequest(
+                txs=txs, height=h, time=ts(1_700_000_000 + h, 0)))
+            await app.commit(a.CommitRequest())
+            info = await app.info(a.InfoRequest())
+            rec.append((h, _result(fin), _result(info)))
+        q = await app.query(a.QueryRequest(data=b"beta", height=5))
+        rec.append(("beta@5", _result(q)))
+    asyncio.run(go())
+    return rec, app, db
+
+
+def test_a_legacy_database_opens_under_its_legacy_hash():
+    """Both packages import the same pre-tree rows under the legacy hash
+    varint(size) and take the next blocks to the same app hashes (exact
+    equality of every response)."""
+    from cometbft_tpu.abci.kvstore import _zigzag_varint as r_zigzag
+    from cometbft_tpu_torch.abci.kvstore import _zigzag_varint
+    vals = _keys(2, 305)
+    got, app, db = _open_legacy(PORT, vals)
+    want, r_app, r_db = _open_legacy(REF, vals)
+    assert got == want
+    opened = got[0][1]
+    assert opened["last_block_height"] == 5
+    assert opened["last_block_app_hash"] == _zigzag_varint(3) == \
+        b"\x06" + bytes(7)
+    assert app.tree.reported_hash(5) == _zigzag_varint(3)
+    assert got[1][1]["app_hash"] == app.tree.root(6) != _zigzag_varint(3)
+    assert app.tree.root() == r_app.tree.root()
+    assert len(got[0][3]) == 2
+    # the raw rows are gone, the tree holds them
+    left = sorted(k for k, _ in db.iterator()
+                  if not k.startswith(b"statetree/"))
+    assert left == [b"appstate"] == sorted(
+        k for k, _ in r_db.iterator() if not k.startswith(b"statetree/"))
+    for n in (0, 1, 3, 63, 64, 300, 2**31, 2**54, -1, -64, -2**54):
+        assert _zigzag_varint(n) == r_zigzag(n)
+
+
+def test_an_empty_database_imports_nothing():
+    app = KVStoreApplication(db=MemDB())
+    assert app.tree.latest_version is None
+    info = asyncio.run(app.info(abci.InfoRequest()))
+    assert info.last_block_height == 0
+
+
+def test_block_events_match_reference():
+    """``set_gen_block_events`` adds upstream's begin_event to every
+    FinalizeBlock: the response equals the JAX app's (exact)."""
+    outs = []
+    for side in (PORT, REF):
+        a, kv, _, mem, ts = side
+        app = kv(db=mem())
+        plain = asyncio.run(app.finalize_block(a.FinalizeBlockRequest(
+            txs=[b"a=1"], height=1, time=ts(1_700_000_001, 0))))
+        assert plain.events == []
+        asyncio.run(app.commit(a.CommitRequest()))
+        app.set_gen_block_events()
+        fin = asyncio.run(app.finalize_block(a.FinalizeBlockRequest(
+            txs=[b"b=2"], height=2, time=ts(1_700_000_002, 0))))
+        outs.append(_result(fin))
+    assert outs[0] == outs[1]
+    assert outs[0]["events"] == [{"type": "begin_event", "attributes": [
+        {"key": "foo", "value": "100", "index": True},
+        {"key": "bar", "value": "200", "index": True}]}]

@@ -253,3 +253,137 @@ def test_ring_keeps_the_newest():
         tracing.record_span(tracing.CRYPTO, f"e{i}", i, i + 1)
     assert [e["name"] for e in tracing.snapshot()] == ["e2", "e3", "e4"]
 
+
+
+# -- the label ceiling, exemplars, descriptors, Timer --------------------------
+
+def _churn(mod_p2p, mod_cons, mod_metrics, peers):
+    """One registry of either package fed ``peers`` distinct peer ids
+    through the p2p families labelled by peer and consensus's
+    ``block_parts``."""
+    reg = mod_metrics.Registry()
+    p2p, cons = mod_p2p.Metrics(reg), mod_cons.Metrics(reg)
+    for i in range(peers):
+        peer = f"{i:040x}"
+        p2p.peer_pending_send_bytes.with_labels(peer).set(i)
+        p2p.recv_rate_limiter_delay.with_labels(peer).add(0.5)
+        p2p.send_rate_limiter_delay.with_labels(peer).add(0.25)
+        cons.block_parts.with_labels(peer).add()
+    return reg, p2p, cons
+
+
+def test_peer_churn_stops_at_the_ceiling():
+    """C.9: 2,100 peer ids leave at most 2,048 + 1 series in each family
+    labelled by peer, the last 52 ids sharing the ``overflow`` series,
+    and the page reads as the JAX package's (exact text equality)."""
+    from cometbft_tpu.consensus import metrics as r_cons
+    from cometbft_tpu.p2p import metrics as r_p2p
+    from cometbft_tpu_torch.consensus import metrics as p_cons
+    from cometbft_tpu_torch.p2p import metrics as p_p2p
+    reg, p2p, cons = _churn(p_p2p, p_cons, p_metrics, 2100)
+    r_reg, r_p2p_m, r_cons_m = _churn(r_p2p, r_cons, r_metrics, 2100)
+    for fam in (p2p.peer_pending_send_bytes, p2p.recv_rate_limiter_delay,
+                p2p.send_rate_limiter_delay, cons.block_parts):
+        assert fam.max_children == p_metrics._CHILDREN_MAX == 2048
+        assert fam.series_count() == 2049
+    over = cons.block_parts.with_labels("overflow")
+    assert over.value == 52
+    assert r_cons_m.block_parts.with_labels("overflow").value == 52
+    assert reg.render() == r_reg.render()
+    assert reg.collect() == r_reg.collect()
+
+
+def test_a_lowered_ceiling_collapses_new_values_only():
+    c = p_metrics.Registry().counter("p2p", "x", "X.", labels=("a", "b"))
+    c.max_children = 2
+    c.with_labels("p", "1").add()
+    c.with_labels("q", "2").add()
+    c.with_labels("r", "3").add()
+    c.with_labels("p", "1").add()
+    c.with_labels("s", "4").add(2)
+    assert c.with_labels("overflow", "overflow").value == 3
+    assert c.with_labels("p", "1").value == 2
+    assert c.series_count() == 3
+
+
+def _exemplar_story(mod, trc):
+    """The same observations in either package, at recorder heights 0,
+    7 and 9 (``trc`` is that package's tracing module)."""
+    reg = mod.Registry()
+    h = reg.histogram("consensus", "step_seconds", "Step.",
+                      labels=("step",), buckets=(0.01, 0.1, 1.0))
+    plain = reg.histogram("crypto", "seconds", "Seconds.",
+                          buckets=(0.5, 2.0))
+    reg.counter("p2p", "bytes_total", "Bytes.").add(5)
+    reg.counter("p2p", "frames", "Frames.", labels=("ch",)) \
+        .with_labels("0x20").add(3)
+    reg.gauge("p2p", "peers", "Peers.").set(4)
+    trc.set_height(0)
+    h.with_labels("propose").observe(0.005)
+    trc.set_height(7)
+    h.with_labels("propose").observe(0.05)
+    h.with_labels("commit").observe(3.0)
+    plain.observe(0.2)
+    trc.set_height(9)
+    h.with_labels("propose").observe(0.004)
+    plain.observe(1.5, exemplar={"trace_height": 2, "peer": 'a"b'})
+    trc.set_height(0)
+    return reg
+
+
+def _mask_timestamps(page: str) -> str:
+    """Each exemplar's wall-clock timestamp (its last field) masked."""
+    out = []
+    for line in page.splitlines():
+        if " # {" in line:
+            line = line.rsplit(" ", 1)[0] + " TS"
+        out.append(line)
+    return "\n".join(out)
+
+
+def test_exemplars_match_reference():
+    """Exact text equality once each exemplar's wall-clock timestamp is
+    masked; the default render carries no exemplar at all."""
+    from cometbft_tpu.libs import tracing as r_tracing
+    r_tracing.configure()
+    try:
+        reg = _exemplar_story(p_metrics, tracing)
+        r_reg = _exemplar_story(r_metrics, r_tracing)
+    finally:
+        r_tracing.configure()
+    page = reg.render(exemplars=True)
+    assert _mask_timestamps(page) == \
+        _mask_timestamps(r_reg.render(exemplars=True))
+    assert 'propose",le="0.01"} 2 # {trace_height="9"} 0.004 ' in page
+    assert '{le="2"} 2 # {trace_height="2",peer="a\\"b"} 1.5 ' in page
+    assert "p2p_bytes_total 5" in page and "TYPE cometbft_p2p_bytes " \
+        "counter" in page and "cometbft_p2p_frames_total{" in page
+    assert reg.render() == r_reg.render()
+    assert " # {" not in reg.render()
+    merged = p_metrics.render_merged(reg, p_metrics.Registry(),
+                                     exemplars=True)
+    assert _mask_timestamps(merged) == _mask_timestamps(
+        r_metrics.render_merged(r_reg, r_metrics.Registry(),
+                                exemplars=True))
+
+
+def test_collect_matches_reference():
+    reg, r_reg = _fill(p_metrics, "histograms"), _fill(r_metrics,
+                                                      "histograms")
+    assert reg.collect() == r_reg.collect()
+    assert reg.collect()[1] == {
+        "name": "cometbft_crypto_seconds", "kind": "histogram",
+        "help": "Seconds.", "labels": ["phase", "bucket"], "series": 2}
+    for scenario in ("counters", "gauges"):
+        assert _fill(p_metrics, scenario).collect() == \
+            _fill(r_metrics, scenario).collect()
+
+
+def test_timer_observes_elapsed_seconds(monkeypatch):
+    clock = iter([10.0, 10.25])
+    monkeypatch.setattr(p_metrics.time, "perf_counter", lambda: next(clock))
+    h = p_metrics.Registry().histogram("x", "y", "Y.", buckets=(0.1, 1.0))
+    with p_metrics.Timer(h) as t:
+        assert t.hist is h
+    assert (h.count, h.sum) == (1, 0.25)
+    assert h._counts == [0, 1]

@@ -447,6 +447,36 @@ def test_a_joiner_that_misses_its_target_is_a_mismatch(tmp_path,
     assert rep.statesync_joiner_height == 0 and rep.degraded == []
 
 
+def test_the_joiner_binds_free_ports_when_it_starts(tmp_path, monkeypatch):
+    """The ports ``_setup_net`` picked for the joiner are taken by the
+    time it starts (another process bound them): the in-process joiner
+    binds free ones when it starts and still reaches the target."""
+    import socket
+    monkeypatch.setattr(ek, "verify_cols",
+                        lambda a, r, s, k: torch.ones(a.shape[1],
+                                                      dtype=torch.bool))
+    held = []
+    real = qa._configure_joiner
+
+    def configure_then_take(joiner_cfg, *args):
+        real(joiner_cfg, *args)
+        for laddr in (joiner_cfg.p2p.laddr, joiner_cfg.rpc.laddr):
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", int(laddr.rsplit(":", 1)[1])))
+            sock.listen()
+            held.append(sock)
+    monkeypatch.setattr(qa, "_configure_joiner", configure_then_take)
+    try:
+        rep = asyncio.run(qa.run_qa(str(tmp_path), n_validators=2,
+                                    n_full=0, ghosts=0, rates=(10,),
+                                    window_s=0.5, device="cpu"))
+    finally:
+        for sock in held:
+            sock.close()
+    assert len(held) == 2
+    assert rep.mismatches == [] and rep.statesync_joiner_height > 0
+
+
 def test_main_refuses_a_malformed_child_env():
     with pytest.raises(SystemExit, match="NAME:KEY=VALUE"):
         qa._child_env_arg(["full00=bad"])

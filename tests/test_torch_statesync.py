@@ -31,6 +31,7 @@ a bound.  Equality is exact.
 """
 import asyncio
 import os
+import sys
 from types import SimpleNamespace
 
 import pytest
@@ -616,7 +617,7 @@ def _outcome(chains, side, liars, primary=None, tmp=None):
                 src.serve(syncer, snap, i, peer) for peer, src in sources],
             chunk_timeout_s=0.05, chunk_dir=tmp, logger=logger)
         for peer, src in liars:
-            if src == "good":
+            if src in ("good", "good@SNAP"):
                 good = await chain.app.list_snapshots(
                     s.abci.ListSnapshotsRequest())
                 src = _Liar([(s.syncer.SnapshotKey(
@@ -624,7 +625,8 @@ def _outcome(chains, side, liars, primary=None, tmp=None):
                     (await chain.app.load_snapshot_chunk(
                         s.abci.LoadSnapshotChunkRequest(
                             height=sn.height, format=sn.format, chunk=0))
-                     ).chunk) for sn in good.snapshots])
+                     ).chunk) for sn in good.snapshots
+                    if src == "good" or sn.height == SNAP])
             src.attach(syncer, peer)
             sources.append((peer, src))
         try:
@@ -650,15 +652,16 @@ def _key(side, h, fmt=1, chunk=b"advertised"):
 def test_rejected_snapshots_then_the_good_one(chains, stand_in, tmp_path):
     out = []
     for side in ("port", "jax"):
-        liar = _Liar([(_key(side, SNAP + 3, fmt=2), b"x"),
+        # every liar's H + 2 <= TOP, so each reaches the app (C.10)
+        liar = _Liar([(_key(side, SNAP + 2, fmt=2), b"x"),
                       (_key(side, SNAP + 2), b"not the advertised chunk"),
                       (_key(side, SNAP + 1), None)])
         out.append(_outcome(chains, side, [("liar", liar), ("src", "good")],
                             tmp=str(tmp_path / side)))
     assert out[0] == out[1]
     res, rejected, height = out[0]
-    assert rejected == [(SNAP + 3, "app rejected snapshot: 4"),
-                        (SNAP + 2, "chunk apply failed: 5"),
+    assert rejected == [(SNAP + 2, "chunk apply failed: 5"),
+                        (SNAP + 2, "app rejected snapshot: 4"),
                         (SNAP + 1, "timed out waiting for chunks (4 rounds)")]
     assert res[0] == "ok" and res[2] == SNAP and height == SNAP
 
@@ -666,10 +669,10 @@ def test_rejected_snapshots_then_the_good_one(chains, stand_in, tmp_path):
 def test_snapshot_at_the_tip_ends_the_sync(chains, stand_in):
     """A snapshot at the tip, whose light block TOP + 1 no provider has
     yet: the JAX syncer ends the sync with the provider's error; the
-    port drops the snapshot as the reference does (syncer.go Sync,
-    "failed to fetch and verify app hash") and, with no other snapshot
-    ever offered, ends when discovery runs out (ROADMAP.md section C,
-    C.8)."""
+    port passes the snapshot over (syncer.go Sync, "failed to fetch and
+    verify app hash"), tries it again once a discovery round, as the
+    light block may come (C.10), and, with the net stopped at TOP, ends
+    when discovery runs out (ROADMAP.md section C, C.8)."""
     out = [_outcome(chains, side, [("liar", _Liar([(_key(side, TOP), b"x")]))])
            for side in ("port", "jax")]
     assert out[1] == (("LightBlockNotFoundError",
@@ -677,7 +680,7 @@ def test_snapshot_at_the_tip_ends_the_sync(chains, stand_in):
     assert out[0] == (
         ("StatesyncError", "no viable snapshots (discovered 1)"),
         [(TOP, "failed to fetch and verify app hash: no light block at "
-               f"height {TOP + 1}")], 0)
+               f"height {TOP + 1}")] * p_syncer.MAX_DISCOVERY_ROUNDS, 0)
 
 
 def test_a_tip_snapshot_is_dropped_for_the_next_one(chains, stand_in,
@@ -695,6 +698,67 @@ def test_a_tip_snapshot_is_dropped_for_the_next_one(chains, stand_in,
                               f"light block at height {TOP + 1}")]
     assert out["jax"][0] == ("LightBlockNotFoundError",
                              f"no light block at height {TOP + 1}")
+
+
+def _behind(side, chain, top, step=0):
+    """A provider of ``side`` whose net has reached only ``top``: a light
+    block above it is not found yet (a provider that is slow to serve
+    the blocks above a snapshot).  Each refusal lets the net go ``step``
+    heights further."""
+    s = SIDES[side]
+    not_found = sys.modules[s.NodeProvider.__module__].LightBlockNotFoundError
+
+    class Behind(s.NodeProvider):
+        async def light_block(self, height):
+            nonlocal top
+            if height > top:
+                top += step
+                raise not_found(f"no light block at height {height}")
+            return await super().light_block(height)
+    return Behind(chain.block_store, chain.state_store, CHAIN_ID)
+
+
+def test_a_snapshot_next_to_the_tip_is_dropped_before_its_chunks(
+        chains, stand_in, tmp_path):
+    """C.10: the source's snapshots at 5 and SNAP, its providers at SNAP +
+    1, so light block SNAP + 2, which ``state`` needs, is not out yet.
+    The port refuses SNAP at the app-hash step, before a chunk is
+    applied (stateprovider.go AppHash fetches H+2), and restores 5; the
+    JAX syncer (as the port's did) applies SNAP's chunk and then ends
+    the sync on the missing light block, the app left at SNAP."""
+    out = {}
+    for side in ("port", "jax"):
+        chain = chains[side]
+        out[side] = _outcome(chains, side, [("src", "good")],
+                             primary=_behind(side, chain, SNAP + 1),
+                             tmp=str(tmp_path / side))
+    res, rejected, height = out["port"]
+    assert res[0] == "ok" and res[2] == INTERVAL and height == INTERVAL
+    assert rejected == [(SNAP, "failed to fetch and verify app hash: no "
+                               f"light block at height {SNAP + 2}")]
+    assert out["jax"] == (("LightBlockNotFoundError",
+                           f"no light block at height {SNAP + 2}"), [], SNAP)
+
+
+def test_a_snapshot_not_ready_yet_is_tried_again(chains, stand_in,
+                                                 tmp_path):
+    """C.10, the QA joiner's case: the only snapshot, SNAP, is discovered
+    while the net is at SNAP + 1; the next block lands after the first
+    refusal.  The port passes SNAP over, rediscovers and restores it
+    (one rejection logged); the JAX syncer applies its chunk and ends on
+    the missing light block SNAP + 2."""
+    out = {}
+    for side in ("port", "jax"):
+        chain = chains[side]
+        out[side] = _outcome(chains, side, [("src", "good@SNAP")],
+                             primary=_behind(side, chain, SNAP + 1, step=1),
+                             tmp=str(tmp_path / side))
+    res, rejected, height = out["port"]
+    assert res[0] == "ok" and res[2] == SNAP and height == SNAP
+    assert rejected == [(SNAP, "failed to fetch and verify app hash: no "
+                               f"light block at height {SNAP + 2}")]
+    assert out["jax"] == (("LightBlockNotFoundError",
+                           f"no light block at height {SNAP + 2}"), [], SNAP)
 
 
 def test_flipped_signature_in_light_block_h1(chains, monkeypatch):
