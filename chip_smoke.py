@@ -270,6 +270,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 CHAIN_ID = "chip-smoke"
 HEIGHT = 1000
@@ -441,19 +442,24 @@ SOCK_HEIGHTS = 50
 # 13b: the joiner's depth, cut from the chain's 100 heights to keep phase 13
 # inside its 60 s budget (at 100, phase 13 took 58-85 s on an NVIDIA H100
 # 80GB HBM3 at 700 W, with the spread of the card's host), then from 50 to
-# keep the whole run near 800 s with phase 20 (13b took 33.9 s at 50)
-CATCHUP_HEIGHTS = 25
+# keep the whole run near 800 s with phase 20 (13b took 33.9 s at 50), then
+# from 25 to 12 for the smoke's margin (13b took 15.5 s at 25).  Here and
+# below, "saved" is an estimate of the seconds a cut saves from the whole
+# run's 1,077.9 s on an NVIDIA H100 80GB HBM3 at 700 W and its host
+CATCHUP_HEIGHTS = 12
 AEAD_INPUTS = 1000        # 13c: seeded (key, nonce, aad, message) inputs
 AEAD_LENS = (0, 3, 1023, 1024, 1028)   # 13c: message lengths among them
 # phase 14
 LCA_COMMON = 50           # 14b(ii): the attack's common height
 LCA_CONFLICT = 60         # 14b(ii): its conflicting height
 LOAD_RATE = 400           # 14c: tx/s, round-robin over the nodes
-LOAD_SECONDS = 5.0        # 14c: the submission window (10 s until phase 20)
+LOAD_SECONDS = 3.0        # 14c: the submission window (10 s until phase 20,
+                          # 5 s until phase 21: ~2 s saved)
 LOAD_TX_BYTES = 1024      # 14c: CometBFT's QA tx size
-MEMPOOL_HEIGHTS = 30      # 14c: the heights the net commits at least (50
-                          # until phase 20)
-BSYNC_REJECT_HEIGHTS = 20  # 14d: the depth of each of its syncs
+MEMPOOL_HEIGHTS = 20      # 14c: the heights the net commits at least (50
+                          # until phase 20, 30 until phase 21: ~2 s saved)
+BSYNC_REJECT_HEIGHTS = 12  # 14d: the depth of each of its syncs (20 until
+                           # phase 21; 14d took 17.5 s at 20: ~5 s saved)
 BSYNC_BAD_HEIGHT = 10     # 14d: the bad server spoils block BSYNC_BAD_HEIGHT + 1
 # phase 15
 SS_CHAIN_ID = "statesync-chip"
@@ -467,13 +473,15 @@ SS_REJECT_DISCOVERY_NS = 5 * 10**8  # 15c: the peers are dialed beforehand
 SS_CHUNK_TIMEOUT_NS = 25 * 10**7    # 15c(ii): a short chunk_request_timeout_ns
 # phase 16: privval and the JSON-RPC over 15a's source and config 1
 PV_VALIDATORS = 4         # 16c: config 1
-PV_HEIGHTS = 10           # 16c: the heights of each net before the load (20
-                          # until phase 20)
+PV_HEIGHTS = 5            # 16c: the heights of each net before the load (20
+                          # until phase 20, 10 until phase 21: ~1.5 s saved)
 RPC_LOAD_RATE = 100       # 16d: tx/s over HTTP, round-robin over the nodes
-RPC_LOAD_SECONDS = 3.0    # 16d: the submission window
+RPC_LOAD_SECONDS = 2.0    # 16d: the submission window (3 s until phase 21:
+                          # ~1 s saved)
 RPC_TX_BYTES = 1024       # 16d: CometBFT's QA tx size
 RPC_COMMIT_TXS = 10       # 16d: txs sent by broadcast_tx_commit
-RPC_TX_HEIGHTS = 20       # 16d: the heights the net commits at least after 16c
+RPC_TX_HEIGHTS = 10       # 16d: the heights the net commits at least after 16c
+                          # (20 until phase 21: ~2.6 s saved at 263 ms a height)
 LS_VERSION = 100          # 17b: the tree version proven (header 101)
 LS_PRESENT = 256          # 17b: present keys a proven batch asks
 LS_ABSENT = 16            # 17b: absent keys beside them
@@ -483,15 +491,17 @@ LS_PIN_HEIGHTS = 10       # 17c: the commits that move the horizon past it
 LS_PROXY_HEIGHTS = (92, 100, 105)   # 17d: commit and block through the proxy
 REPAIR_HEIGHTS = 3        # 17e: the heights config 1 commits past C.1-C.2
 # phase 18: the rest of ABCI and the gRPC surface over out-of-process apps
-SOCKAPP_HEIGHTS = 25      # 18a: config 1's heights, each app in a process
-                          # (50 until phase 20)
-SOCKAPP_CS_HEIGHTS = 50   # 18b: 12a's heights replayed to a socket app
+SOCKAPP_HEIGHTS = 12      # 18a: config 1's heights, each app in a process
+                          # (50 until phase 20, 25 until phase 21: ~3.6 s
+                          # saved at 275 ms a height)
+SOCKAPP_CS_HEIGHTS = 25   # 18b: 12a's heights replayed to a socket app (50
+                          # until phase 21: ~5.6 s saved at 224 ms a height)
 ABCI_TIMEOUT_S = 20.0     # 18a-18b: apply_deadlines' default, the JAX node's
 ABCI_RETRIES = 2          # 18a-18b: its retries, the JAX node's
 LAG_INTERVAL_S = 0.25     # 18a: the loop-lag sampler's interval
 COMPANION_RETAIN = {      # 18c: retain heights, each below 18b's top
-    "app": 35, "block": 30, "results": 40, "tx_indexer": 20,
-    "block_indexer": 25}
+    "app": 18, "block": 15, "results": 20, "tx_indexer": 10,
+    "block_indexer": 12}
 REJECT_DEADLINE_S = 0.5   # 18d: the deadline an app sleeps past
 REJECT_FAULT_HEIGHT = 3   # 18d: the height whose FinalizeBlock raises
 # phase 19: the node and its entry points
@@ -499,10 +509,11 @@ NODE_CLI = [sys.executable, "-m", "cometbft_tpu_torch.cmd"]
 NODE_VALIDATORS = 4       # 19a: config 1, cmd testnet --v 4
 NODE_CLI_HEIGHTS = 30     # 19a: heights of the cmd start processes
 NODE_LOAD_RATE = 100      # 19a: cmd load, 16d's load: tx/s,
-NODE_LOAD_SECONDS = 3.0   # seconds
+NODE_LOAD_SECONDS = 1.0   # seconds (3 until phase 21: ~2 s saved)
 NODE_LOAD_SIZE = 1024     # and bytes a tx
-NODE_INPROC_HEIGHTS = 25  # 19b: heights of the four in-process Nodes (50
-                          # until phase 20)
+NODE_INPROC_HEIGHTS = 12  # 19b: heights of the four in-process Nodes (50
+                          # until phase 20, 25 until phase 21: ~5 s saved at
+                          # 396 ms a height)
 NODE_JOIN_TRUST = 10      # 19c: the joiner's trust height (19a's chain)
 NODE_JOIN_DISCOVERY_NS = 2_000_000_000   # 19c: its snapshot discovery
 MANIFEST_SEED = 793       # 19d: a generated net with a restart, a late
@@ -513,9 +524,13 @@ QA_VALIDATORS = 12        # 20a: the reference QA width (method.md):
 QA_FULL = 3               # 12 validators, 3 full nodes and 90 ghosts
 QA_GHOSTS = 90
 QA_RATES = (25, 50)       # two load windows (the JAX default: five
-QA_WINDOW_S = 10.0        # windows of 90 s)
+QA_WINDOW_S = 6.0         # windows of 90 s; 10 s until phase 21, two block
+                          # intervals and more at 6: ~8 s saved)
 QA_LS_CLIENTS = 1000      # 20b: run_lightserve's default
-QA_FUZZ_S = 5.0           # 20c: seconds a fuzz target
+QA_LS_REQUESTS = 3        # 20b: requests a client (the default 6 until phase
+                          # 21; with the write load now ending with the
+                          # hammer, 20b took 24.9 s against 53.1)
+QA_FUZZ_S = 2.0           # 20c: seconds a fuzz target (5 until phase 21: 9 s)
 QA_MESH_LANES = 10240     # 20d: the sharded batch
 QA_REPORT_LANES = 2048    # 20d: the report's reduced run
 QA_MESH_SPLIT = 4         # 20d: shards on the one card ...
@@ -607,8 +622,12 @@ def _same_prep(oe, items, m, what):
             raise AssertionError(f"C prep != plain prep ({name}) on {what}")
 
 
+_T_START = time.perf_counter()
+
+
 def _phase(name):
-    _log(f"== {name}")
+    """A phase's heading, with the seconds since the script started."""
+    _log(f"== {name} (at {time.perf_counter() - _T_START:.1f} s)")
 
 
 def _cuda_ms(fn, reps=5):
@@ -7460,7 +7479,7 @@ async def _rpc_tx(nodes, extra, start):
     from cometbft_tpu_torch.types.events import EventBus
     from cometbft_tpu_torch.rpc.client import HTTPClient
     from cometbft_tpu_torch.tools import loadtime
-    from cometbft_tpu_torch.types.tx import tx_hash
+    from cometbft_tpu_torch.types.tx import tx_hash, txs_proof
     urls, exp = extra["urls"], "chip-smoke-rpc"
     sent = []
     real_payload = loadtime.payload_bytes
@@ -7584,7 +7603,22 @@ async def _rpc_tx(nodes, extra, start):
     if rep.latency.count != len(want):
         raise AssertionError(f"16d: report counts {rep.latency.count}, "
                              f"{len(want)} committed")
+    # the largest block the net committed (its commit checked on B1): each
+    # tx's txs_proof against the header's data_hash
+    proof_h = max(per_block, key=lambda h: (per_block[h], h))
+    blk = nodes[0].block_store.load_block(proof_h)
+    for i, tx in enumerate(blk.data.txs):
+        root, proof = txs_proof(blk.data.txs, i)
+        if root != blk.header.data_hash:
+            raise AssertionError(f"16d: txs_proof's root at {proof_h} is not "
+                                 f"the header's data_hash")
+        proof.verify(root, tx_hash(tx))
+    widths = [len(nd.cs.sm_state.validators) for nd in nodes]
+    if widths != [PV_VALIDATORS] * len(nodes):
+        raise AssertionError(f"16d: len(state.validators) {widths}, the net "
+                             f"has {PV_VALIDATORS}")
     return {"load": res, "report": rep, "want": len(want), "calls": calls,
+            "proof": (proof_h, len(blk.data.txs), widths),
             "ws_txs": len(ws_txs), "ws_cut": (over[0], per_block[over[0]],
                                               cap) if over else None,
             "max_block": max(per_block.values()),
@@ -7689,6 +7723,11 @@ def _rpc_phases(seed, card, keep, device=None):
              f"its block's height (the largest block {extra['max_block']} "
              f"txs), block_search finds every height, the WebSocket saw "
              f"every height and {ws}, report's count is the txs committed")
+        proof_h, proof_n, widths = extra["proof"]
+        _log(f"rpc_tx_{PV_VALIDATORS}x{RPC_TX_HEIGHTS} txs_proof: block "
+             f"{proof_h}'s {proof_n} txs, each proof's root the header's "
+             f"data_hash and each proof verified; len(state.validators) "
+             f"{widths} on the nodes, the net's {PV_VALIDATORS}")
         _phase(f"16e rpc-reject (run before 16c, and after it for the "
                f"signer): a lying server's commit at {SS_TRUST + 5} (one "
                f"signature bit) under B1 and cuda8; a witness forking {top}; "
@@ -10143,12 +10182,14 @@ def _qa_lightserve(card, ek, root, device, loop):
     """20b qa-lightserve: run_lightserve's 1,000 simulated light clients
     against four in-process Nodes on the card.  Returns B1's launches."""
     from cometbft_tpu_torch.tools import qa
-    _phase(f"20b qa-lightserve: {QA_LS_CLIENTS} light clients over "
-           f"light_block / multiproof / commit on four Nodes")
+    _phase(f"20b qa-lightserve: {QA_LS_CLIENTS} light clients, "
+           f"{QA_LS_REQUESTS} requests each, over light_block / multiproof / "
+           f"commit on four Nodes under a tx load")
     ek.launches = 0
     t0 = time.perf_counter()
     rep = loop.run_until_complete(qa.run_lightserve(
-        os.path.join(root, "ls"), n_clients=QA_LS_CLIENTS, device=device))
+        os.path.join(root, "ls"), n_clients=QA_LS_CLIENTS,
+        requests_per_client=QA_LS_REQUESTS, device=device))
     took = time.perf_counter() - t0
     b1 = ek.launches
     if rep.request_errors or rep.proof_verify_errors or \
@@ -10653,17 +10694,25 @@ def main() -> int:
         # -- 1. build -------------------------------------------------------
         _phase("1 build")
         t0 = time.perf_counter()
-        _build.load()
-        _log(f"build_seconds {time.perf_counter() - t0:.3f} "
+        # the host libraries' g++ builds run beside nvcc's
+        with ThreadPoolExecutor(4) as builds:
+            hosts = [builds.submit(load) for load in (
+                _build.load_host, _build.load_bls, _build.load_ed25519_host,
+                _build.load_aead)]
+            _build.load()
+            nvcc_wall = time.perf_counter() - t0
+            host = hosts[0].result()
+            for f in hosts[1:]:
+                f.result()
+        _log(f"build_seconds {nvcc_wall:.3f} "
              f"(nvcc {_build.build_info['seconds']:.3f} s wall for "
              f"{', '.join(_build.SOURCES)}, compiled in parallel and "
              f"linked into one library, "
-             f"cached={_build.build_info['cached']})")
+             f"cached={_build.build_info['cached']}); every library built "
+             f"{time.perf_counter() - t0:.3f} s after the start")
         _log(_build.build_info["ptxas"].strip())
         report = _build.build_info["ptxas"]
-        t0 = time.perf_counter()
-        host = _build.load_host()
-        _log(f"host_build_seconds {time.perf_counter() - t0:.3f} (g++ "
+        _log(f"host_build_seconds beside nvcc (g++ "
              f"{_build.host_build_info['seconds']:.3f} s for "
              f"{_build.HOST_SOURCE}, {' '.join(_build.HOST_FLAGS)}, "
              f"cached={_build.host_build_info['cached']}); os.cpu_count "
@@ -10671,9 +10720,7 @@ def main() -> int:
              f"{bool(host.ed25519_prep_multibuffer())}; prep threads at "
              f"3,334 / 10,000 items: {host.ed25519_prep_threads(3334)} / "
              f"{host.ed25519_prep_threads(10000)}")
-        t0 = time.perf_counter()
-        _build.load_bls()
-        _log(f"bls_build_seconds {time.perf_counter() - t0:.3f} (g++ "
+        _log(f"bls_build_seconds beside nvcc (g++ "
              f"{_build.bls_build_info['seconds']:.3f} s for "
              f"{_build.BLS_SOURCE}, cached="
              f"{_build.bls_build_info['cached']}); self-test passed in "

@@ -15,6 +15,8 @@ Arithmetic uses Python big ints: slow, but exact.
 from __future__ import annotations
 
 import hashlib
+import secrets
+from typing import Sequence
 
 P = 2**255 - 19
 L = 2**252 + 27742317777372353535851937790883648493
@@ -119,6 +121,7 @@ def scalar_mult(k: int, pt) -> tuple[int, int]:
 
 
 B = scalar_mult(1, (_recover_x(_BY, 0), _BY))  # base point affine
+IDENT = (0, 1)
 
 
 def is_identity_cofactored(pt) -> bool:
@@ -185,3 +188,52 @@ def verify(pub: bytes, msg: bytes, sig: bytes) -> bool:
     neg = lambda p: ((P - p[0]) % P, p[1])  # noqa: E731
     chk = point_add(sB, point_add(neg(R), neg(kA)))
     return is_identity_cofactored(chk)
+
+
+def batch_verify(
+    items: Sequence[tuple[bytes, bytes, bytes]],
+    rand_fn=None,
+) -> tuple[bool, list[bool]]:
+    """Batch verification with 128-bit randomizers.
+
+    Checks [8](-(sum z_i s_i mod L)·B + sum z_i·R_i + sum (z_i k_i mod L)·A_i)
+    == 0.  On failure, verifies each signature to produce the mask
+    (reference: crypto/ed25519/ed25519.go:220, voi's batch verifier).
+    """
+    if rand_fn is None:
+        rand_fn = lambda: secrets.randbits(128) | 1  # noqa: E731
+    n = len(items)
+    if n == 0:
+        return True, []
+    decoded = []
+    ok_shape = True
+    for pub, msg, sig in items:
+        if len(sig) != 64 or len(pub) != 32:
+            ok_shape = False
+            break
+        s = int.from_bytes(sig[32:], "little")
+        if s >= L:
+            ok_shape = False
+            break
+        A = decompress(pub)
+        R = decompress(sig[:32])
+        if A is None or R is None:
+            ok_shape = False
+            break
+        k = sha512_mod_l(sig[:32], pub, msg)
+        decoded.append((A, R, s, k))
+    if ok_shape:
+        s_acc = 0
+        pts = []  # (scalar, point) terms
+        for A, R, s, k in decoded:
+            z = rand_fn()
+            s_acc = (s_acc + z * s) % L
+            pts.append((z, R))
+            pts.append((z * k % L, A))
+        acc = _ext(scalar_mult((L - s_acc) % L, B))
+        for z, pt in pts:
+            acc = _ext_add(acc, _ext(scalar_mult(z, pt)))
+        if is_identity_cofactored(_unext(acc)):
+            return True, [True] * n
+    per = [verify(pub, msg, sig) for pub, msg, sig in items]
+    return all(per), per

@@ -30,6 +30,10 @@ from ..libs import metrics as libmetrics
 from ..libs import tracing
 from ..ops import ed25519 as ops_ed25519
 
+# The kernel's base pad buckets: the lane counts a tile is padded to
+# (ops/ed25519._BASE_BUCKETS; the latency histogram's label values).
+PAD_BUCKETS = ops_ed25519._BASE_BUCKETS
+
 _VERIFY_HIST = libmetrics.DEFAULT.histogram(
     "crypto", "batch_verify_seconds",
     "Batch signature verification latency in seconds, by "
@@ -44,9 +48,14 @@ def verify_seconds_histogram() -> libmetrics.Histogram:
     return _VERIFY_HIST
 
 
+def pad_bucket(n: int) -> int:
+    """The padded lane count a batch of n signatures dispatches at: the
+    live ladder of ops/ed25519, refined buckets included."""
+    return ops_ed25519._bucket(n)
+
+
 def _observe_verify(backend: str, n: int, elapsed_s: float) -> None:
-    _VERIFY_HIST.with_labels(
-        backend, str(ops_ed25519._bucket(n))).observe(elapsed_s)
+    _VERIFY_HIST.with_labels(backend, str(pad_bucket(n))).observe(elapsed_s)
 
 
 def supports_batch_verifier(pub_key: PubKey) -> bool:

@@ -48,6 +48,8 @@ PUB_KEY_SIZE = 96           # uncompressed G1
 SIGNATURE_SIZE = 96         # compressed G2
 DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_NUL_"
 
+ENABLED = True              # the build flag of the reference's key type
+
 _G1_GEN_RAW = G1_GEN[0].to_bytes(48, "big") + G1_GEN[1].to_bytes(48, "big")
 _NEG_G1_GEN_RAW = G1_GEN[0].to_bytes(48, "big") + \
     (P - G1_GEN[1]).to_bytes(48, "big")
@@ -190,6 +192,14 @@ class Bls12381PubKey(PubKey):
     def raw_point(self) -> bytes:
         """The key's raw G1 point (b"" = infinity)."""
         return self._pt
+
+    def point(self):
+        """The key's G1 point as crypto/_bls12381_math holds it: affine
+        (x, y) integers, None = infinity."""
+        if not self._pt:
+            return None
+        return (int.from_bytes(self._pt[:48], "big"),
+                int.from_bytes(self._pt[48:], "big"))
 
     def verify_signature(self, msg: bytes, sig: bytes) -> bool:
         """e(pk, H(m)) == e(G1, sig); signature is group-checked but may be

@@ -13,6 +13,10 @@ from typing import Sequence
 from . import tmhash
 from .pipeline import run_off_loop
 
+# 20-byte address (truncated SHA-256 of the raw pubkey bytes);
+# reference: crypto/crypto.go AddressHash.
+ADDRESS_SIZE = tmhash.TRUNCATED_SIZE
+
 
 def address_hash(b: bytes) -> bytes:
     """20-byte address: truncated SHA-256 of the raw pubkey bytes

@@ -20,6 +20,7 @@ from .keys import PrivKey, PubKey
 from .secp256k1 import _N, _low_s, _rs
 
 KEY_TYPE = "secp256k1eth"
+ENABLED = True             # the build flag of the reference's key type
 PRIV_KEY_SIZE = 32
 PUB_KEY_SIZE = 65          # uncompressed: 0x04 || X || Y
 SIG_SIZE = 64

@@ -60,6 +60,9 @@ class Batch:
         self._db._apply_batch(self._ops, sync=True)
         self._written = True
 
+    def close(self) -> None:
+        """Drop the batch's pending operations (reference: Batch.Close)."""
+        self._ops = []
 
 
 class DB(abc.ABC):
@@ -77,6 +80,9 @@ class DB(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, key: bytes) -> None: ...
+
+    def delete_sync(self, key: bytes) -> None:
+        self.delete(key)
 
     @abc.abstractmethod
     def iterator(self, start: Optional[bytes] = None,
@@ -98,6 +104,10 @@ class DB(abc.ABC):
 
     def close(self) -> None:
         pass
+
+    def compact(self, start: Optional[bytes] = None,
+                end: Optional[bytes] = None) -> None:
+        """Reclaim space in [start, end); a no-op but on SQLite."""
 
 
 class MemDB(DB):
@@ -250,6 +260,11 @@ class SQLiteDB(DB):
     def close(self) -> None:
         with self._lock:
             self._conn.close()
+
+    def compact(self, start=None, end=None) -> None:
+        with self._lock:
+            self._conn.execute("PRAGMA incremental_vacuum")
+            self._conn.commit()
 
 
 class PrefixDB(DB):

@@ -61,6 +61,13 @@ class BitArray:
         ba._elems = self._elems | other._elems
         return ba
 
+    def and_(self, other: "BitArray") -> "BitArray":
+        """Intersection; result size is the smaller (reference: And)."""
+        ba = BitArray(min(self.bits, other.bits))
+        mask = (1 << ba.bits) - 1
+        ba._elems = self._elems & other._elems & mask
+        return ba
+
     def not_(self) -> "BitArray":
         ba = BitArray(self.bits)
         ba._elems = ~self._elems & ((1 << self.bits) - 1)
@@ -75,6 +82,9 @@ class BitArray:
 
     def is_empty(self) -> bool:
         return self._elems == 0
+
+    def is_full(self) -> bool:
+        return self.bits > 0 and self._elems == (1 << self.bits) - 1
 
     def true_indices(self) -> list[int]:
         # one to_bytes + per-byte table walk: the bit-shift and

@@ -22,6 +22,10 @@ class Logger:
         self._logger = logger
         self._ctx = ctx or {}
 
+    def with_(self, **kv: Any) -> "Logger":
+        """A logger with ``kv`` bound to every line (reference: With)."""
+        return Logger(self._logger, {**self._ctx, **kv})
+
     def _log(self, level: int, msg: str, kv: dict[str, Any]) -> None:
         if not self._logger.isEnabledFor(level):
             return
@@ -84,6 +88,12 @@ def nop_logger() -> Logger:
         lg.setLevel(logging.CRITICAL + 1)
         lg.propagate = False
     return Logger(lg)
+
+
+def set_module_level(module: str, level: str) -> None:
+    """Per-module level filter (reference: libs/log/filter.go)."""
+    logging.getLogger(f"{_ROOT}.{module}").setLevel(
+        getattr(logging, level.upper()))
 
 
 def set_level(level: str) -> None:

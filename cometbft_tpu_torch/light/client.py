@@ -151,6 +151,10 @@ class Client:
         return await self._verify_at(height, now,
                                      cache=SignatureCache())
 
+    def trusted_light_block(self, height: int) -> Optional[LightBlock]:
+        """The stored light block at ``height``, or None."""
+        return self.store.light_block(height)
+
     # ------------------------------------------------------------------
     def _closest_below(self, height: int) -> LightBlock:
         best = None

@@ -489,6 +489,10 @@ class CListMempool(Mempool):
             n = len(order)
         return [e.tx for e in order[:n]]
 
+    def iter_entries(self) -> list[MempoolTx]:
+        """Gossip order: the IWRR order the reaper uses."""
+        return self._iwrr_order()
+
     # ------------------------------------------------------------------
     async def update(self, height: int, txs: Sequence[bytes],
                      tx_results: Sequence[abci.ExecTxResult],

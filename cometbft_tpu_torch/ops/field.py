@@ -22,12 +22,19 @@ products in int64; the bound is pinned by tests/test_torch_field.py):
     doubled odd limbs stay below 2^31, and the carry of anything below
     2^62 lands back inside RESTING (carry_bound) — so the discipline is
     closed.
+
+The JAX field's helpers (``constant``, ``carry_fold``, ``normalize``,
+``add``, ``sub``, ``neg``, ``mul_const``, ``bytes_to_limbs``,
+``canonical_bytes``) are here too, on this layout: they keep the value
+mod p, not the JAX limbs, and the kernel does not use them.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+
+from ..device import resolve
 
 P = 2**255 - 19
 LIMBS = 10
@@ -50,6 +57,12 @@ def from_limbs(limbs) -> int:
     """Limbs (any redundancy; list or [10] tensor) -> int mod p."""
     vals = limbs.tolist() if isinstance(limbs, torch.Tensor) else limbs
     return sum(int(v) << OFFSETS[i] for i, v in enumerate(vals)) % P
+
+
+def constant(x: int, device=None) -> torch.Tensor:
+    """The canonical limbs of x mod p as a ``[10]`` int64 tensor."""
+    return torch.tensor(to_limbs(x), dtype=torch.int64,
+                        device=resolve(device))
 
 
 def _carry_ints(h: list[int]) -> list[int]:
@@ -155,6 +168,41 @@ def carry(h: torch.Tensor) -> torch.Tensor:
     return torch.stack(c, -1)
 
 
+def carry_fold(x: torch.Tensor) -> torch.Tensor:
+    """One parallel floor-carry pass: each limb keeps its low bits and
+    passes the rest to the next; the carry out of limb 9 folds into
+    limb 0 at weight 19.  The value mod p is kept; magnitudes shrink by
+    a limb's width a pass.  Negative limbs floor (arithmetic shift)."""
+    c = [x[..., i] >> SIZES[i] for i in range(LIMBS)]
+    lo = [x[..., i] & ((1 << SIZES[i]) - 1) for i in range(LIMBS)]
+    return torch.stack([lo[0] + FOLD * c[LIMBS - 1]] +
+                       [lo[i] + c[i - 1] for i in range(1, LIMBS)], -1)
+
+
+def normalize(x: torch.Tensor, passes: int = 4) -> torch.Tensor:
+    for _ in range(passes):
+        x = carry_fold(x)
+    return x
+
+
+def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return x + y
+
+
+def sub(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return x - y
+
+
+def neg(x: torch.Tensor) -> torch.Tensor:
+    return -x
+
+
+def mul_const(x: torch.Tensor, c: int) -> torch.Tensor:
+    """Multiply a RESTING x by a small nonnegative int (< 2^15); output
+    RESTING."""
+    return carry(x * c)
+
+
 def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """f * g mod p for LAZY operands; output RESTING.  The kernel sums
     the products below and above 2^255 separately and folds the upper
@@ -251,3 +299,30 @@ def from_bytes(b: torch.Tensor) -> torch.Tensor:
                 w = w + (b[..., b0 + k] << (8 * k - sh))
         out.append(w & ((1 << t) - 1))
     return torch.stack(out, -1)
+
+
+def bytes_to_limbs(b: torch.Tensor) -> torch.Tensor:
+    """[..., 32] byte values -> [..., 10] limbs of all 256 bits, with no
+    reduction: bit 255 rides on top of limb 9, and values >= p stay as
+    they are in the redundant representation."""
+    top = (b[..., 31].to(torch.int64) >> 7) << SIZES[LIMBS - 1]
+    out = from_bytes(b.to(torch.int64))
+    return torch.cat([out[..., :LIMBS - 1],
+                      (out[..., LIMBS - 1] + top).unsqueeze(-1)], -1)
+
+
+def canonical_bytes(x: torch.Tensor) -> torch.Tensor:
+    """[..., 32] uint8 canonical little-endian encoding of a LAZY x."""
+    c = canonical(x)
+    out = []
+    for k in range(32):
+        lo = 8 * k
+        v = torch.zeros_like(c[..., 0])
+        for i in range(LIMBS):
+            s, e = OFFSETS[i], OFFSETS[i + 1]
+            if e <= lo or s >= lo + 8:
+                continue
+            v = v | (c[..., i] << (s - lo) if s >= lo
+                     else c[..., i] >> (lo - s))
+        out.append(v & 0xFF)
+    return torch.stack(out, -1).to(torch.uint8)

@@ -30,7 +30,7 @@ from ..crypto import encoding as crypto_encoding, merkle
 from ..device import resolve
 from ..libs import fail
 from ..libs.log import Logger, new_logger
-from ..types.block import Block
+from ..types.block import MAX_HEADER_BYTES, MAX_OVERHEAD_FOR_BLOCK, Block
 from ..types.block_id import BlockID
 from ..types.commit import AggregateCommit, Commit, ExtendedCommit
 from ..types.evidence import (
@@ -49,10 +49,6 @@ from .state import State, StateVersion
 from .store import Store
 from .validation import BlockValidationError, validate_block
 
-# Max overhead for the block envelope beyond header/data/evidence/commit
-# (reference: types/block.go MaxDataBytes accounting)
-_MAX_HEADER_BYTES = 626
-_MAX_OVERHEAD_FOR_BLOCK = 11
 _MAX_COMMIT_SIG_BYTES = 109 + 2  # CommitSig proto + repeated overhead
 
 
@@ -67,7 +63,7 @@ class InvalidBlockError(ExecutionError):
 def max_data_bytes(max_bytes: int, ev_size: int, n_vals: int) -> int:
     """Reference: types/block.go MaxDataBytes (panics when negative)."""
     commit_bytes = 4 + 10 + 76 + n_vals * _MAX_COMMIT_SIG_BYTES
-    cap_ = (max_bytes - _MAX_OVERHEAD_FOR_BLOCK - _MAX_HEADER_BYTES -
+    cap_ = (max_bytes - MAX_OVERHEAD_FOR_BLOCK - MAX_HEADER_BYTES -
             commit_bytes - ev_size)
     if cap_ < 0:
         raise ExecutionError(

@@ -125,22 +125,24 @@ async def generate(endpoints: list[str], *, rate: int = 100,
         # stagger workers across the pacing interval
         await asyncio.sleep(per_worker_interval * widx / n_workers)
         next_at = time.monotonic()
-        while time.monotonic() < deadline:
-            if len(tasks) >= cap:
-                res.dropped += 1
-            else:
-                res.sent += 1
-                t = asyncio.create_task(send_one(cli))
-                tasks.add(t)
-                t.add_done_callback(tasks.discard)
-            next_at += per_worker_interval
-            delay = next_at - time.monotonic()
-            if delay > 0:
-                await asyncio.sleep(delay)
-        if tasks:
-            await asyncio.wait(set(tasks), timeout=timeout + 2.0)
-        for t in list(tasks):
-            t.cancel()
+        try:
+            while time.monotonic() < deadline:
+                if len(tasks) >= cap:
+                    res.dropped += 1
+                else:
+                    res.sent += 1
+                    t = asyncio.create_task(send_one(cli))
+                    tasks.add(t)
+                    t.add_done_callback(tasks.discard)
+                next_at += per_worker_interval
+                delay = next_at - time.monotonic()
+                if delay > 0:
+                    await asyncio.sleep(delay)
+            if tasks:
+                await asyncio.wait(set(tasks), timeout=timeout + 2.0)
+        finally:        # a cancelled run leaves no send behind
+            for t in list(tasks):
+                t.cancel()
 
     await asyncio.gather(*(worker(ep, i)
                            for i, ep in enumerate(

@@ -1626,7 +1626,8 @@ async def run_lightserve(outdir: str, n_clients: int = 1000,
     verified against the light block's header data_hash, closing the
     proof loop client-side.  max_in_flight bounds concurrently open
     requests (1000 truly simultaneous sockets on one host would
-    measure the OS, not the cache).  Every node verifies on ``device``
+    measure the OS, not the cache).  A write load of 5 tx/s runs from
+    the hammer's start to its end.  Every node verifies on ``device``
     (None: the card); a node's failure raises out of the run."""
     import base64 as _b64
     import hashlib as _hashlib
@@ -1680,7 +1681,8 @@ async def run_lightserve(outdir: str, n_clients: int = 1000,
         h_start = ref.height
 
         # --- background tx load for the whole hammer window so the
-        # SLO measures consensus UNDER the read traffic
+        # SLO measures consensus UNDER the read traffic; cancelled
+        # when the hammer ends, so its 35 s only bound a slow hammer
         bg_load = asyncio.get_running_loop().create_task(
             loadtime.generate(endpoints, rate=5, connections=1,
                               duration_s=35.0, size=128,
@@ -1773,8 +1775,11 @@ async def run_lightserve(outdir: str, n_clients: int = 1000,
                                for i in range(n_clients)))
         report.hammer_duration_s = time.monotonic() - t_hammer0
         h_end = ref.height          # the window consensus shared
-        try:                        # with the read hammer
+        bg_load.cancel()            # with the read hammer
+        try:
             await bg_load
+        except asyncio.CancelledError:
+            pass
         except Exception as e:
             report.notes.append(f"bg-load: {e!r:.100}")
         for n in nodes.values():

@@ -25,6 +25,9 @@ from .tx import txs_hash
 from .validator_set import ValidatorSet
 
 MAX_CHAIN_ID_LEN = 50
+# MaxHeaderBytes / MaxOverheadForBlock (reference: types/block.go)
+MAX_HEADER_BYTES = 626
+MAX_OVERHEAD_FOR_BLOCK = 11
 
 
 class BlockError(Exception):

@@ -51,3 +51,6 @@ class BlockID:
         if self.is_nil():
             return "nil-BlockID"
         return f"{self.hash.hex().upper()[:12]}:{self.part_set_header}"
+
+
+NIL_BLOCK_ID = BlockID()

@@ -83,3 +83,6 @@ class Timestamp(NamedTuple):
             s = head + rest[i:]
         dt = datetime.fromisoformat(s)
         return cls(int(dt.timestamp()), frac_ns)
+
+
+ZERO = Timestamp.zero()

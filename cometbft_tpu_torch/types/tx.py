@@ -1,8 +1,8 @@
 """Transactions and their merkle hashing.
 
 Reference: types/tx.go — Tx.Hash = sha256(tx), Txs.Hash = the merkle
-root over the per-tx hashes — through cometbft_tpu/types/tx.py.  The
-plain hashlib loop only.
+root over the per-tx hashes, Txs.Proof — through
+cometbft_tpu/types/tx.py.  The plain hashlib loop only.
 """
 from __future__ import annotations
 
@@ -28,6 +28,12 @@ def hash_each(txs: Sequence[bytes]) -> list[bytes]:
 
 def txs_hash(txs: Sequence[bytes]) -> bytes:
     return merkle.hash_from_byte_slices(hash_each(txs))
+
+
+def txs_proof(txs: Sequence[bytes], index: int):
+    """(root, proof) of the tx at index (reference: Txs.Proof)."""
+    root, proofs = merkle.proofs_from_byte_slices(hash_each(txs))
+    return root, proofs[index]
 
 
 def compute_proto_size_overhead(n: int) -> int:

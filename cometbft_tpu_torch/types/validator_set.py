@@ -57,6 +57,11 @@ class ValidatorSet:
     def is_nil_or_empty(self) -> bool:
         return len(self.validators) == 0
 
+    def __len__(self) -> int:
+        # an empty set is falsy, as in the JAX package: State.copy()
+        # turns an empty set into None
+        return len(self.validators)
+
     def size(self) -> int:
         return len(self.validators)
 
@@ -366,3 +371,12 @@ class ValidatorSet:
         if vs.validators:
             vs._update_total_voting_power()
         return vs
+
+    def __iter__(self):
+        return iter(self.validators)
+
+    def __str__(self) -> str:
+        prop = self.proposer.address.hex().upper()[:12] \
+            if self.proposer else "nil"
+        return (f"ValidatorSet{{P:{prop} N:{len(self.validators)} "
+                f"TVP:{self.total_voting_power()}}}")

@@ -8,6 +8,7 @@ part of State.bytes()) and the ABCI semver the kvstore app reports.
 
 CMT_SEM_VER = "1.0.0-tpu"
 ABCI_SEM_VER = "2.2.0"
+ABCI_VERSION = ABCI_SEM_VER
 
 # uint64 protocol versions
 P2P_PROTOCOL = 9

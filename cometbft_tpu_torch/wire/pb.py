@@ -1,7 +1,7 @@
 """Message descriptors for votes and proposals and their canonical
 forms, commits (per-signature, aggregate and extended), validator sets,
 headers, signed headers, light blocks, evidence, blocks and their data,
-parts and metas, and consensus params.
+parts and metas, tx proofs, the app version, and consensus params.
 
 The port's trimmed copy of cometbft_tpu/wire/pb.py (which mirrors the
 reference's proto/cometbft/**/*.proto).  Field numbers, kinds and
@@ -30,6 +30,12 @@ CONSENSUS_VERSION = Msg(
     "cometbft.version.v1.Consensus",
     F(1, "block", "uint64"),
     F(2, "app", "uint64"),
+)
+
+APP_VERSION = Msg(
+    "cometbft.version.v1.App",
+    F(1, "protocol", "uint64"),
+    F(2, "software", "string"),
 )
 
 PUBLIC_KEY = Msg(
@@ -299,6 +305,13 @@ BLOCK_META = Msg(
     F(2, "block_size", "int64"),
     F(3, "header", "msg", msg=HEADER, always=True),
     F(4, "num_txs", "int64"),
+)
+
+TX_PROOF = Msg(
+    "cometbft.types.v2.TxProof",
+    F(1, "root_hash", "bytes"),
+    F(2, "data", "bytes"),
+    F(3, "proof", "msg", msg=PROOF),
 )
 
 # consensus params (params.proto)

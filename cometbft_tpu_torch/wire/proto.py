@@ -77,6 +77,9 @@ class Msg:
             raise ValueError(f"{name}: duplicate field numbers")
         object.__setattr__(self, "_by_num", by_num)
 
+    def empty(self) -> dict:
+        return {}
+
 
 def encode_uvarint(u: int) -> bytes:
     if u < 0:

@@ -21,7 +21,11 @@
     sink, armor, protoio, service, health and pprof; the node, the CLI,
     confix, the manifest runner and the fuzzed connection; the QA tool,
     the fuzzer, the fleet analysis, the mesh split and tally and the
-    sharding report) loads neither jax nor anything of cometbft_tpu; the
+    sharding report; the modules that took the JAX package's last public
+    names: the package root and version, the golden model, the batch
+    seam, the key types, the stores, bits, the logger, the light client,
+    the mempool, the field, the executor, the block types, tx proofs and
+    the wire descriptors) loads neither jax nor anything of cometbft_tpu; the
     testnet tools and the mesh load no psutil and nothing of the
     repository's root ``tools/`` either, and ``make_mesh()`` raises
     without CUDA;
@@ -107,6 +111,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert set(NODE_MODULES) <= set(mods)
     assert set(TESTNET_MODULES) <= set(mods)
     assert "cometbft_tpu_torch.tools.benchmarks" in mods
+    assert set(API_MODULES) <= set(mods)
     assert len(mods) >= 20
     code = (
         "import importlib, sys\n"
@@ -120,6 +125,31 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+# the modules that took the JAX package's last public names (the guard:
+# tests/test_torch_api_parity.py)
+API_MODULES = ("cometbft_tpu_torch.version",
+               "cometbft_tpu_torch.crypto._ed25519_ref",
+               "cometbft_tpu_torch.crypto.batch",
+               "cometbft_tpu_torch.crypto.bls12381",
+               "cometbft_tpu_torch.crypto.keys",
+               "cometbft_tpu_torch.crypto.secp256k1eth",
+               "cometbft_tpu_torch.db.db",
+               "cometbft_tpu_torch.libs.bits",
+               "cometbft_tpu_torch.libs.log",
+               "cometbft_tpu_torch.light.client",
+               "cometbft_tpu_torch.mempool.mempool",
+               "cometbft_tpu_torch.ops.field",
+               "cometbft_tpu_torch.state.execution",
+               "cometbft_tpu_torch.types.block",
+               "cometbft_tpu_torch.types.block_id",
+               "cometbft_tpu_torch.types.timestamp",
+               "cometbft_tpu_torch.types.tx",
+               "cometbft_tpu_torch.types.validator_set",
+               "cometbft_tpu_torch.wire.pb",
+               "cometbft_tpu_torch.wire.proto",
+               "cometbft_tpu_torch.tools.qa")
 
 
 P2P_MODULES = ("cometbft_tpu_torch.p2p",

@@ -291,6 +291,22 @@ def test_verify_at_height_between_stored_blocks_and_update(chain, launches):
         pair.same()
 
 
+def test_trusted_light_block_is_the_references(chain, launches):
+    """``Client.trusted_light_block``: the stored block at each height,
+    None where the sync stored none, as in the JAX client."""
+    pair = Pair(chain, 1)
+    pair.run("initialize")
+    pair.run("verify_to_height", 30)
+    stored = set(pair.r.store.heights())
+    assert len(stored) > 2
+    for h in range(0, TOP + 2):
+        got = pair.p.trusted_light_block(h)
+        want = pair.r.trusted_light_block(h)
+        assert (got is None) == (want is None) == (h not in stored)
+        if got is not None:
+            assert got.to_proto() == want.to_proto()
+
+
 def test_lunatic_witness_matches_reference(chain, launches):
     h = 14
     hdr = chain.headers[h]

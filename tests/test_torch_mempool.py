@@ -457,6 +457,28 @@ def test_both_pools_agree_on_seeded_txs():
         " ".join(port_out[0])
 
 
+def test_iter_entries_is_the_reapers_order_as_in_the_reference():
+    """``CListMempool.iter_entries``: the gossip order is the IWRR order
+    the reaper uses, the same entries in both packages, over txs on
+    several lanes."""
+    txs = _seeded_txs(30, 13)
+
+    async def go(pk):
+        mp, _ = _mk_mempool(pk)
+        for tx in txs:
+            try:
+                await mp.check_tx(tx)
+            except pk.MempoolError:
+                pass
+        entries = mp.iter_entries()
+        assert [e.tx for e in entries] == mp.reap_max_txs(-1)
+        return [(e.tx, e.lane) for e in entries]
+
+    port, jax_ = run(go(PKGS["port"])), run(go(PKGS["jax"]))
+    assert port == jax_
+    assert len({lane for _, lane in port}) >= 2
+
+
 # -- tests/test_recon_gossip.py: the cases that touch the ported modules ------
 
 class _StubPeer:

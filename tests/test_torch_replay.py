@@ -11,7 +11,9 @@ built through the block executor instead of a ConsensusState:
   * the app one block behind the stores (state saved at N - 1): the last
     block goes through a fresh executor, the state comes out equal;
   * ``exec_commit_block`` gives the app hash the stored block's successor
-    carries.
+    carries;
+  * a genesis without validators (C.11): the state's copy, and the
+    store's rows after a handshake whose InitChain sets the validators.
 
 Both sides run the same steps on the same seeded keys and are compared
 exactly: app hashes, block counts, error texts.  The port runs
@@ -26,17 +28,21 @@ from cometbft_tpu.abci.client import AppConns as RAppConns
 from cometbft_tpu.abci.kvstore import KVStoreApplication as RKVStore
 from cometbft_tpu.consensus import replay as r_replay
 from cometbft_tpu.crypto import batch as r_batch
+from cometbft_tpu.crypto.ed25519 import Ed25519PrivKey as REd25519PrivKey
 from cometbft_tpu.db import MemDB as RMemDB
 from cometbft_tpu.libs.log import new_logger as r_new_logger
 from cometbft_tpu.state import make_genesis_state as r_make_genesis_state
 from cometbft_tpu.state.execution import BlockExecutor as RBlockExecutor
 from cometbft_tpu.state.store import Store as RStore
 from cometbft_tpu.store import BlockStore as RBlockStore
+from cometbft_tpu.types.genesis import GenesisDoc as RGenesisDoc
+from cometbft_tpu.types.timestamp import Timestamp as RTimestamp
 from cometbft_tpu_torch.abci import types as abci
 from cometbft_tpu_torch.abci.client import AppConns
 from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
 from cometbft_tpu_torch.consensus import replay
 from cometbft_tpu_torch.crypto import pipeline
+from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey
 from cometbft_tpu_torch.db import MemDB
 from cometbft_tpu_torch.libs.log import new_logger
 from cometbft_tpu_torch.ops import ed25519 as oe
@@ -44,6 +50,8 @@ from cometbft_tpu_torch.state import make_genesis_state
 from cometbft_tpu_torch.state.execution import BlockExecutor
 from cometbft_tpu_torch.state.store import Store
 from cometbft_tpu_torch.store import BlockStore
+from cometbft_tpu_torch.types.genesis import GenesisDoc
+from cometbft_tpu_torch.types.timestamp import Timestamp
 from torch_chain import RChain, accept_all, cs, port_chain, seeds
 from torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
@@ -212,4 +220,69 @@ def test_exec_commit_block_gives_the_next_headers_app_hash(chains):
                 chain.block_store.load_block(h + 1).header.app_hash
             hashes.append(app_hash)
         out.append(hashes)
+    assert out[0] == out[1]
+
+
+# --- C.11: a genesis without validators, the app sets them in InitChain ----
+
+def _empty_genesis(pkg):
+    """The JAX package's or the port's modules, and a genesis doc with no
+    validators."""
+    if pkg == "port":
+        side = dict(PORT, key=Ed25519PrivKey, abci=abci)
+        doc = GenesisDoc(chain_id=CHAIN_ID,
+                         genesis_time=Timestamp(cs.EXEC_T0, 0))
+    else:
+        side = dict(REF, key=REd25519PrivKey, abci=r_abci)
+        doc = RGenesisDoc(chain_id=CHAIN_ID,
+                          genesis_time=RTimestamp(cs.EXEC_T0, 0))
+    return side, doc
+
+
+def test_copy_of_a_genesis_state_without_validators_matches_the_reference():
+    """C.11: the JAX package's empty ValidatorSet is falsy (``__len__``),
+    so ``State.copy()`` turns the empty sets of a genesis without
+    validators into None; the port's sets were always truthy and its
+    copy kept them, two empty fields more on the wire."""
+    out = []
+    for pkg in ("port", "ref"):
+        side, doc = _empty_genesis(pkg)
+        state = side["genesis"](doc)
+        cp = state.copy()
+        out.append((cp.bytes(), cp.validators is None,
+                    cp.next_validators is None, cp.last_validators is None,
+                    state.bytes()))
+    assert out[0] == out[1]
+    assert out[0][1:4] == (True, True, True)
+
+
+def test_handshake_that_sets_the_validators_stores_the_reference_rows():
+    """InitChain returns the validators a genesis without any lacks: the
+    state store's rows after the handshake, and the state loaded back
+    and its copy, are the JAX package's."""
+    key_seeds = seeds(3, 211)
+    out = []
+    for pkg in ("port", "ref"):
+        side, doc = _empty_genesis(pkg)
+        updates = [side["key"](s).pub_key() for s in key_seeds]
+
+        class InitValidators(side["kv"]):
+            async def init_chain(self, req):
+                res = await super().init_chain(req)
+                res.validators = [side["abci"].ValidatorUpdate(
+                    power=10, pub_key_type=pk.type(),
+                    pub_key_bytes=pk.bytes()) for pk in updates]
+                return res
+
+        state = side["genesis"](doc)
+        ss = side["store"](side["mem"]())
+        ss.save(state)
+        conns = side["conns"](InitValidators(db=side["mem"]()))
+        asyncio.run(side["hs"](ss, state, side["bstore"](side["mem"]()),
+                               doc).handshake(conns))
+        loaded = ss.load()
+        assert len(loaded.validators.validators) == 3
+        out.append((list(ss._db.iterator()), loaded.bytes(),
+                    loaded.copy().bytes(),
+                    loaded.copy().last_validators is None))
     assert out[0] == out[1]
