@@ -247,6 +247,20 @@ kernel_execute spans in the data dir, and /debug/pprof/trace?dump=1
 writing another; and 2,100 peer ids through that node's peer-labelled
 metric families, each held at 2,048 series and one overflow series, on
 /metrics and /metrics?exemplars=1.
+Phases 22a-22b drive the port's fault paths on the card: two scenarios
+of the nemesis (tests/torch_nemesis.py, each Scenario as the JAX
+package's tests/test_nemesis.py writes it) with four in-process
+validators verifying on B1, `faulty-links` (seed 23: every link drops,
+delays, reorders and duplicates frames) and `pipelined-commit` (seed 17:
+file WALs, a hard crash that aborts an in-flight apply, a restart through
+the handshake and catch-up replay), each with no conflicting commit, its
+recovery bound met and B1 launched; then every stored commit of every
+node verified again through verify_commit on the card, and one height's
+batch with a corrupted lane held to B1's plain version, masks equal; and
+the fail-point crash sweep: tests/torch_crash_driver.py node processes on
+the card crashing (exit 99) at commit-path boundaries 0, 2, 5 and 6 of
+height 2 and restarting to their target (exit 0), and a node restarting
+on a torn WAL tail, which leaves a .corrupted copy and commits on.
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -10645,6 +10659,230 @@ def _bench_phases(seed, card, device=None):
             "flight_giveup": flight_b1}
 
 
+# -- 22. the fault paths ------------------------------------------------------
+TESTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+# commit-path boundaries the 22b sweep crashes at, in height 2 (fail point
+# indices count from the process start, 7 a height)
+FAIL_POINTS_A_HEIGHT = 7
+CRASH_BOUNDARIES = (0, 2, 5, 6)
+CRASH_TARGET = 5
+CRASH_TIMEOUT_S = 120
+
+
+def _fault_scenarios(Scenario):
+    """22a's two scenarios, written as tests/test_nemesis.py writes them
+    (tests/test_torch_nemesis.py holds the literals to the JAX ones)."""
+    return (
+        Scenario(
+            name="faulty-links",
+            seed=23,
+            fuzz=dict(prob_reorder=0.05, prob_duplicate=0.05,
+                      prob_drop_write=0.02, prob_delay=0.05,
+                      max_delay_s=0.02),
+            steps=(
+                ("wait_blocks", 4),
+            ),
+            recovery_blocks=2),
+        Scenario(
+            name="pipelined-commit",
+            seed=17,
+            use_wal=True,
+            fuzz=dict(prob_reorder=0.06, prob_duplicate=0.06,
+                      prob_delay=0.04, max_delay_s=0.01),
+            steps=(
+                ("wait_blocks", 3),
+                ("crash", 2),
+                ("expect_progress", (0, 1, 3), 2, 60.0),
+                ("restart", 2),
+                ("wait_blocks", 2),
+            ),
+            recovery_blocks=3))
+
+
+def _stored_commits(net):
+    """(height, chain id, validators, block id, commit) of every commit
+    each node of ``net`` stores."""
+    for n in net.nodes:
+        for h in range(1, n.block_store.height + 1):
+            commit = n.block_store.load_block_commit(h) or \
+                n.block_store.load_seen_commit(h)
+            yield (h, n.doc.chain_id, n.state_store.load_validators(h),
+                   n.block_store.load_block_meta(h).block_id, commit)
+
+
+def _nemesis_scenario(card, ek, oe, s, device):
+    """One 22a scenario.  Returns B1's launches in the run."""
+    from cometbft_tpu_torch.types import validation
+    from torch_nemesis import run_scenario
+    lanes = [0]
+    real = ek.verify_cols
+
+    def counting(a, r, sw, k):
+        lanes[0] += int(a.shape[1])
+        return real(a, r, sw, k)
+
+    loop = asyncio.new_event_loop()
+    ek.verify_cols = counting
+    ek.launches = 0
+    t0 = time.perf_counter()
+    try:
+        net = loop.run_until_complete(run_scenario(s, device=device))
+    finally:
+        b1 = ek.launches
+        ek.verify_cols = real
+        loop.close()
+    took = time.perf_counter() - t0
+    frames = net.frames()
+    heights = [n.height for n in net.nodes]
+    _log(f"{s.name} (seed {s.seed}): heights {heights}, frames dropped "
+         f"{frames['dropped']} duplicated {frames['duplicated']} reordered "
+         f"{frames['reordered']} delayed {frames['delayed']}, recovery "
+         f"{net.recovery_s:.3f} s to {s.recovery_blocks} blocks (bound "
+         f"{s.recovery_timeout_s:.0f} s), no conflicting commit over "
+         f"{max(heights)} heights, B1 launches {b1} lanes {lanes[0]}, "
+         f"{took:.1f} s; card: {card}")
+    if b1 == 0:
+        raise AssertionError(f"22a {s.name}: B1 never launched")
+    if min(heights) < s.recovery_blocks:
+        raise AssertionError(f"22a {s.name}: heights {heights}")
+    # every stored commit again, on the card
+    ek.launches = 0
+    t0 = time.perf_counter()
+    checked = 0
+    for h, chain_id, vals, block_id, commit in _stored_commits(net):
+        validation.verify_commit(chain_id, vals, block_id, h, commit,
+                                 device=device)
+        checked += 1
+    _log(f"{s.name}: {checked} stored commits of {len(net.nodes)} nodes "
+         f"verified again through verify_commit in "
+         f"{time.perf_counter() - t0:.2f} s, B1 launches {ek.launches}")
+    if checked < sum(heights):
+        raise AssertionError(f"22a {s.name}: {checked} commits verified "
+                             f"of {sum(heights)}")
+    # one height's batch, a corrupted lane added, against the plain B1
+    h, chain_id, vals, _, commit = next(
+        c for c in _stored_commits(net) if c[0] == 2)
+    items = [(vals.validators[i].pub_key.bytes(),
+              commit.vote_sign_bytes(chain_id, i), cs.signature)
+             for i, cs in enumerate(commit.signatures) if cs.for_block()]
+    pub, msg, sig = items[0]
+    items.append((pub, msg, bytes([sig[0] ^ 1]) + sig[1:]))
+    _, mask = oe.verify_batch(items, device=device)
+    _, plain = oe.verify_batch(items, device="cpu")
+    if mask != plain or mask != [True] * (len(items) - 1) + [False]:
+        raise AssertionError(f"22a {s.name}: B1 mask {mask}, plain {plain}")
+    _log(f"{s.name}: height 2's {len(items) - 1} signatures and a "
+         f"corrupted lane: B1 mask == plain B1 mask {mask}")
+    return b1
+
+
+def _crash_run(home, target, fail_index, device):
+    """One crash-driver process; returns (rc, seconds, its JSON line or
+    None, its output)."""
+    env = {**os.environ}
+    env.pop("FAIL_TEST_INDEX", None)
+    if fail_index >= 0:
+        env["FAIL_TEST_INDEX"] = str(fail_index)
+    if device is not None:
+        env["COMETBFT_TPU_TORCH_CRASH_DEVICE"] = str(device)
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, os.path.join(TESTS_DIR, "torch_crash_driver.py"),
+         home, str(target)], env=env, capture_output=True, text=True,
+        timeout=CRASH_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    line = next((json.loads(x) for x in reversed(p.stdout.splitlines())
+                 if x.startswith("{")), None)
+    return p.returncode, took, line, p.stdout + p.stderr
+
+
+def _torn_wal(home):
+    """Overwrite the last 20 bytes of a node's WAL; returns its path."""
+    wal = os.path.join(home, "data", "cs.wal", "wal")
+    with open(wal, "r+b") as f:
+        f.seek(0, 2)
+        f.seek(max(0, f.tell() - 20))
+        f.write(b"\xde\xad\xbe\xef" * 5)
+    return wal
+
+
+def _crash_sweep(card, root, device):
+    """22b: the crash processes side by side, then their restarts side by
+    side; the torn-WAL node's first run goes with the crashes."""
+    idx = {b: FAIL_POINTS_A_HEIGHT + b for b in CRASH_BOUNDARIES}
+    homes = {b: os.path.join(root, f"crash{b}", "node") for b in idx}
+    torn = os.path.join(root, "torn", "node")
+    _phase(f"22b the fail-point crash sweep: node processes on the card "
+           f"crash (exit 99) at boundaries {CRASH_BOUNDARIES} of height 2 "
+           f"(indices {sorted(idx.values())}) and restart to height "
+           f"{CRASH_TARGET}; a restart on a torn WAL tail")
+    with ThreadPoolExecutor(len(idx) + 1) as ex:
+        crashes = {b: ex.submit(_crash_run, homes[b], 50, i, device)
+                   for b, i in idx.items()}
+        first = ex.submit(_crash_run, torn, CRASH_TARGET, -1, device)
+        crashes = {b: f.result() for b, f in crashes.items()}
+        first = first.result()
+    for b, (rc, took, _, out) in crashes.items():
+        _log(f"boundary {b} (index {idx[b]}): rc {rc} after {took:.1f} s")
+        if rc != 99:
+            raise AssertionError(f"22b: fail point {idx[b]} gave rc {rc}:"
+                                 f"\n{out[-2000:]}")
+    if first[0] != 0:
+        raise AssertionError(f"22b: the torn-WAL node's first run gave rc "
+                             f"{first[0]}:\n{first[3][-2000:]}")
+    wal = _torn_wal(torn)
+    with ThreadPoolExecutor(len(idx) + 1) as ex:
+        restarts = {b: ex.submit(_crash_run, homes[b], CRASH_TARGET, -1,
+                                 device) for b in idx}
+        again = ex.submit(_crash_run, torn, CRASH_TARGET + 3, -1, device)
+        restarts = {b: f.result() for b, f in restarts.items()}
+        again = again.result()
+    for name, (rc, took, line, out) in [
+            *((f"restart after boundary {b}", r)
+              for b, r in restarts.items()),
+            ("torn WAL, first run", first), ("torn WAL, restart", again)]:
+        if rc != 0 or line is None:
+            raise AssertionError(f"22b: {name} gave rc {rc}:\n"
+                                 f"{out[-2000:]}")
+        _log(f"{name}: rc 0, Node.start {line['start_s']:.3f} s, height "
+             f"{line['height']} {line['run_s']:.3f} s later, process "
+             f"{took:.1f} s, B1 launches {line['b1_launches']} lanes "
+             f"{line['b1_lanes']}")
+    if not os.path.exists(wal + ".corrupted"):
+        raise AssertionError("22b: the torn WAL left no .corrupted copy")
+    _log(f"torn WAL: repaired with a .corrupted copy "
+         f"({os.path.getsize(wal + '.corrupted')} B), committed on to "
+         f"height {again[2]['height']}; card: {card}")
+
+
+def _fault_phases(seed, card, device=None):
+    """Phases 22a-22b: the nemesis's faulty-links and pipelined-commit
+    scenarios in this process on B1, the stored commits verified again,
+    and the crash sweep's node processes.  Returns B1's launches by
+    scenario."""
+    from cometbft_tpu_torch.ops import ed25519 as oe
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    if TESTS_DIR not in sys.path:
+        sys.path.insert(0, TESTS_DIR)
+    from torch_nemesis import Scenario
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cs22-")
+    launches = {}
+    logging.disable(logging.INFO)
+    try:
+        for s in _fault_scenarios(Scenario):
+            _phase(f"22a the nemesis on the card: {s.name} (seed {s.seed})"
+                   f", four validators on B1")
+            launches[f"nemesis_{s.name}"] = _nemesis_scenario(
+                card, ek, oe, s, device)
+        _crash_sweep(card, root, device)
+    finally:
+        logging.disable(logging.NOTSET)
+        shutil.rmtree(root, ignore_errors=True)
+    _log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11249,6 +11487,7 @@ def main() -> int:
     node_launches, node_launches8 = _node_phases(args.seed, card, keep)
     qa_launches = _qa_phases(args.seed, card)
     bench_launches = _bench_phases(args.seed, card)
+    fault_launches = _fault_phases(args.seed, card)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -11272,7 +11511,8 @@ def main() -> int:
                              **sync_launches, **ss_launches,
                              **rpc_launches, **ls_launches,
                              **sa_launches, **node_launches,
-                             **qa_launches, **bench_launches},
+                             **qa_launches, **bench_launches,
+                             **fault_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],

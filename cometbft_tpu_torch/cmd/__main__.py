@@ -75,10 +75,8 @@ def cmd_start(args) -> int:
                            return_when=asyncio.FIRST_COMPLETED)
         for task in (failed, signalled):
             task.cancel()
-            try:
-                await task
-            except (asyncio.CancelledError, Exception):
-                pass   # the failure is raised again by stop()
+        # the failure is raised again by stop()
+        await asyncio.gather(failed, signalled, return_exceptions=True)
         await node.stop()
 
     try:

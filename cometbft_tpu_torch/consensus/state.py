@@ -342,8 +342,9 @@ class ConsensusState:
             # standalone (tests / light wiring): the receive routine
             # still runs supervisor-owned — a bare create_task would
             # die silently on the first uncaught exception, and the
-            # tier-1 bftlint supervised-spawn rule locks that
-            # invariant for all reactor/node loops
+            # bftlint supervised-spawn rule, run over the port by
+            # tests/test_torch_bftlint.py, locks that invariant for
+            # all reactor/node loops
             from ..libs.supervisor import Supervisor
             self.supervisor = Supervisor("consensus",
                                          logger=self.logger)

@@ -239,7 +239,9 @@ class Histogram(_Metric):
                     self._counts[i] += 1
                     idx = min(idx, i)
             if exemplar:
-                # OpenMetrics exemplar timestamps are wall-clock metadata
+                # OpenMetrics exemplar timestamps are wall-clock metadata,
+                # not interval arithmetic
+                # bftlint: disable=monotonic-clock
                 self._exemplars[idx] = (v, time.time(), exemplar)
 
     @property

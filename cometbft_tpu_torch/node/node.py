@@ -255,7 +255,6 @@ class Node:
         self._started = False
         # the first fatal error of the node itself (a dead app)
         self.failure: Optional[BaseException] = None
-        self._app_watch: Optional[asyncio.Task] = None
         self._stopping = False
 
     # ------------------------------------------------------------------
@@ -295,8 +294,11 @@ class Node:
         # out-of-process app: open the four AppConns first
         await self.app_conns.start()
         if hasattr(self.app_conns, "wait_dead"):
-            self._app_watch = asyncio.get_running_loop().create_task(
-                self._watch_app())
+            # supervised, so an error of the watch itself is the node's
+            # failure instead of a task that dies unseen
+            self.supervisor.spawn(
+                self._watch_app, name="app_watch", kind="app_watch",
+                on_giveup=self._on_watch_giveup, fatal=lambda e: True)
 
         # deadlines on the remote ABCI boundary (builtin apps share our
         # event loop, so no deadline there)
@@ -408,7 +410,9 @@ class Node:
             except CorruptWALError as e:
                 # one repair attempt: keep the valid prefix, replay again
                 from ..consensus.wal import repair_wal_file
-                dropped = repair_wal_file(wal_path)
+                # off the loop; awaited, so the truncate ends before
+                # anything else touches the WAL
+                dropped = await asyncio.to_thread(repair_wal_file, wal_path)
                 self.consensus_state.wal.reopen()
                 self.logger.error(
                     "WAL corrupted; repaired by truncating",
@@ -573,8 +577,13 @@ class Node:
             # recover the height on a restart)
             try:
                 await self.consensus_state.stop(drain_pipeline=False)
-            except Exception:  # noqa: BLE001 — the app's error is the node's
-                pass
+            except Exception as e:  # noqa: BLE001 — the app's error is the node's
+                self.logger.error("consensus stopped with an error after "
+                                  "the app died", err=repr(e))
+
+    def _on_watch_giveup(self, st, exc: BaseException) -> None:
+        if self.failure is None:
+            self.failure = exc
 
     def raise_if_failed(self) -> None:
         """Raise the error that stopped the node, if any: a dead app, or
@@ -637,12 +646,6 @@ class Node:
         if getattr(self, "_grpc_priv_server", None) is not None:
             await self._grpc_priv_server.stop()
         await self.app_conns.stop()
-        if self._app_watch is not None:
-            self._app_watch.cancel()
-            try:
-                await self._app_watch
-            except asyncio.CancelledError:
-                pass
         if getattr(self, "_signer_endpoint", None) is not None:
             await self._signer_endpoint.stop()
         self._started = False

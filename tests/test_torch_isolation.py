@@ -29,6 +29,8 @@
     testnet tools and the mesh load no psutil and nothing of the
     repository's root ``tools/`` either, and ``make_mesh()`` raises
     without CUDA;
+  * the port's fault harnesses (tests/torch_nemesis.py and
+    tests/torch_crash_driver.py) import neither jax nor the JAX package;
   * only the three gRPC transports import ``grpc``: with it unimportable
     (the card's machine has no grpcio) every other module and
     chip_smoke.py load;
@@ -555,6 +557,30 @@ def test_p2p_and_reactor_load_no_jax_reference_or_cryptography():
         "asyncio.run(asyncio.wait_for(go(), 60))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'cometbft_tpu', 'cryptography'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_fault_harnesses_import_nothing_of_jax_or_the_reference():
+    """tests/torch_nemesis.py and tests/torch_crash_driver.py (which the
+    card runs too, from chip_smoke.py's phase 22) name neither ``jax``
+    nor the JAX package in any import, nested ones included; imported
+    in a fresh interpreter with the modules the crash driver's node
+    loads, they load nothing of either."""
+    harnesses = [REPO / "tests" / f for f in
+                 ("torch_nemesis.py", "torch_crash_driver.py")]
+    for path in harnesses:
+        assert not _imports_of(path) & {"jax", "cometbft_tpu"}, path
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_nemesis, torch_crash_driver\n"
+        "import cometbft_tpu_torch.node.node, cometbft_tpu_torch.privval\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu'))\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
