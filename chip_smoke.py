@@ -261,6 +261,17 @@ the fail-point crash sweep: tests/torch_crash_driver.py node processes on
 the card crashing (exit 99) at commit-path boundaries 0, 2, 5 and 6 of
 height 2 and restarting to their target (exit 0), and a node restarting
 on a torn WAL tail, which leaves a .corrupted copy and commits on.
+Phase 23 drives the record readers on the card: the JAX package's live
+exposition contract's net (three Nodes in this process verifying on B1,
+four txs, every node to height 6); node 0's /trace?height=H of each
+committed height through the port's tools/trace_report.py, one line a
+height (wall, gossip, verify, execute, commit ms and kernel_execute
+spans), the run's record holding one kernel_execute span, its kernel
+`cuda`, for each B1 launch logged; /metrics and /metrics?exemplars=1
+through the exposition contract's parser (tests/torch_exposition.py),
+batch verification counted under the backend `cuda` and every exemplar
+at a height that had begun; and tools/metrics_catalog.py's catalog equal
+to the one tier-1 pins (tests/torch_catalog.py).
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's name and power limit, and {"ok": true, "device": {...}}.  Signatures are made
 from --seed with the golden model in a pool of worker processes.
@@ -10883,6 +10894,249 @@ def _fault_phases(seed, card, device=None):
     return launches
 
 
+# -- 23. the record readers ---------------------------------------------------
+# the JAX package's live exposition contract (tests/test_metrics_contract.py:
+# three validators, four txs), run to a height that leaves five completed
+OBS_VALIDATORS = 3
+OBS_TXS = 4
+OBS_HEIGHT = 6
+OBS_TIMEOUT_S = 60.0
+# the histogram families the live contract requires observed, and the labels
+OBS_HISTOGRAMS = (
+    ("cometbft_consensus_step_duration_seconds", {}),
+    ("cometbft_consensus_quorum_prevote_delay_seconds", {}),
+    ("cometbft_consensus_block_interval_seconds", {}),
+    ("cometbft_consensus_rounds_per_height", {}),
+    ("cometbft_proxy_method_timing_seconds", {"conn": "consensus"}),
+    ("cometbft_mempool_checktx_duration_seconds", {}),
+    ("cometbft_p2p_message_send_size_bytes", {}),
+)
+
+
+def _obs_config(root, name):
+    """One validator home as the live exposition contract makes it: RPC
+    and p2p on free ports, a 30 ms commit timeout, a FilePV and a node
+    key."""
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.p2p.key import NodeKey
+    from cometbft_tpu_torch.privval import FilePV
+    home = os.path.join(root, name)
+    cfg = Config()
+    cfg.base.home = home
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.allow_duplicate_ip = True
+    cfg.consensus.timeout_commit_ns = 30_000_000
+    os.makedirs(os.path.join(home, "config"), exist_ok=True)
+    os.makedirs(os.path.join(home, "data"), exist_ok=True)
+    pv = FilePV.generate(cfg.base.path(cfg.base.priv_validator_key_file),
+                         cfg.base.path(cfg.base.priv_validator_state_file))
+    NodeKey.load_or_gen(cfg.base.path(cfg.base.node_key_file))
+    return cfg, pv
+
+
+async def _obs_net(root, device):
+    """OBS_VALIDATORS Nodes on one genesis under ``root``, started and
+    dialed full mesh (the nodes started so far are stopped if that
+    fails)."""
+    from cometbft_tpu_torch.node import Node
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    cfgs = [_obs_config(root, f"n{i}") for i in range(OBS_VALIDATORS)]
+    gen = GenesisDoc(chain_id="contract-chain", genesis_time=Timestamp.now(),
+                     validators=[GenesisValidator(
+                         address=b"", pub_key=pv.get_pub_key(), power=10)
+                         for _, pv in cfgs])
+    for cfg, _ in cfgs:
+        gen.save_as(cfg.base.path(cfg.base.genesis_file))
+    nodes = [Node(cfg, device=device) for cfg, _ in cfgs]
+    started = []
+    try:
+        for nd in nodes:
+            await nd.start()
+            started.append(nd)
+        for i, a in enumerate(nodes):
+            for b in nodes[i + 1:]:
+                await a.switch.dial_peer(b.switch.listen_addr)
+    except BaseException:
+        for nd in started:
+            await nd.stop()
+        raise
+    return nodes
+
+
+async def _obs_body(port, path) -> str:
+    return (await _http_get(port, path, close=True)).partition(
+        b"\r\n\r\n")[2].decode()
+
+
+async def _obs_run(root, device):
+    """The net to OBS_HEIGHT with OBS_TXS txs sent to node 0; node 0's
+    ``/trace?height=H`` of each height every node has committed, its
+    ``/metrics`` and ``/metrics?exemplars=1``, then the nodes stopped.
+    Returns a dict: ``traces`` by height, the ``metrics`` and ``om``
+    pages, ``in_progress`` (the highest height begun at the scrape),
+    ``run_s`` (seconds to OBS_HEIGHT) and ``since`` (unix seconds at the
+    start, what an exemplar of this run is stamped after)."""
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    # exemplar stamps are wall-clock metadata, compared as such
+    since = time.time()
+    t0 = time.perf_counter()
+    nodes = await _obs_net(root, device)
+    try:
+        cli = HTTPClient(f"http://{nodes[0]._rpc_server.listen_addr}",
+                         timeout=30.0)
+        for i in range(OBS_TXS):
+            await cli.broadcast_tx_sync(b"contract%d=v" % i)
+        await _nodes_until(nodes, lambda: all(
+            nd.height >= OBS_HEIGHT for nd in nodes),
+            f"23 every node at height {OBS_HEIGHT}", OBS_TIMEOUT_S)
+        run_s = time.perf_counter() - t0
+        port = nodes[0]._rpc_server.port
+        top = min(nd.height for nd in nodes)
+        traces = {}
+        for h in range(1, top + 1):
+            body = json.loads(await _obs_body(port, f"/trace?height={h}"))
+            traces[h] = body["result"]
+        metrics = await _obs_body(port, "/metrics")
+        om = await _obs_body(port, "/metrics?exemplars=1")
+        in_progress = max(nd.consensus_state.rs.height for nd in nodes)
+    finally:
+        for nd in nodes:
+            await nd.stop()
+    return {"traces": traces, "metrics": metrics, "om": om,
+            "in_progress": in_progress, "run_s": run_s, "since": since}
+
+
+def _kernel_spans(events):
+    return [e for e in events
+            if e["category"] == "crypto" and e["name"] == "kernel_execute"]
+
+
+def _obs_traces(card, traces, record, launches):
+    """23a: each committed height's ``/trace`` body through the port's
+    trace_report, one line a height; every kernel_execute span's kernel
+    is ``cuda`` and the run's record holds one span a logged launch."""
+    from cometbft_tpu_torch.tools import trace_report
+    for h, body in traces.items():
+        row = trace_report.analyze(body, height=h).get(h)
+        if row is None:
+            raise AssertionError(f"23a: /trace?height={h} gave no row")
+        spans = _kernel_spans(body["events"])
+        _log(f"height {h}: wall {row['wall_ms']:.3f} ms, gossip "
+             f"{row['gossip_ms']:.3f}, verify {row['verify_ms']:.3f}, "
+             f"execute {row['execute_ms']:.3f}, commit "
+             f"{row['commit_ms']:.3f}, kernel_execute spans {len(spans)}")
+    text = trace_report.render_report(next(iter(traces.values())))
+    if "gossip_ms" not in text:
+        raise AssertionError(f"23a: the report lacks gossip_ms:\n{text}")
+    spans = _kernel_spans(record["events"])
+    kernels = sorted({str((e.get("attrs") or {}).get("kernel"))
+                      for e in spans})
+    if kernels != ["cuda"]:
+        raise AssertionError(f"23a: kernel_execute spans name kernels "
+                             f"{kernels}")
+    rows = trace_report.analyze(record)
+    by_height = sum(sum(b["name"] == "kernel_execute" for b in r["batches"])
+                    for r in rows.values())
+    if len(spans) != len(launches) or by_height != len(spans):
+        raise AssertionError(
+            f"23a: {len(spans)} kernel_execute spans in the run's record "
+            f"({by_height} in its height rows), {len(launches)} B1 launches")
+    if not spans:
+        raise AssertionError("23a: B1 never launched")
+    _log(f"23a: {len(spans)} kernel_execute spans over {len(rows)} heights "
+         f"== {len(launches)} B1 launches in the run (buckets "
+         f"{sorted(collections.Counter(launches).items())}); card: {card}")
+
+
+def _obs_metrics(card, run, backend):
+    """23b: both pages through the exposition contract; the live
+    contract's histograms observed, batch verification counted under the
+    port's backend label, every exemplar of this run at a height that
+    had begun."""
+    from torch_exposition import (assert_exposition_contract,
+                                  exemplar_heights, hist_count)
+    metrics, om, in_progress = run["metrics"], run["om"], run["in_progress"]
+    fams = assert_exposition_contract(metrics)
+    om_fams = assert_exposition_contract(om, openmetrics=True)
+    # OpenMetrics names a counter family without its _total suffix
+    plain = {n[:-len("_total")] if f["type"] == "counter" and
+             n.endswith("_total") else n for n, f in fams.items()}
+    if plain != set(om_fams):
+        raise AssertionError(f"23b: families only on one page: "
+                             f"{sorted(plain ^ set(om_fams))}")
+    counts = {name: hist_count(fams, name, **labels)
+              for name, labels in OBS_HISTOGRAMS}
+    verified = hist_count(fams, "cometbft_crypto_batch_verify_seconds",
+                          backend=backend)
+    if not all(counts.values()) or not verified:
+        raise AssertionError(f"23b: counts {counts}, batch verify "
+                             f"{verified} under backend={backend}")
+    heights = exemplar_heights(om_fams, since=run["since"])
+    if not heights or not 1 <= min(heights) <= max(heights) <= in_progress:
+        raise AssertionError(f"23b: exemplar heights {sorted(set(heights))}"
+                             f", heights in progress up to {in_progress}")
+    _log(f"23b: /metrics {len(metrics)} B and /metrics?exemplars=1 "
+         f"{len(om)} B pass the exposition contract, {len(fams)} families; "
+         f"batch_verify_seconds _count {verified:.0f} under "
+         f"backend={backend}; {len(heights)} exemplars of this run at heights "
+         f"{min(heights)}-{max(heights)} (heights in progress up to "
+         f"{in_progress}); card: {card}")
+
+
+def _obs_catalog():
+    """23c: the catalog in this process is tier-1's."""
+    from cometbft_tpu_torch.tools import metrics_catalog
+    from torch_catalog import TABLE
+    got = metrics_catalog.to_markdown(
+        metrics_catalog.collect_catalog()).splitlines()
+    want = TABLE.splitlines()
+    if got != want:
+        raise AssertionError(
+            f"23c: the catalog differs from tier-1's: only here "
+            f"{[r for r in got if r not in want]}, only in tier-1's "
+            f"{[r for r in want if r not in got]}")
+    _log(f"23c: collect_catalog() gives tier-1's {len(got) - 2} families")
+
+
+def _observability_phases(seed, card, device=None):
+    """Phase 23: three Nodes in this process on ``device`` (None: the
+    card) run the live exposition contract's net; node 0's records go
+    through the port's readers.  Returns B1's launches."""
+    from cometbft_tpu_torch.device import resolve
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.rpc import core as rpc_core
+    if TESTS_DIR not in sys.path:
+        sys.path.insert(0, TESTS_DIR)
+    t_phase = time.perf_counter()
+    n = OBS_VALIDATORS
+    _phase(f"23 the record readers: {n} Nodes in this process (device="
+           f"{device}), {OBS_TXS} txs, every node to height {OBS_HEIGHT}; "
+           f"node 0's /trace, /metrics and /metrics?exemplars=1")
+    _clear_memos()
+    root = tempfile.mkdtemp(prefix="cs23-")
+    loop = asyncio.new_event_loop()
+    logging.disable(logging.INFO)
+    try:
+        with _launch_log(ek) as launches:
+            run = loop.run_until_complete(_obs_run(root, device))
+        # the three nodes share this process's recorder and launch count:
+        # the route serves the whole run's record, all three nodes' spans
+        record = loop.run_until_complete(rpc_core.routes(None)["trace"]())
+    finally:
+        logging.disable(logging.NOTSET)
+        loop.close()
+        shutil.rmtree(root, ignore_errors=True)
+    _log(f"23: {n} nodes at height {OBS_HEIGHT} {run['run_s']:.2f} s after "
+         f"the first start; heights in progress up to {run['in_progress']}")
+    _obs_traces(card, run["traces"], record, launches)
+    _obs_metrics(card, run, resolve(device).type)
+    _obs_catalog()
+    _log(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return {f"observability_{n}x{OBS_HEIGHT}": len(launches)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11488,6 +11742,7 @@ def main() -> int:
     qa_launches = _qa_phases(args.seed, card)
     bench_launches = _bench_phases(args.seed, card)
     fault_launches = _fault_phases(args.seed, card)
+    obs_launches = _observability_phases(args.seed, card)
 
     # -- 7. kernels line, card line, result line -----------------------------
     # ms, plain_ms and bound_ms are for one launch at the main path's
@@ -11512,7 +11767,7 @@ def main() -> int:
                              **rpc_launches, **ls_launches,
                              **sa_launches, **node_launches,
                              **qa_launches, **bench_launches,
-                             **fault_launches},
+                             **fault_launches, **obs_launches},
         "max_abs_err": max_abs_err,
         "lanes": tile_lanes,
         "ms": timings[tile_lanes],

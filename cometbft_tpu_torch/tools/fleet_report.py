@@ -1,10 +1,10 @@
-"""Cluster critical-path analysis of a QA fleet's flight records.
+"""Cluster critical-path report from a QA fleet's flight records.
 
-The port's own trimmed copy of ``load_inputs`` and ``analyze`` from the
-repository's ``tools/fleet_report.py`` (the text report and the CLI stay
-there).  Input is the fleet collector's ``fleet_<run>.json``
-(``tools/qa._FleetCollector``: the ``/trace`` bodies of every node of the
-run, rpc/core.py's ``trace`` route) or one saved ``/trace`` body a node.
+The port's copy of the repository's ``tools/fleet_report.py``:
+``load_inputs``, ``analyze``, the text report and the CLI.  Input is
+the fleet collector's ``fleet_<run>.json`` (``tools/qa._FleetCollector``:
+the ``/trace`` bodies of every node of the run, rpc/core.py's ``trace``
+route), saved ``/trace`` bodies or flight-record dumps, one a node.
 Per node, clock offset and drift are fitted from the recorder's
 ``(monotonic_ns, wall_ns)`` anchors and every event is mapped onto one
 wall timeline; per height the analysis gives the proposer and its
@@ -12,10 +12,15 @@ propose span, each node's proposal sighting, the prevote and precommit
 power waterfalls (time to 1/3 and 2/3) and the inter-node commit skew,
 plus gossip hop latencies and a straggler table.  ``tools/qa.py`` gates
 the p95 time to 2/3 prevotes and the largest commit skew on it.
+
+    python -m cometbft_tpu_torch.tools.fleet_report dump-a.json ... \
+        [--height H] [--powers 10,1,1,1] [--json]
 """
 from __future__ import annotations
 
+import argparse
 import json
+import sys
 from typing import Optional
 
 _MS = 1e6  # ns per ms
@@ -315,3 +320,89 @@ def analyze(nodes: list[dict], height: Optional[int] = None,
         },
         "stragglers": stragglers,
     }
+
+
+# ---------------------------------------------------------------------
+# rendering
+
+def _fmt(v: Optional[float]) -> str:
+    return f"{v:8.2f}" if v is not None else "       -"
+
+
+def render_report(report: dict) -> str:
+    lines = [f"fleet: {len(report['nodes'])} nodes "
+             f"({', '.join(report['nodes'])})"]
+    for name, fit in sorted(report["clock_fits"].items()):
+        lines.append(f"  clock {name}: offset "
+                     f"{fit['offset_ns'] / _MS:.2f}ms drift "
+                     f"{fit['drift']:+.2e}")
+    if not report["heights"]:
+        lines.append("no height-stamped consensus events in these "
+                     "records")
+        return "\n".join(lines) + "\n"
+    for h, row in sorted(report["heights"].items()):
+        lines.append("")
+        lines.append(
+            f"height {h}  proposer={row['proposer'] or '?'}  "
+            f"propose_span={row['propose_span_ms']:.2f}ms  "
+            f"commit_skew={row['commit_skew_ms']:.2f}ms")
+        hdr = (f"  {'node':<14} {'seen_ms':>8} {'pv_1/3':>8} "
+               f"{'pv_2/3':>8} {'pc_2/3':>8} {'commit':>8}")
+        lines.append(hdr)
+        lines.append("  " + "-" * (len(hdr) - 2))
+        for name, r in sorted(row["nodes"].items()):
+            lines.append(
+                f"  {name:<14} {_fmt(r['proposal_seen_ms'])} "
+                f"{_fmt(r['prevote_t13_ms'])} "
+                f"{_fmt(r['prevote_t23_ms'])} "
+                f"{_fmt(r['precommit_t23_ms'])} "
+                f"{_fmt(r['commit_ms'])}")
+    hops = report["hop_latency_ms"]
+    lines.append("")
+    lines.append(
+        f"hop latency (ms): proposal p50={hops['proposal']['p50']:.2f}"
+        f" p90={hops['proposal']['p90']:.2f}"
+        f" max={hops['proposal']['max']:.2f}"
+        f" n={hops['proposal']['n']};"
+        f" vote p50={hops['vote']['p50']:.2f}"
+        f" p90={hops['vote']['p90']:.2f}"
+        f" max={hops['vote']['max']:.2f} n={hops['vote']['n']}")
+    lines.append("stragglers (mean delay vs fleet-first, ms):")
+    for name, s in sorted(report["stragglers"].items()):
+        lines.append(
+            f"  {name:<14} proposal={s['mean_proposal_delay_ms']:.2f}"
+            f" commit={s['mean_commit_delay_ms']:.2f}"
+            f" heights={s['heights_seen']}")
+    return "\n".join(lines) + "\n"
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        description="Cluster critical-path report from N flight "
+                    "records")
+    p.add_argument("dumps", nargs="+",
+                   help="flight dumps, /trace bodies, or "
+                        "fleet_<run>.json collections")
+    p.add_argument("--height", type=int, default=None,
+                   help="restrict to one height")
+    p.add_argument("--powers", default="",
+                   help="comma list of voting powers by validator "
+                        "index (default: equal)")
+    p.add_argument("--json", action="store_true",
+                   help="JSON instead of text")
+    args = p.parse_args(argv)
+    powers = None
+    if args.powers:
+        powers = [float(x) for x in args.powers.split(",") if x]
+    nodes = load_inputs(args.dumps)
+    report = analyze(nodes, height=args.height, powers=powers)
+    if args.json:
+        json.dump(report, sys.stdout, indent=2)
+        sys.stdout.write("\n")
+    else:
+        sys.stdout.write(render_report(report))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -29,6 +29,9 @@
     testnet tools and the mesh load no psutil and nothing of the
     repository's root ``tools/`` either, and ``make_mesh()`` raises
     without CUDA;
+  * the record readers (the trace report, the fleet report, the metrics
+    catalog) load none of those nor the root ``tools/``, and the trace
+    and fleet reports no torch;
   * the port's fault harnesses (tests/torch_nemesis.py and
     tests/torch_crash_driver.py) import neither jax nor the JAX package;
   * only the three gRPC transports import ``grpc``: with it unimportable
@@ -112,6 +115,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert set(GRPC_TRANSPORTS) <= set(mods)
     assert set(NODE_MODULES) <= set(mods)
     assert set(TESTNET_MODULES) <= set(mods)
+    assert set(READER_MODULES) <= set(mods)
     assert "cometbft_tpu_torch.tools.benchmarks" in mods
     assert set(API_MODULES) <= set(mods)
     assert len(mods) >= 20
@@ -341,6 +345,48 @@ def test_testnet_tools_and_mesh_load_no_jax_reference_or_psutil():
                                         "tools"}, path
         text = path.read_text()
         assert "spec_from_file_location" not in text, path
+
+
+READER_MODULES = ("cometbft_tpu_torch.tools.trace_report",
+                  "cometbft_tpu_torch.tools.fleet_report",
+                  "cometbft_tpu_torch.tools.metrics_catalog")
+
+
+def test_record_readers_load_no_jax_reference_or_root_tools():
+    """The three record readers, imported in a fresh interpreter with
+    ``psutil`` and ``grpc`` unimportable, load nothing of jax, of the JAX
+    package or of the repository's root ``tools/``; the trace and fleet
+    reports load no torch either (they read JSON), and the catalog builds
+    there.  None of their sources imports those packages or loads a file
+    by path; tests/torch_exposition.py and tests/torch_catalog.py, which
+    chip_smoke.py's phase 23 imports on the card, import neither jax nor
+    the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.modules['psutil'] = None\n"
+        "sys.modules['grpc'] = None\n"
+        "import cometbft_tpu_torch.tools.trace_report\n"
+        "import cometbft_tpu_torch.tools.fleet_report\n"
+        "print('torch' in sys.modules)\n"
+        "from cometbft_tpu_torch.tools import metrics_catalog\n"
+        "print(len(metrics_catalog.collect_catalog()))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'cometbft_tpu', 'tools') or (m.split('.')[0] in "
+        "('psutil', 'grpc') and sys.modules[m] is not None))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "110", "[]"]
+    tools = REPO / "cometbft_tpu_torch" / "tools"
+    paths = [tools / f"{m.rsplit('.', 1)[1]}.py" for m in READER_MODULES]
+    for path in paths:
+        assert not _imports_of(path) & {"jax", "cometbft_tpu", "psutil",
+                                        "tools", "grpc"}, path
+        assert "spec_from_file_location" not in path.read_text(), path
+    for name in ("torch_exposition.py", "torch_catalog.py"):
+        assert not _imports_of(REPO / "tests" / name) & {"jax",
+                                                         "cometbft_tpu"}
 
 
 def test_benchmarks_runner_loads_alone_and_needs_the_card():
